@@ -1,0 +1,62 @@
+"""Instance generators for the batched small-conic workloads.
+
+The port's own copies of the generators in the repository's `bench.py`
+(`make_batch` and the qp_eq batch), so that the port and its smoke script
+draw the same instances as the JAX package's benchmark from the same seed,
+plus two variants of the bench shape: primal-infeasible lanes and an LP
+batch (P = 0).  numpy only.
+"""
+
+import numpy as np
+
+
+def make_batch(B, n, seed=0):
+    """The bench-shape SOCP batch: x <= ub (nn rows), ||x|| <= r (one SOC
+    of dim n+1); P = F F' + I/2.  Cones [NN(n), SOC(n+1)], m = 2n+1.
+    A copy of `bench.make_batch`, draw for draw."""
+    rng = np.random.default_rng(seed)
+    Ps, qs, As, bs = [], [], [], []
+    for _ in range(B):
+        F = rng.standard_normal((n, n)) / np.sqrt(n)
+        Ps.append(F @ F.T + 0.5 * np.eye(n))
+        qs.append(rng.standard_normal(n))
+        As.append(np.vstack([np.eye(n), np.zeros((1, n)), -np.eye(n)]))
+        bs.append(np.concatenate([rng.uniform(0.5, 1.5, n),
+                                  [rng.uniform(1.0, 2.0)], np.zeros(n)]))
+    return (np.stack(Ps), np.stack(qs), np.stack(As), np.stack(bs))
+
+
+def make_qp_eq(B, n, seed=1):
+    """The qp_eq batch of `bench.py`: sum x = 1 (zero cone), x <= ub,
+    -sum x <= 0.5.  Cones [Zero(1), NN(n+1)], m = n+2."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", F, F) + 0.5 * np.eye(n)
+    q = rng.standard_normal((B, n))
+    A = np.zeros((B, n + 2, n))
+    A[:, 0, :] = 1.0
+    A[:, 1:n + 1] = np.eye(n)
+    A[:, n + 1] = -1.0
+    b = np.concatenate([np.ones((B, 1)), rng.uniform(0.5, 1.5, (B, n)),
+                        np.full((B, 1), 0.5)], axis=1)
+    return P, q, A, b
+
+
+def infeasible_lanes(B, every=8, first=3):
+    """Lane indices that `make_infeasible_batch` makes infeasible."""
+    return np.arange(first, B, every)
+
+
+def make_infeasible_batch(B, n, seed=2, every=8, first=3):
+    """The bench shape with x0 <= -3 on every `every`-th lane: together
+    with ||x|| <= r, r in [1, 2], those lanes are primal infeasible."""
+    P, q, A, b = make_batch(B, n, seed)
+    b[infeasible_lanes(B, every, first), 0] = -3.0
+    return P, q, A, b
+
+
+def make_lp_batch(B, n, seed=3):
+    """The bench shape as an LP (P = 0, solved with p_nonzero=False):
+    the SOC bounds every lane."""
+    _, q, A, b = make_batch(B, n, seed)
+    return None, q, A, b

@@ -1,0 +1,176 @@
+"""Static cone layout: the cone list lowered once, at setup time.
+
+A copy of the reference package's `ConeLayout` (numpy and hashlib only):
+the per-cone index `ranges`, the barrier `degree`, the structure-of-arrays
+`groups` of same-type cones, and the structure `key` that hashes the group
+index contents.  The PSD clique-size bucketing waits for the PSD slice of
+the port; a layout that would need it raises `NotImplementedError`.
+"""
+
+import dataclasses
+import hashlib
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .api import (
+    SupportedCone,
+    ZeroConeT,
+    NonnegativeConeT,
+    SecondOrderConeT,
+    ExponentialConeT,
+    PowerConeT,
+    GenPowerConeT,
+    PSDTriangleConeT,
+    nvars,
+    cone_degree,
+    cone_is_symmetric,
+)
+
+
+@dataclasses.dataclass
+class ConeGroup:
+    """One batched group of same-type (and same-shape) cones."""
+
+    kind: str  # "zero" | "nn" | "soc" | "psd" | "exp" | "pow" | "genpow"
+    # (count, width) indices into the length-m conic vector; (1, k) for
+    # the elementwise kinds.  Bucketed SOC groups pad with the sentinel m.
+    idx: np.ndarray
+    psd_n: int = 0
+    alpha: Optional[np.ndarray] = None
+    dim1: int = 0
+    dim2: int = 0
+    # (count,) true cone dims when bucketed/padded; None = width exact
+    true_dims: Optional[np.ndarray] = None
+
+    @property
+    def count(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+
+class ConeLayout:
+    """Static plan for a Cartesian product of cones, hashable via `.key`."""
+
+    def __init__(self, cones: Sequence[SupportedCone],
+                 soc_bucketing: Optional[bool] = None,
+                 psd_bucketing: Optional[bool] = None):
+        self.cones: Tuple[SupportedCone, ...] = tuple(cones)
+        self.m = int(sum(nvars(c) for c in self.cones))
+        self.degree = int(sum(cone_degree(c) for c in self.cones))
+        self.is_symmetric = all(cone_is_symmetric(c) for c in self.cones)
+
+        self.ranges: List[Tuple[int, int]] = []
+        ofs = 0
+        for c in self.cones:
+            k = nvars(c)
+            self.ranges.append((ofs, ofs + k))
+            ofs += k
+
+        zero_idx: List[np.ndarray] = []
+        nn_idx: List[np.ndarray] = []
+        soc_by_dim: Dict[int, List[np.ndarray]] = defaultdict(list)
+        psd_by_n: Dict[int, List[np.ndarray]] = defaultdict(list)
+        exp_idx: List[np.ndarray] = []
+        pow_idx: List[np.ndarray] = []
+        pow_alpha: List[float] = []
+        genpow_by_shape: Dict[Tuple[int, int], list] = defaultdict(list)
+
+        for cone, (lo, hi) in zip(self.cones, self.ranges):
+            rng = np.arange(lo, hi, dtype=np.int32)
+            if isinstance(cone, ZeroConeT):
+                zero_idx.append(rng)
+            elif isinstance(cone, NonnegativeConeT):
+                nn_idx.append(rng)
+            elif isinstance(cone, SecondOrderConeT):
+                soc_by_dim[cone.dim].append(rng)
+            elif isinstance(cone, PSDTriangleConeT):
+                psd_by_n[cone.dim].append(rng)
+            elif isinstance(cone, ExponentialConeT):
+                exp_idx.append(rng)
+            elif isinstance(cone, PowerConeT):
+                pow_idx.append(rng)
+                pow_alpha.append(cone.alpha)
+            elif isinstance(cone, GenPowerConeT):
+                a = np.asarray(cone.alpha, dtype=np.float64)
+                genpow_by_shape[(len(cone.alpha), cone.dim2)].append((rng, a))
+            else:
+                raise TypeError(f"unsupported cone: {cone}")
+
+        self.groups: Dict[str, ConeGroup] = {}
+        if zero_idx:
+            self.groups["zero"] = ConeGroup("zero", np.concatenate(zero_idx)[None, :])
+        if nn_idx:
+            self.groups["nn"] = ConeGroup("nn", np.concatenate(nn_idx)[None, :])
+
+        # SOC bucketing: pad many distinct dims to power-of-two buckets
+        # (zero-padding an SOC is exact)
+        if soc_bucketing is None:
+            soc_bucketing = len(soc_by_dim) > 2
+        if soc_bucketing and soc_by_dim:
+            buckets: Dict[int, List[Tuple[np.ndarray, int]]] = defaultdict(list)
+            for dim, rows in soc_by_dim.items():
+                bdim = max(4, 1 << (dim - 1).bit_length())
+                for r in rows:
+                    buckets[bdim].append((r, dim))
+            for bdim in sorted(buckets):
+                entries = buckets[bdim]
+                idx = np.full((len(entries), bdim), self.m, dtype=np.int32)
+                tdims = np.zeros(len(entries), dtype=np.int32)
+                for i, (r, dim) in enumerate(entries):
+                    idx[i, :dim] = r
+                    tdims[i] = dim
+                exact = bool(np.all(tdims == bdim))
+                self.groups[f"soc{bdim}b"] = ConeGroup(
+                    "soc", idx, true_dims=None if exact else tdims
+                )
+        else:
+            for dim in sorted(soc_by_dim):
+                self.groups[f"soc{dim}"] = ConeGroup(
+                    "soc", np.stack(soc_by_dim[dim])
+                )
+        if psd_bucketing is None:
+            psd_bucketing = len(psd_by_n) > 4
+        if psd_bucketing and psd_by_n:
+            raise NotImplementedError(
+                "PSD clique-size bucketing is not ported yet "
+                "(ROADMAP.md Queue 1 item 9, PSD cones)")
+        for n in sorted(psd_by_n):
+            self.groups[f"psd{n}"] = ConeGroup(
+                "psd", np.stack(psd_by_n[n]), psd_n=n)
+        if exp_idx:
+            self.groups["exp"] = ConeGroup("exp", np.stack(exp_idx))
+        if pow_idx:
+            self.groups["pow"] = ConeGroup(
+                "pow", np.stack(pow_idx), alpha=np.asarray(pow_alpha, dtype=np.float64)
+            )
+        for (d1, d2) in sorted(genpow_by_shape):
+            entries = genpow_by_shape[(d1, d2)]
+            self.groups[f"genpow{d1}_{d2}"] = ConeGroup(
+                "genpow",
+                np.stack([e[0] for e in entries]),
+                alpha=np.stack([e[1] for e in entries]),
+                dim1=d1,
+                dim2=d2,
+            )
+
+        # structure key: hashes the idx CONTENTS, not just shapes (the
+        # same cone multiset in another order has the same group shapes
+        # but different row maps)
+        h = hashlib.sha1()
+        for name, g in self.groups.items():
+            h.update(name.encode())
+            h.update(np.ascontiguousarray(g.idx).tobytes())
+            if g.alpha is not None:
+                h.update(np.ascontiguousarray(g.alpha).tobytes())
+        self.key = (
+            tuple(
+                (name, g.kind, g.idx.shape, g.psd_n, g.dim1, g.dim2)
+                for name, g in self.groups.items()
+            ),
+            h.hexdigest(),
+        )

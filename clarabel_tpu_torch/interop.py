@@ -1,0 +1,50 @@
+"""Carry one problem's configuration from the reference package to the port.
+
+`from_reference(settings_dict, cone_specs)` takes the reference's settings
+as a plain dict (`dataclasses.asdict` of a `clarabel_tpu.Settings`) and its
+cones as `(class name, dims or alpha)` tuples, and returns the port's
+`Settings` and cone objects.  Plain dicts and tuples keep the port free of
+any import of the reference package.
+"""
+
+from typing import List, Sequence, Tuple
+
+from .cones import api as cones_api
+from .settings import Settings
+
+_CONE_CLASSES = ("ZeroConeT", "NonnegativeConeT", "SecondOrderConeT",
+                 "ExponentialConeT", "PowerConeT", "GenPowerConeT",
+                 "PSDTriangleConeT")
+
+
+def cone_from_tuple(spec: Tuple) -> cones_api.SupportedCone:
+    """("SecondOrderConeT", 7) -> SecondOrderConeT(7); the tuple after
+    the class name holds the constructor's arguments (none for the
+    exponential cone, (alpha, dim2) for the generalized power cone)."""
+    name, *args = spec
+    if name not in _CONE_CLASSES:
+        raise ValueError(f"unknown cone class {name!r}")
+    return getattr(cones_api, name)(*args)
+
+
+def cone_to_tuple(cone) -> Tuple:
+    """The inverse of `cone_from_tuple`, for any cone object whose class
+    carries one of the reference's cone names (either package's)."""
+    name = type(cone).__name__
+    if name not in _CONE_CLASSES:
+        raise ValueError(f"unknown cone class {name!r}")
+    if name == "ExponentialConeT":
+        return (name,)
+    if name == "PowerConeT":
+        return (name, float(cone.alpha))
+    if name == "GenPowerConeT":
+        return (name, tuple(cone.alpha), int(cone.dim2))
+    return (name, int(cone.dim))
+
+
+def from_reference(settings_dict: dict, cone_specs: Sequence[Tuple]
+                   ) -> Tuple[Settings, List[cones_api.SupportedCone]]:
+    """The port's (Settings, cones) for the reference's settings dict and
+    cone tuples.  Unknown setting names raise ValueError."""
+    return (Settings.from_dict(dict(settings_dict)),
+            [cone_from_tuple(c) for c in cone_specs])

@@ -1,0 +1,1 @@
+"""The interior-point solver: the batched megakernel and its plain version."""

@@ -1,0 +1,286 @@
+"""Host side of the batched IPM megakernel (K1a: zero/nn/soc segments).
+
+The reference (`clarabel_tpu/ipm/megakernel.py`) runs the whole batched
+IPM as one Pallas kernel per 1024-lane block.  The port runs it as one
+CUDA kernel per dispatch, one instance per thread (`csrc/megakernel.cu`,
+bound in `ipm/_cuda.py`), and on the CPU as its plain PyTorch version
+(`ipm/megakernel_ref.py`).  This module holds what surrounds both: the
+eligibility rule, the host-side packing of the data into component-major,
+lane-minor flats with batch-constant components passed once, the output
+row layout, and the lazily materialized outputs.
+
+Dispatch: one kernel launch per solve, whatever the batch size.  The
+reference chunks lanes (`_chunk_lanes`) to overlap transfers with compute
+over the TPU host link; the port has no measurement on the card that asks
+for chunks, so it makes one dispatch (PERF.md).
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..cones.api import NonnegativeConeT, SecondOrderConeT, ZeroConeT
+from ..cones.layout import ConeLayout
+from ..settings import Settings
+from . import megakernel_ref
+
+# per-lane data widths the kernel takes (see `eligible`)
+S8, L128 = 8, 128
+
+
+def _vmem_estimate_bytes(n: int, m: int) -> int:
+    """The reference's per-block working-set bound (kept as the
+    eligibility rule until the port sets a Hopper bound)."""
+    rows = (
+        2 * (n * n + n * m + n + m)
+        + 2 * n * m
+        + 2 * n * n
+        + 4 * n * m
+        + 20 * (n + 2 * m)
+        + 120
+    )
+    return rows * S8 * L128 * 4
+
+
+def eligible(layout: ConeLayout, settings: Settings, n: int) -> bool:
+    """The reference's rule for the megakernel regime: small dense
+    problems at float64, without verbose or mixed precision, with at least
+    one barrier cone.  Which of those layouts this slice's kernel covers
+    is `covered`."""
+    if settings.dtype != "float64":
+        return False
+    if settings.verbose or settings.mixed_precision:
+        return False
+    m = layout.m
+    if n < 1 or m < 1 or n > 32 or m > 96 or n * m > 2048:
+        return False
+    if _vmem_estimate_bytes(n, m) > 12 * 1024 * 1024:
+        return False
+    n_nonsym = 0
+    for c in layout.cones:
+        name = type(c).__name__
+        if name not in ("ZeroConeT", "NonnegativeConeT", "SecondOrderConeT",
+                        "ExponentialConeT", "PowerConeT", "GenPowerConeT",
+                        "PSDTriangleConeT"):
+            return False
+        if isinstance(c, SecondOrderConeT) and c.dim < 2:
+            return False
+        if name in ("ExponentialConeT", "PowerConeT"):
+            n_nonsym += 1
+        if name == "GenPowerConeT":
+            w_g = len(c.alpha) + c.dim2
+            if w_g > 16:
+                return False
+            n_nonsym += 1 + w_g // 3
+        if name == "PSDTriangleConeT":
+            if c.dim > 3:
+                return False
+            n_nonsym += 1 + (c.dim * c.dim) // 3
+    if n_nonsym > 16:
+        return False
+    if (_vmem_estimate_bytes(n, m) + n_nonsym * 48 * S8 * L128 * 4
+            > 12 * 1024 * 1024):
+        return False
+    if layout.degree < 1:
+        return False
+    return True
+
+
+def covered(layout: ConeLayout) -> bool:
+    """True when every segment is one this slice's kernel computes:
+    zero, nonnegative and second-order cones."""
+    return all(isinstance(c, (ZeroConeT, NonnegativeConeT, SecondOrderConeT))
+               for c in layout.cones)
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaSpec:
+    """What the kernel is specialised to: the shape, the cone segments
+    (kind, lo, hi) and the settings."""
+
+    n: int
+    m: int
+    segs: Tuple[Tuple[str, int, int], ...]
+    degree: int
+    p_nonzero: bool
+    st: Settings
+
+    @property
+    def outd(self) -> int:
+        return self.n + 2 * self.m + 13
+
+    @property
+    def triu(self) -> int:
+        return self.n * (self.n + 1) // 2
+
+    @property
+    def p_gather(self) -> Tuple[int, ...]:
+        """Column-major triu flat -> full column-major n x n map,
+        tri(i, j) = j(j+1)/2 + i for i <= j."""
+        n = self.n
+        return tuple((j * (j + 1)) // 2 + i if i <= j
+                     else (i * (i + 1)) // 2 + j
+                     for j in range(n) for i in range(n))
+
+
+def make_spec(layout: ConeLayout, settings: Settings, n: int,
+              p_nonzero: bool = True) -> MegaSpec:
+    if not covered(layout):
+        raise NotImplementedError(
+            "the megakernel covers zero, nonnegative and second-order "
+            "segments only (ROADMAP.md Queue 2 K1b-K1d)")
+    segs = []
+    for cone, (lo, hi) in zip(layout.cones, layout.ranges):
+        kind = {ZeroConeT: "zero", NonnegativeConeT: "nn",
+                SecondOrderConeT: "soc"}[type(cone)]
+        segs.append((kind, lo, hi))
+    return MegaSpec(n, layout.m, tuple(segs), layout.degree,
+                    bool(p_nonzero), settings)
+
+
+REST_NAMES = ["obj_val_dual", "r_prim", "r_dual", "gap_abs", "gap_rel",
+              "mu", "step_length", "sigma", "ktratio", "tau", "kappa",
+              "raw_status"]
+
+
+def prepare(P, q, A, b, spec: MegaSpec, device):
+    """Host arrays -> the kernel's four input flats on `device`.
+
+    P may be full-symmetric or upper-triangular: only its upper triangle
+    is read.  A component whose every batch entry is identical is passed
+    once, as a 1-D (d,) tensor (lane stride 0 in the kernel); the varying
+    ones are packed into one (sum of d, B) host array, moved in one copy,
+    and handed on as contiguous row blocks of it.  Returns
+    (B, [Ptri, q, A, b])."""
+    n, m = spec.n, spec.m
+    P = np.asarray(P, np.float64)
+    q = np.asarray(q, np.float64)
+    A = np.asarray(A, np.float64)
+    b = np.asarray(b, np.float64)
+    B = q.shape[0]
+    tri_i = np.concatenate([np.arange(j + 1) for j in range(n)])
+    tri_j = np.concatenate([np.full(j + 1, j) for j in range(n)])
+
+    def is_const(arr):
+        return (arr.shape[0] > 1 and np.array_equal(arr[1], arr[0])
+                and bool((arr == arr[0]).all()))
+
+    exts = [
+        (P, lambda x: x[:, tri_i, tri_j]),
+        (q, lambda x: x.reshape(len(x), n)),
+        (A, lambda x: x.transpose(0, 2, 1).reshape(len(x), n * m)),
+        (b, lambda x: x.reshape(len(x), m)),
+    ]
+    flats, varying = [None] * 4, []
+    for i, (raw, ext) in enumerate(exts):
+        if is_const(raw):
+            flats[i] = torch.from_numpy(
+                np.ascontiguousarray(ext(raw[:1])[0])).to(device)
+        else:
+            varying.append((i, ext(raw)))
+    if varying:
+        packed = np.empty((sum(f.shape[1] for _, f in varying), B))
+        off = 0
+        for _, f in varying:
+            packed[off:off + f.shape[1]] = f.T
+            off += f.shape[1]
+        dev_packed = torch.from_numpy(packed).to(device)
+        off = 0
+        for i, f in varying:
+            flats[i] = dev_packed[off:off + f.shape[1]]
+            off += f.shape[1]
+    return B, flats
+
+
+def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
+    """The megakernel wrapper over B lanes: on CUDA tensors it launches
+    the kernel (or raises); on CPU tensors it runs the plain PyTorch
+    version.  B is passed, not read from the flats: every flat may be a
+    batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (2, B)
+    int32)."""
+    devs = {t.device.type for t in (Ptri, q, A, b)}
+    if devs == {"cuda"}:
+        from . import _cuda
+
+        return _cuda.megakernel(Ptri, q, A, b, spec, B)
+    if devs == {"cpu"}:
+        return megakernel_ref.mega_solve_plain(Ptri, q, A, b, spec, B)
+    raise ValueError(f"inputs on mixed devices: {sorted(devs)}")
+
+
+def split_outputs(vals, ints, spec: MegaSpec):
+    """(OUTD, B), (2, B) -> the eager block (x, obj_val, status,
+    iterations; (n+3, B) float64) and the rest (z, s, diagnostics), both
+    lane-minor on the device."""
+    n, k = spec.n, spec.n + 2 * spec.m
+    eager = torch.cat([vals[:n], vals[k:k + 1], ints.to(vals.dtype)], dim=0)
+    rest = torch.cat([vals[n:k], vals[k + 1:]], dim=0)
+    return eager, rest
+
+
+def unpack_eager(e, n: int) -> dict:
+    """Host-side unpack of the (n+3, B) eager block."""
+    e = np.asarray(e).T
+    return {
+        "x": e[:, :n],
+        "obj_val": e[:, n],
+        "status": e[:, n + 1].astype(np.int64),
+        "iterations": e[:, n + 2].astype(np.int64),
+    }
+
+
+def unpack_rest(r, m: int) -> dict:
+    """Host-side unpack of the lazily fetched block (z, s, diagnostic
+    scalars)."""
+    r = np.asarray(r).T
+    out = {"z": r[:, :m], "s": r[:, m:2 * m]}
+    for i, nm in enumerate(REST_NAMES):
+        out[nm] = r[:, 2 * m + i]
+    return out
+
+
+class LazyOutputs(dict):
+    """Solver-output dict whose rarely read fields (z, s, diagnostic
+    scalars) stay on the device until first accessed."""
+
+    def __init__(self, eager: dict, lazy_keys, fetch):
+        super().__init__(eager)
+        self._lazy_keys = tuple(lazy_keys)
+        self._fetch = fetch
+
+    def _materialize(self):
+        if self._fetch is not None:
+            rest = self._fetch()
+            self._fetch = None
+            self.update(rest)
+
+    def __getitem__(self, k):
+        if not dict.__contains__(self, k) and k in self._lazy_keys:
+            self._materialize()
+        return dict.__getitem__(self, k)
+
+
+def build_mega_solve(layout: ConeLayout, settings: Settings, n: int,
+                     p_nonzero: bool = True,
+                     device: Optional[torch.device] = None):
+    """Returns solve(P, q, A, b) over batch-major (B, ...) host arrays,
+    yielding the reference's output dict (a LazyOutputs)."""
+    spec = make_spec(layout, settings, n, p_nonzero)
+    device = torch.device(device) if device is not None else \
+        torch.device("cuda")
+
+    def solve(P, q, A, b):
+        B, flats = prepare(P, q, A, b, spec, device)
+        vals, ints = solve_flats(*flats, spec, B)
+        eager, rest = split_outputs(vals, ints, spec)
+        out = unpack_eager(eager.cpu().numpy(), n)
+
+        def fetch_rest():
+            return unpack_rest(rest.cpu().numpy(), spec.m)
+
+        return LazyOutputs(out, REST_NAMES + ["z", "s"], fetch_rest)
+
+    solve.spec = spec
+    return solve
