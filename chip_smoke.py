@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (clarabel_tpu_torch) on one NVIDIA card.
 
-Builds the batched IPM megakernel (clarabel_tpu_torch/csrc/megakernel.cu)
-from the sources beside this script, holds it against its plain PyTorch
-version on the card, drives the port's main path (`BatchSolver.solve` on
-the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8 tolerances) at B = 4096,
-65536 and 131072, and prints what it measured.  Every phase fails the run
-(non-zero exit) when its bar is not met.
+Builds the two CUDA kernels from the sources beside this script, in
+parallel: the batched IPM megakernel K1a (clarabel_tpu_torch/csrc/
+megakernel.cu) and the float32 LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
+Holds each against its plain PyTorch version on the card, drives the
+port's paths through `BatchSolver.solve` and prints what it measured:
+
+* [1] the card, the toolchain and the builds;
+* [2]-[4] K1a against its plain version on four batches, and the main path
+  (the megakernel on the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8
+  tolerances) at B = 4096, 65536 and 131072;
+* [5] K2 against its plain version at N = 19 and 80, B = 65536, and a
+  wrong K2 (dynamic regularization off) that its bars must reject;
+* [6] the loop solver on the card: `Settings.throughput()` (float32, K2
+  once per IPM iteration) at B = 4096 and 65536, and the ldl backend with
+  mixed precision at 4096, each with the kernel and with the plain K2;
+* [7] the rescue cascade behind the megakernel on the LP batch.
+
+Every phase fails the run (non-zero exit) when its bar is not met.
 
     python3 chip_smoke.py
 
 It needs one CUDA card and exits non-zero without one, or when the port's
-package is not beside it.  The line before the last is a JSON object with
-the kernel's numbers; the last line is
+package is not beside it.  The line before the card's line is a JSON object
+with the kernels' numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -28,9 +40,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full power limit): HBM
-# bandwidth in bytes/s and FP64 outside the tensor cores in operations/s
-# (the kernel issues plain FP64 FMAs)
-HBM_RATE, FP64_RATE = 3.35e12, 34e12
+# bandwidth in bytes/s, and FP64 and FP32 outside the tensor cores in
+# operations/s (the kernels issue plain FP64 and FP32 FMAs)
+HBM_RATE, FP64_RATE, FP32_RATE = 3.35e12, 34e12, 67e12
 
 BENCH_N = 6
 THROUGHPUT_BATCHES = (4096, 65536, 131072)
@@ -58,6 +70,30 @@ WRONG_KERNELS = {
     "no refinement": {"iterative_refinement_enable": False},
     "gap tolerances 1e-7": {"tol_gap_abs": 1e-7, "tol_gap_rel": 1e-7},
 }
+
+
+# K2 against its plain version (float32, nvcc contracts to FMA where
+# PyTorch does not): ok equal on every lane; d within D_TOL * max(1, |d|);
+# L⁻¹ within LINV_TOL of the lane's largest |L⁻¹| entry (at least 1).  The
+# batch trips the dynamic regularization on a quarter of the lanes, so a
+# K2 without it fails the d bar.
+K2_SHAPES = ((6, 13), (30, 50))     # N = 19 (the bench shape's KKT), 80
+K2_B = 65536
+D_TOL, LINV_TOL = 1e-4, 1e-4
+
+# The loop paths with the kernel against the same paths with the plain K2
+# on the card: the kernel's SOLVED count at least the plain version's less
+# 0.1 % of B (as for K1a); on the lanes both solve, objectives within
+# obj_rel * max(1, |obj|), and iterations within 1 on a share within1 of
+# them and within it_max on all.  Beside them, the plain K2 against itself
+# with q moved by `jitter` (relative): what rounding alone moves.
+LOOP_BARS = {
+    "throughput": dict(obj_rel=1e-4, within1=0.95, it_max=8, jitter=1e-7),
+    "mixed": dict(obj_rel=1e-6, within1=0.99, it_max=4, jitter=1e-15),
+}
+LOOP_BATCHES = (("throughput", 4096), ("throughput", 65536), ("mixed", 4096))
+RESCUE_B = (4096, 131072)
+DEVICE = "cuda"   # the phases' device (a rehearsal on the CPU sets "cpu")
 
 
 def fail(msg):
@@ -108,6 +144,296 @@ def true_kkt(P, q, A, b, x, z, s):
     return rp, rd, np.abs(np.einsum("bi,bi->b", s, z))
 
 
+def events_ms(fn, reps):
+    """Mean ms per call of fn on the card (CUDA events), after one warm-up
+    call; returns (ms, the last call's result)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def synced_wall(fn):
+    """Host seconds of fn() ending in a synchronise; returns (s, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+# ---- K2: the float32 LDL-inverse kernel ----
+
+def k2_inputs(n, m, B, seed):
+    """B KKT matrices of size n+m (bench_data.make_kkts) on which the
+    dynamic regularization trips: every 8th lane has its first pivot
+    decoupled and below eps, every 8th lane from the 4th has its last
+    (z-block) pivot turned positive."""
+    from clarabel_tpu_torch import bench_data
+
+    K, signs = bench_data.make_kkts(B, n, m, seed)
+    K[0::8, 0, 1:] = 0.0
+    K[0::8, 1:, 0] = 0.0
+    K[0::8, 0, 0] = 1e-9
+    K[4::8, -1, -1] = 1e3
+    return K, signs
+
+
+def k2_ops(N):
+    """FP32 operations of one instance in the kernel: per column j with
+    r = N-1-j rows below, r divisions, r products pivot*col, the trailing
+    update of K (2 r^2) and the full-row update of L^-1 (2 N^2)."""
+    return sum(2 * r + 2 * r * r + 2 * N * N
+               for r in (N - 1 - j for j in range(N)))
+
+
+def k2_bound_ms(N, B):
+    """The larger of bytes (K read once; L^-1, d and ok written once; the
+    signs) over HBM bandwidth and FP32 operations over the FP32 rate."""
+    nbytes = B * (2 * N * N * 4 + N * 4 + 1) + N * 4
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    ops_ms = B * k2_ops(N) / FP32_RATE * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), nbytes, B * k2_ops(N)
+
+
+def k2_readings(got, plain):
+    """What the kernel's (L^-1, d, ok) read against the plain version's."""
+    Linv, d, ok = got
+    pL, pd, pok = plain
+    both = ok & pok
+    scale = pL.abs().amax(dim=(1, 2)).clamp_min(1.0)
+    linv = ((Linv - pL).abs().amax(dim=(1, 2)) / scale)[both]
+    drel = ((d - pd).abs() / pd.abs().clamp_min(1.0)).amax(dim=1)[both]
+    absd = max(float((Linv - pL).abs().amax(dim=(1, 2))[both].max()),
+               float((d - pd).abs().amax(dim=1)[both].max()))
+    return dict(ok_equal=bool((ok == pok).all()), ok=int(ok.sum()),
+                linv=float(linv.max()), d=float(drel.max()), abs=absd)
+
+
+def k2_violations(r):
+    out = []
+    if not r["ok_equal"]:
+        out.append("ok")
+    if not r["d"] <= D_TOL:
+        out.append("d")
+    if not r["linv"] <= LINV_TOL:
+        out.append("L^-1")
+    return out
+
+
+def k2_phase(card, failures):
+    """[5] K2 against its plain version at N = 19 and 80, and the wrong K2
+    that the bars must reject.  Returns the N = 19 numbers."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    st = ctt.Settings.throughput()   # the main path's regularization
+    eps, delta = st.dynamic_regularization_eps, \
+        st.dynamic_regularization_delta
+    out = {}
+    for n, m in K2_SHAPES:
+        N = n + m
+        K, signs = k2_inputs(n, m, K2_B, seed=N)
+        K = torch.tensor(K, dtype=torch.float32, device=DEVICE)
+        signs = torch.tensor(signs, dtype=torch.float32, device=DEVICE)
+        k_ms, got = events_ms(
+            lambda: batched_ldl.kernel(K, signs, eps, delta, True), 20)
+        p_ms, plain = events_ms(
+            lambda: batched_ldl.ldl_inverse_plain(K, signs, eps, delta, True),
+            1)
+        r = k2_readings(got, plain)
+        wrong = k2_readings(batched_ldl.kernel(K, signs, eps, delta, False),
+                            plain)
+        bound, by, nbytes, ops = k2_bound_ms(N, K2_B)
+        tag = f"[5] K2 N={N} B={K2_B}"
+        print(f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"{bound:.4f} ms by {by} ({nbytes} bytes, {ops:.3e} FP32 "
+              f"ops); card {card}", flush=True)
+        for what, rd in (("kernel", r), ("wrong K2 (no dynamic "
+                                          "regularization)", wrong)):
+            bad = k2_violations(rd)
+            print(f"{tag}: {what} vs plain: ok on {rd['ok']} lanes (equal "
+                  f"to plain: {rd['ok_equal']}), max rel |dL^-1| "
+                  f"{rd['linv']:.3e}, max rel |dd| {rd['d']:.3e}, max abs "
+                  f"{rd['abs']:.3e}; fails: {', '.join(bad) or 'none'}",
+                  flush=True)
+        print(f"{tag}: bars: ok equal, d {D_TOL:.0e}, L^-1 {LINV_TOL:.0e}")
+        if k2_violations(r):
+            failures.append(f"{tag}: the kernel fails its bars")
+        if not k2_violations(wrong):
+            failures.append(f"{tag}: the bars pass the wrong K2")
+        out[N] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                      max_abs_err=r["abs"])
+        del K, got, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- the loop solver and the rescue cascade on the card ----
+
+def plain_k2_route():
+    """Context in which the loop's K2 route runs the plain version on the
+    card (for the comparison only; the port never does this)."""
+    import contextlib
+    from clarabel_tpu_torch.kkt import dense
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    @contextlib.contextmanager
+    def swapped():
+        dense.batched_ldl_inverse = batched_ldl.ldl_inverse_plain
+        try:
+            yield
+        finally:
+            dense.batched_ldl_inverse = batched_ldl.batched_ldl_inverse
+
+    return swapped()
+
+
+def loop_readings(k, p, B):
+    SOLVED = 1
+    ks, ps = k.status == SOLVED, p.status == SOLVED
+    both = ks & ps
+    dobj = (np.abs(k.obj_val - p.obj_val)
+            / np.maximum(1.0, np.abs(p.obj_val)))[both]
+    dit = np.abs(k.iterations.astype(int) - p.iterations)[both]
+    return dict(solved=int(ks.sum()), plain_solved=int(ps.sum()),
+                dobj=float(dobj.max(initial=0.0)),
+                within1=float((dit <= 1).mean()) if dit.size else 1.0,
+                it_max=int(dit.max(initial=0)))
+
+
+def loop_phase(card, failures):
+    """[6] Settings.throughput() and ldl with mixed precision through
+    BatchSolver.solve on the card, each with the kernel and with the plain
+    K2.  Returns the K2 launch count of the kernel runs and the lines of
+    the throughput table."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+    from clarabel_tpu_torch.ipm import _cuda
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    cones = [ctt.NonnegativeConeT(BENCH_N), ctt.SecondOrderConeT(BENCH_N + 1)]
+    settings = {
+        "throughput": ctt.Settings.throughput(),
+        "mixed": ctt.Settings(kkt_backend="ldl", mixed_precision=True),
+    }
+    big = bench_data.make_batch(max(B for _, B in LOOP_BATCHES), BENCH_N, 0)
+    warm = tuple(a[:256] for a in big)
+    for st in settings.values():
+        ctt.BatchSolver(cones, BENCH_N, st, device=DEVICE).solve(*warm)
+    launches = 0
+    for name, B in LOOP_BATCHES:
+        bs = ctt.BatchSolver(cones, BENCH_N, settings[name], device=DEVICE)
+        data = tuple(a[:B] for a in big)
+        batched_ldl.kernel.launches = 0     # this path's run starts here
+        _cuda.megakernel.launches = 0
+        wall, k = synced_wall(lambda: bs.solve(*data))
+        run_launches = batched_ldl.kernel.launches  # ... and ends here
+        launches += run_launches
+        with plain_k2_route():
+            p_wall, p = synced_wall(lambda: bs.solve(*data))
+            bars = LOOP_BARS[name]
+            qj = data[1] * (1 + bars["jitter"] * np.random.default_rng(
+                7).standard_normal(data[1].shape))
+            pj = bs.solve(data[0], qj, *data[2:])
+        K, signs = k2_inputs(6, 13, B, seed=B)
+        K = torch.tensor(K, dtype=torch.float32, device=DEVICE)
+        signs = torch.tensor(signs, dtype=torch.float32, device=DEVICE)
+        st = settings["throughput"]
+        k2_ms, _ = events_ms(lambda: batched_ldl.kernel(
+            K, signs, st.dynamic_regularization_eps,
+            st.dynamic_regularization_delta, True), 5)
+        r = loop_readings(k, p, B)
+        rj = loop_readings(pj, p, B)
+        tag = f"[6] {name} B={B}"
+        solved = r["solved"]
+        print(f"{tag}: {solved / wall:,.0f} solves/s wall ({wall * 1e3:.1f} "
+              f"ms), mean iters {k.iterations.mean():.3f}, not SOLVED "
+              f"{B - solved}, statuses "
+              f"{np.bincount(k.status, minlength=11).tolist()}; K2 "
+              f"launches {run_launches}, K2 {k2_ms:.4f} ms per launch at "
+              f"this B; megakernel launches {_cuda.megakernel.launches}; "
+              f"card {card}", flush=True)
+        for what, rd in (("kernel", r), (f"plain(q*(1+{bars['jitter']:.0e}"
+                                         f"*xi))", rj)):
+            print(f"{tag}: {what} vs plain K2 on the card: SOLVED "
+                  f"{rd['solved']} vs {rd['plain_solved']}, max rel |dobj| "
+                  f"{rd['dobj']:.3e}, iters within 1 on {rd['within1']:.4f}, "
+                  f"max diff {rd['it_max']}", flush=True)
+        print(f"{tag}: plain K2 wall {p_wall * 1e3:.1f} ms; bars: SOLVED at "
+              f"least plain less 0.1 % of B, objective {bars['obj_rel']:.0e},"
+              f" iters within 1 on {bars['within1']} and {bars['it_max']} on "
+              f"all", flush=True)
+        bad = []
+        if solved < r["plain_solved"] - 0.001 * B:
+            bad.append("SOLVED count")
+        if r["dobj"] > bars["obj_rel"]:
+            bad.append("objective")
+        if r["within1"] < bars["within1"] or r["it_max"] > bars["it_max"]:
+            bad.append("iterations")
+        if run_launches <= 0:
+            bad.append("K2 was not launched")
+        if not np.isfinite(k.x[k.status == 1]).all():
+            bad.append("non-finite x")
+        for v in bad:
+            failures.append(f"{tag}: {v}")
+    return launches
+
+
+def rescue_phase(card, failures):
+    """[7] The LP batch through the megakernel with and without
+    rescue="same": the lanes the cascade closes at B = 4096, and the wall
+    time with and without it at B = 131072."""
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+
+    cones = [ctt.NonnegativeConeT(BENCH_N), ctt.SecondOrderConeT(BENCH_N + 1)]
+    _, q, A, b = bench_data.make_lp_batch(max(RESCUE_B), BENCH_N, 3)
+    st = ctt.Settings()
+    plain = ctt.BatchSolver(cones, BENCH_N, st, p_nonzero=False,
+                            device=DEVICE)
+    resc = ctt.BatchSolver(cones, BENCH_N, st, p_nonzero=False,
+                           rescue="same", device=DEVICE)
+    for B in RESCUE_B:
+        data = (None, q[:B], A[:B], b[:B])
+        plain.solve(*data)
+        resc.solve(*data)
+        w0, s0 = synced_wall(lambda: plain.solve(*data))
+        w1, s1 = synced_wall(lambda: resc.solve(*data))
+        before, after = int((s0.status == 1).sum()), int((s1.status == 1).sum())
+        kept = s0.status == 1
+        P0 = np.zeros((B, BENCH_N, BENCH_N))
+        rp, rd, sz = true_kkt(P0, q[:B], A[:B], b[:B], s1.x, s1.z, s1.s)
+        ok1 = s1.status == 1
+        kkt = max(rp[ok1].max(initial=0.0), rd[ok1].max(initial=0.0))
+        print(f"[7] lp B={B}: megakernel alone {w0 * 1e3:.1f} ms wall, "
+              f"SOLVED {before}, statuses "
+              f"{np.bincount(s0.status, minlength=11).tolist()}; with "
+              f"rescue='same' {w1 * 1e3:.1f} ms wall, SOLVED {after} "
+              f"({after - before} of {B - before} closed), statuses "
+              f"{np.bincount(s1.status, minlength=11).tolist()}; true KKT "
+              f"of the SOLVED lanes {kkt:.3e}; card {card}", flush=True)
+        if after < before:
+            failures.append(f"[7] lp B={B}: the rescue lost SOLVED lanes")
+        if not np.array_equal(s1.x[kept], s0.x[kept]):
+            failures.append(f"[7] lp B={B}: the rescue changed solved lanes")
+        if kkt >= KKT_TOL:
+            failures.append(f"[7] lp B={B}: true KKT {kkt:.3e}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "clarabel_tpu_torch")):
         fail("clarabel_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -119,7 +445,9 @@ def main():
     sys.path.insert(0, HERE)
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch import bench_data
+    from clarabel_tpu_torch import cuda_build
     from clarabel_tpu_torch.ipm import _cuda, megakernel, megakernel_ref
+    from clarabel_tpu_torch.linalg import batched_ldl
     from clarabel_tpu_torch.statuscodes import SolverStatus
 
     if any(k == "jax" or k.startswith(("jax.", "clarabel_tpu."))
@@ -136,7 +464,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     # ---- phase 1: device and toolchain, kernel build ----
-    nvcc = subprocess.run([_cuda.nvcc_path(), "--version"],
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True)
     print(f"[1] card: {card}", flush=True)
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -157,25 +485,16 @@ def main():
     shapes = sorted({_cuda.shape_of(s._mega_fn.spec)
                      for s in solvers.values()})
     t0 = time.perf_counter()
-    _cuda.megakernel.build(shapes)
-    print(f"[1] built {len(shapes)} kernel shapes {shapes} in "
-          f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
-    for shape, log in _cuda.megakernel.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
-                print(f"[1] ptxas {shape}: {line.strip()}")
-
-    def events_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps, out
+    cuda_build.build_together((_cuda.megakernel, shapes),
+                              (batched_ldl.kernel, [()]))
+    print(f"[1] built K1a for {len(shapes)} shapes {shapes} and K2 in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
+          flush=True)
+    for lib in (_cuda.megakernel, batched_ldl.kernel):
+        for variant, log in lib.build_logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "stack" in line:
+                    print(f"[1] ptxas {lib.stem} {variant}: {line.strip()}")
 
     # ---- phases 2-3: kernel vs plain version on the card ----
     def outputs(vals, ints, spec):
@@ -309,6 +628,7 @@ def main():
     torch.cuda.synchronize()
 
     _cuda.megakernel.launches = 0          # the main path's run starts here
+    batched_ldl.kernel.launches = 0
     lines = []
     for B in THROUGHPUT_BATCHES:
         data = tuple(a[:B] for a in big)
@@ -328,9 +648,11 @@ def main():
             f"{out.iterations.mean():.3f}; not SOLVED {B - solved}; "
             f"card {card}")
     launches = _cuda.megakernel.launches   # ... and ends here
+    k2_on_k1a_path = batched_ldl.kernel.launches
     for line in lines:
         print(line, flush=True)
-    print(f"[4] megakernel launches on the main path: {launches}")
+    print(f"[4] megakernel launches on the main path: {launches} (K2: "
+          f"{k2_on_k1a_path})")
     if launches <= 0:
         fail("BatchSolver.solve did not launch the CUDA kernel")
     print(f"[4] plain version on the card, bench B=4096: "
@@ -370,8 +692,18 @@ def main():
     ops_ms = flops / FP64_RATE * 1e3
     print(f"[4] bound at bench B={B}: {flops:.3e} FP64 ops -> {ops_ms:.4f} ms,"
           f" {in_bytes + out_bytes} bytes -> {bytes_ms:.4f} ms")
+
+    # ---- phases 5-7: K2, the loop solver and the rescue cascade ----
+    k2 = k2_phase(card, failures)
+    k2_launches = loop_phase(card, failures)
+    print(f"[6] K2 launches on the loop paths: {k2_launches}", flush=True)
+    if k2_launches <= 0:
+        failures.append("[6] the Settings.throughput() path did not launch K2")
+    rescue_phase(card, failures)
+
     if failures:
         fail("; ".join(failures))
+    k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
     kernels = [{
         "name": "megakernel",
         "route": "cuda",
@@ -383,6 +715,20 @@ def main():
         "plain_ms": r["plain_ms"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "ldl_inverse",
+        "route": "cuda",
+        "source": "clarabel_tpu_torch/csrc/ldl_inverse.cu",
+        "replaces": "clarabel_tpu/linalg/pallas_ldl.py:99",
+        "launches": k2_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+        "ms": k2_main["ms"],
+        "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"],
+        "bound_by": k2_main["bound_by"],
+        # torch.linalg.ldl_factor pivots (Bunch-Kaufman) and has no
+        # sign-aware regularization: no PyTorch call computes this function
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

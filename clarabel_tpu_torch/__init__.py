@@ -5,13 +5,15 @@ A homogeneous-embedding interior-point method for convex conic programs
     min  (1/2) x'Px + q'x   s.t.  Ax + s = b,  s in K
 
 written in PyTorch for an NVIDIA H100, beside the JAX package that stays
-as its reference.  This first slice covers `BatchSolver` over batches of
+as its reference.  The port so far covers `BatchSolver` over batches of
 same-layout zero/nonnegative/second-order programs: the whole batched
-solve runs on the card as one hand-written CUDA kernel
-(`csrc/megakernel.cu`), or on the CPU as that kernel's plain PyTorch
-version when the caller passes `device="cpu"`.
+solve as one hand-written CUDA kernel (`csrc/megakernel.cu`), the batched
+IPM loop solver with the dense ldl and condensed KKT backends (float64,
+float32 and mixed precision; float32 factors through the CUDA LDL kernel
+`csrc/ldl_inverse.cu`), and the rescue cascade.  On the CPU (the caller
+passes `device="cpu"`) each kernel's plain PyTorch version runs instead.
 
-The package imports torch and numpy only, and computes in float64.
+The package imports torch and numpy only.
 """
 
 from .settings import Settings

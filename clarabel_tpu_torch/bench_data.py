@@ -3,8 +3,9 @@
 The port's own copies of the generators in the repository's `bench.py`
 (`make_batch` and the qp_eq batch), so that the port and its smoke script
 draw the same instances as the JAX package's benchmark from the same seed,
-plus two variants of the bench shape: primal-infeasible lanes and an LP
-batch (P = 0).  numpy only.
+plus two variants of the bench shape (primal-infeasible lanes and an LP
+batch with P = 0) and batches of quasidefinite KKT matrices for the LDL
+kernel.  numpy only.
 """
 
 import numpy as np
@@ -60,3 +61,22 @@ def make_lp_batch(B, n, seed=3):
     the SOC bounds every lane."""
     _, q, A, b = make_batch(B, n, seed)
     return None, q, A, b
+
+
+def make_kkts(B, n, m, seed=0):
+    """B quasidefinite KKT matrices [P A'; A -H] of size n + m, with
+    P = F F' + n I and H diagonal in [0.5, 2], and their pivot signs
+    (+1 n times, -1 m times): the distribution of
+    `tests/test_pallas_kernel.py` make_kkts, drawn in bulk (so not its
+    draws)."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n))
+    P = np.einsum("bij,bkj->bik", F, F) + n * np.eye(n)
+    A = rng.standard_normal((B, m, n))
+    H = rng.uniform(0.5, 2.0, (B, m))
+    K = np.zeros((B, n + m, n + m))
+    K[:, :n, :n] = P
+    K[:, n:, :n] = A
+    K[:, :n, n:] = np.swapaxes(A, 1, 2)
+    K[:, n:, n:] = -H[:, :, None] * np.eye(m)
+    return K, np.concatenate([np.ones(n), -np.ones(m)])

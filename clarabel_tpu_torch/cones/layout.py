@@ -5,6 +5,11 @@ the per-cone index `ranges`, the barrier `degree`, the structure-of-arrays
 `groups` of same-type cones, and the structure `key` that hashes the group
 index contents.  The PSD clique-size bucketing waits for the PSD slice of
 the port; a layout that would need it raises `NotImplementedError`.
+
+The gather/scatter helpers at the end move a group's entries between a
+full conic vector and its (count, width) array.  They work on a leading
+lane axis: a conic vector is (B, m) or (B, m, k), a group array
+(B, count, width) or (B, count, width, k).
 """
 
 import dataclasses
@@ -13,6 +18,7 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .api import (
     SupportedCone,
@@ -174,3 +180,98 @@ class ConeLayout:
             ),
             h.hexdigest(),
         )
+
+
+def _on(g: ConeGroup, name: str, arr: np.ndarray, device) -> torch.Tensor:
+    """A host index array of group g as a tensor on `device`, made once
+    per device."""
+    cache = g.__dict__.setdefault("_tensors", {})
+    key = (name, str(device))
+    t = cache.get(key)
+    if t is None:
+        t = torch.as_tensor(arr, device=device)
+        cache[key] = t
+    return t
+
+
+def _contig_start(g: ConeGroup):
+    """Start of the group's indices when they are one contiguous range
+    (the common case: cones are laid out one after another), else None.
+    Contiguous groups use slices instead of gathers."""
+    cached = g.__dict__.get("_contig_cache", "unset")
+    if cached != "unset":
+        return cached
+    flat = np.asarray(g.idx).ravel()
+    start = int(flat[0]) if flat.size else 0
+    padded = g.true_dims is not None and bool(
+        np.any(np.asarray(g.true_dims) != g.idx.shape[1]))
+    val = (start if flat.size and not padded and np.array_equal(
+        flat, np.arange(start, start + flat.size)) else None)
+    g._contig_cache = val
+    return val
+
+
+def _gather(vec, g: ConeGroup):
+    """(B, m, ...) -> (B, count, width, ...).  Bucketed groups carry the
+    out-of-range pad index m, which reads 0 (exact for SOC zero-padding)."""
+    B, M = vec.shape[:2]
+    start = _contig_start(g)
+    if start is not None:
+        sl = vec[:, start:start + g.count * g.width]
+        return sl.reshape((B, g.count, g.width) + vec.shape[2:])
+    idx = _on(g, "idx_fill", np.where(g.idx < M, g.idx, M).astype(np.int64),
+              vec.device)
+    padded = torch.cat([vec, vec.new_zeros((B, 1) + vec.shape[2:])], dim=1)
+    return padded[:, idx]
+
+
+def _scatter(out, g: ConeGroup, vals):
+    """Write (B, count, width, ...) group values into a copy of out
+    (B, m, ...); pad entries drop.  Group rows are disjoint, so the
+    scatter is an inverse-permutation gather masked to the covered rows."""
+    B, M = out.shape[:2]
+    flat = vals.reshape((B, g.count * g.width) + vals.shape[3:]).to(out.dtype)
+    start = _contig_start(g)
+    if start is not None:
+        res = out.clone()
+        res[:, start:start + g.count * g.width] = flat
+        return res
+    idx = np.asarray(g.idx).ravel()
+    valid = (idx >= 0) & (idx < M)
+    pos = np.zeros(M, np.int64)
+    cov = np.zeros(M, bool)
+    pos[idx[valid]] = np.arange(idx.size)[valid]
+    cov[idx[valid]] = True
+    pos_t = _on(g, f"scatter_pos{M}", pos, out.device)
+    cov_t = _on(g, f"scatter_cov{M}", cov, out.device)
+    covb = cov_t.view((1, M) + (1,) * (out.dim() - 2))
+    return torch.where(covb, flat[:, pos_t], out)
+
+
+def _row_range(g: ConeGroup):
+    """Contiguous range of a flat (1, k) elementwise group, or None."""
+    row = np.asarray(g.idx[0])
+    start = int(row[0]) if row.size else 0
+    if row.size and np.array_equal(row, np.arange(start, start + row.size)):
+        return start, start + row.size
+    return None
+
+
+def _grow(vec, g: ConeGroup):
+    """vec[:, g.idx[0]], as a slice when contiguous."""
+    rng = _row_range(g)
+    if rng is not None:
+        return vec[:, rng[0]:rng[1]]
+    return vec[:, _on(g, "row", g.idx[0].astype(np.int64), vec.device)]
+
+
+def _srow_set(out, g: ConeGroup, vals):
+    """A copy of out with out[:, g.idx[0]] = vals."""
+    res = out.clone()
+    rng = _row_range(g)
+    if rng is not None:
+        res[:, rng[0]:rng[1]] = vals.to(out.dtype)
+    else:
+        res[:, _on(g, "row", g.idx[0].astype(np.int64), out.device)] = \
+            vals.to(out.dtype)
+    return res

@@ -1,0 +1,121 @@
+"""Build the CUDA sources of this package into shared libraries and load them.
+
+Every kernel of the port has a plain C interface and is bound with ctypes:
+nvcc by hand builds such a source in seconds, where one that includes
+PyTorch's headers takes minutes.  A `CudaLibrary` is one source under
+`csrc/`.  It is compiled with nvcc for sm_90a at first use, once per
+variant (a tuple of compile-time `-D` values; the empty tuple for a source
+that takes none), into `build/kernels/` beside the package (a directory
+that `.gitignore` lists).  The library name carries a hash of the source and
+the flags, so an edited source builds anew.
+
+`build_together` starts one nvcc for every missing library of every source
+it is given, all at once, and waits for them; a failed build raises.
+Nothing here falls back to anything: a kernel that does not build is an
+error.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+Variant = Tuple[int, ...]
+
+_BUILD_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+class CudaLibrary:
+    """One CUDA source and the libraries built from it, one per variant.
+
+    `macros` name the `-D` values of a variant and `tags` the short names
+    that go into the library's file name (`megakernel_n6_m13_s2_<hash>.so`).
+    A subclass binds the library's functions in `bind(lib, variant)`."""
+
+    def __init__(self, source_name: str, macros: Sequence[str] = (),
+                 tags: Sequence[str] = ()):
+        self.source = os.path.join(CSRC, source_name)
+        self.stem = os.path.splitext(source_name)[0]
+        self.macros = tuple(macros)
+        self.tags = tuple(tags)
+        self.build_logs: Dict[Variant, str] = {}
+        self._libs: Dict[Variant, ctypes.CDLL] = {}
+
+    def lib_path(self, variant: Variant = ()) -> str:
+        with open(self.source, "rb") as f:
+            h = hashlib.sha1(f.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        tag = "".join(f"_{t}{v}" for t, v in zip(self.tags, variant))
+        return os.path.join(BUILD_DIR,
+                            f"{self.stem}{tag}_{h.hexdigest()[:12]}.so")
+
+    def _start(self, variants: Iterable[Variant]):
+        """Start nvcc for each variant not built yet; returns the running
+        builds."""
+        procs = []
+        for variant in dict.fromkeys(tuple(v) for v in variants):
+            out = self.lib_path(variant)
+            if variant in self._libs or os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            defines = [f"-D{mac}={val}"
+                       for mac, val in zip(self.macros, variant)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp, self.source]
+            procs.append((variant, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        return procs
+
+    def _finish(self, procs) -> List[str]:
+        failed = []
+        for variant, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            self.build_logs[variant] = log
+            if proc.returncode != 0:
+                failed.append(f"{self.stem} {variant}:\n{log}")
+            else:
+                os.replace(tmp, out)
+        return failed
+
+    def build(self, variants: Iterable[Variant] = ((),)) -> None:
+        build_together((self, variants))
+
+    def bind(self, lib: ctypes.CDLL, variant: Variant) -> None:
+        raise NotImplementedError
+
+    def load(self, variant: Variant = ()) -> ctypes.CDLL:
+        """The library for `variant`, built first if it is missing."""
+        variant = tuple(variant)
+        lib = self._libs.get(variant)
+        if lib is None:
+            self.build([variant])
+            lib = ctypes.CDLL(self.lib_path(variant))
+            self.bind(lib, variant)
+            self._libs[variant] = lib
+        return lib
+
+
+def build_together(*requests: Tuple[CudaLibrary, Iterable[Variant]]) -> None:
+    """Build every missing (library, variant) of `requests` with one nvcc
+    each, all started together; raises if any build fails."""
+    with _BUILD_LOCK:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        started = [(lib, lib._start(variants)) for lib, variants in requests]
+        failed = []
+        for lib, procs in started:
+            failed += lib._finish(procs)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "; ".join(failed))

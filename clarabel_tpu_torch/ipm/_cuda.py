@@ -1,11 +1,8 @@
-"""Build, bind and launch the CUDA megakernel (`csrc/megakernel.cu`).
+"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a).
 
-The kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C interface and loaded with ctypes: one library per problem shape
-(n, m, number of cone segments), built at first use from the sources in
-this package into `build/kernels/` beside the package (a directory that
-`.gitignore` lists).  The library name carries a hash of the source and
-the flags, so an edited source builds anew.
+The kernel has compile-time sizes, so there is one library per problem
+shape (n, m, number of cone segments), built at first use by
+`cuda_build.CudaLibrary` (nvcc for sm_90a, loaded with ctypes).
 
 `megakernel(Ptri, q, A, b, spec, B)` checks its inputs, allocates the outputs
 with `torch.empty`, launches on the current stream and counts the launch.
@@ -14,20 +11,12 @@ It never falls back to the plain version: a failed build or launch raises.
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from typing import Dict, Iterable, Tuple
+from typing import Tuple
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "megakernel.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from ..cuda_build import CudaLibrary, nvcc_path  # noqa: F401 (re-exported)
+
 _SEG_CODES = {"zero": 0, "nn": 1, "soc": 2}
 
 Shape = Tuple[int, int, int]   # (n, m, number of segments)
@@ -99,80 +88,31 @@ def _params(spec):
     return prm
 
 
-def nvcc_path() -> str:
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-
 def shape_of(spec) -> Shape:
     return (spec.n, spec.m, len(spec.segs))
 
 
-class Megakernel:
+class Megakernel(CudaLibrary):
     """The built libraries, one per shape, and the launch count."""
 
     def __init__(self):
+        super().__init__("megakernel.cu", macros=("MK_N", "MK_M", "MK_S"),
+                         tags=("n", "m", "s"))
         self.launches = 0
-        self.build_logs: Dict[Shape, str] = {}
-        self._libs: Dict[Shape, ctypes.CDLL] = {}
-        self._lock = threading.Lock()
 
-    def lib_path(self, shape: Shape) -> str:
-        with open(SOURCE, "rb") as f:
-            h = hashlib.sha1(f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        n, m, nseg = shape
-        return os.path.join(
-            BUILD_DIR, f"megakernel_n{n}_m{m}_s{nseg}_{h.hexdigest()[:12]}.so")
-
-    def build(self, shapes: Iterable[Shape]) -> None:
-        """Compile every missing shape, one nvcc per shape, all started
-        together; raises if any build fails."""
-        with self._lock:
-            todo = [s for s in dict.fromkeys(shapes)
-                    if s not in self._libs and not os.path.exists(
-                        self.lib_path(s))]
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            procs = []
-            for shape in todo:
-                n, m, nseg = shape
-                out = self.lib_path(shape)
-                tmp = f"{out}.{os.getpid()}.tmp"
-                cmd = [nvcc_path(), *NVCC_FLAGS, f"-DMK_N={n}",
-                       f"-DMK_M={m}", f"-DMK_S={nseg}", "-o", tmp, SOURCE]
-                procs.append((shape, out, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
-            failed = []
-            for shape, out, tmp, proc in procs:
-                log, _ = proc.communicate()
-                self.build_logs[shape] = log
-                if proc.returncode != 0:
-                    failed.append((shape, log))
-                else:
-                    os.replace(tmp, out)
-            if failed:
-                raise RuntimeError("nvcc failed for " + "; ".join(
-                    f"shape {s}:\n{log}" for s, log in failed))
-
-    def _lib(self, shape: Shape) -> ctypes.CDLL:
-        lib = self._libs.get(shape)
-        if lib is None:
-            self.build([shape])
-            lib = ctypes.CDLL(self.lib_path(shape))
-            vp, ll = ctypes.c_void_p, ctypes.c_longlong
-            lib.mk_solve.argtypes = [vp, ll, ll, vp, ll, ll, vp, ll, ll,
-                                     vp, ll, ll, ll,
-                                     _params_struct(shape[2]), vp, vp, vp]
-            lib.mk_solve.restype = ctypes.c_int
-            lib.mk_shape.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.mk_shape.restype = ctypes.c_int
-            got = (ctypes.c_int * 4)()
-            lib.mk_shape(got)
-            if tuple(got[:3]) != shape:
-                raise RuntimeError(f"{self.lib_path(shape)} was built for "
-                                   f"{tuple(got[:3])}, not {shape}")
-            self._libs[shape] = lib
-        return lib
+    def bind(self, lib: ctypes.CDLL, shape: Shape) -> None:
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.mk_solve.argtypes = [vp, ll, ll, vp, ll, ll, vp, ll, ll,
+                                 vp, ll, ll, ll,
+                                 _params_struct(shape[2]), vp, vp, vp]
+        lib.mk_solve.restype = ctypes.c_int
+        lib.mk_shape.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.mk_shape.restype = ctypes.c_int
+        got = (ctypes.c_int * 4)()
+        lib.mk_shape(got)
+        if tuple(got[:3]) != shape:
+            raise RuntimeError(f"{self.lib_path(shape)} was built for "
+                               f"{tuple(got[:3])}, not {shape}")
 
     def __call__(self, Ptri, q, A, b, spec, B):
         """Launch the batched solve over B lanes; returns (vals (OUTD, B)
@@ -204,7 +144,7 @@ class Megakernel:
                 raise ValueError(f"{name} must be 1-D or 2-D")
         vals = torch.empty((spec.outd, B), dtype=torch.float64, device=device)
         ints = torch.empty((2, B), dtype=torch.int32, device=device)
-        lib = self._lib(shape_of(spec))
+        lib = self.load(shape_of(spec))
         args = []
         for t, (ld, ls) in zip((Ptri, q, A, b), strides):
             args += [t.data_ptr(), ld, ls]

@@ -243,23 +243,46 @@ def unpack_rest(r, m: int) -> dict:
 
 class LazyOutputs(dict):
     """Solver-output dict whose rarely read fields (z, s, diagnostic
-    scalars) stay on the device until first accessed."""
+    scalars) stay on the device until first accessed.  Lane merges from a
+    rescue pass are recorded and applied at materialization, so a rescue
+    does not force the fetch."""
 
     def __init__(self, eager: dict, lazy_keys, fetch):
         super().__init__(eager)
         self._lazy_keys = tuple(lazy_keys)
         self._fetch = fetch
+        self._pending = []   # (take_idx, sel_idx, rescue_out)
+
+    def _merge(self, take, sel, rout):
+        for k in self._lazy_keys:
+            if k in rout and dict.__contains__(self, k):
+                merged = np.array(dict.__getitem__(self, k))
+                merged[take] = rout[k][sel]
+                dict.__setitem__(self, k, merged)
 
     def _materialize(self):
         if self._fetch is not None:
             rest = self._fetch()
             self._fetch = None
             self.update(rest)
+            for take, sel, rout in self._pending:
+                self._merge(take, sel, rout)
+            self._pending = []
 
     def __getitem__(self, k):
         if not dict.__contains__(self, k) and k in self._lazy_keys:
             self._materialize()
         return dict.__getitem__(self, k)
+
+    def merge_lanes(self, take, sel, rout):
+        """Merge a rescue's lazy fields: lanes `take` get rout[k][sel].
+        Deferred until materialization when the fields are still on the
+        device (the caller merges the eager fields itself)."""
+        take, sel = np.asarray(take), np.asarray(sel)
+        if self._fetch is None:
+            self._merge(take, sel, rout)
+        else:
+            self._pending.append((take, sel, rout))
 
 
 def build_mega_solve(layout: ConeLayout, settings: Settings, n: int,

@@ -1,0 +1,120 @@
+"""K2: the batched float32 LDLᵀ factor with an explicit L⁻¹.
+
+The reference (`clarabel_tpu/linalg/pallas_ldl.py`) runs this as a Pallas
+kernel over 128-instance lane blocks, reached from `vmap` through a JAX
+primitive with a batching rule.  The port batches explicitly, so neither
+the lane padding nor the primitive is needed: `batched_ldl_inverse` takes
+the whole (B, N, N) batch.  On CUDA tensors it launches the hand-written
+kernel (`csrc/ldl_inverse.cu`, one warp per instance) and counts the
+launch; on CPU tensors it runs `ldl_inverse_plain`, the same column
+elimination in PyTorch.  A failed build or launch raises; nothing falls
+back.
+
+The solve with L⁻¹ (two batched products and a scale,
+`linalg.ldl.ldl_solve_via_inverse`) stays as torch ops, as the JAX package
+computes it outside Pallas too.
+"""
+
+import ctypes
+
+import torch
+
+from ..cuda_build import CudaLibrary
+
+MAX_N = 80   # the kernel's shared-memory plan; the route rule uses N <= 80
+
+
+def ldl_inverse_plain(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
+                      dynamic_enable=True):
+    """The plain version: `_ldl_inv_kernel`'s column elimination over a
+    (B, N, N) float32 batch.  Returns (Linv (B, N, N), d (B, N), ok (B,))."""
+    B, n, _ = K.shape
+    K = K.clone()
+    M = torch.eye(n, dtype=K.dtype, device=K.device).expand(B, n, n).clone()
+    rows = torch.arange(n, device=K.device)
+    signs = signs.to(K.dtype)
+    d = torch.empty((B, n), dtype=K.dtype, device=K.device)
+    for j in range(n):
+        pivot = K[:, j, j]
+        if dynamic_enable:
+            sj = signs[j]
+            pivot = torch.where(sj * pivot < dyn_eps, sj * dyn_delta, pivot)
+        d[:, j] = pivot
+        pivot_safe = torch.where(pivot != 0, pivot, torch.ones_like(pivot))
+        colv = K[:, :, j] / pivot_safe[:, None]
+        col = torch.where(rows > j, colv, torch.zeros_like(colv))
+        K = K - col[:, :, None] * (pivot_safe[:, None] * col)[:, None, :]
+        M = M - col[:, :, None] * M[:, j][:, None, :]
+    ok = torch.isfinite(d).all(dim=1) & (d != 0).all(dim=1)
+    return M, d, ok
+
+
+class LdlInverseKernel(CudaLibrary):
+    """The CUDA kernel's library (one build serves every N up to 80) and
+    the launch count."""
+
+    def __init__(self):
+        super().__init__("ldl_inverse.cu")
+        self.launches = 0
+
+    def bind(self, lib: ctypes.CDLL, variant) -> None:
+        vp = ctypes.c_void_p
+        lib.ldl_inverse.argtypes = [vp, vp, ctypes.c_int, ctypes.c_longlong,
+                                    ctypes.c_float, ctypes.c_float,
+                                    ctypes.c_int, vp, vp, vp, vp]
+        lib.ldl_inverse.restype = ctypes.c_int
+        lib.ldl_max_n.argtypes = []
+        lib.ldl_max_n.restype = ctypes.c_int
+        if lib.ldl_max_n() != MAX_N:
+            raise RuntimeError(f"{self.lib_path()} takes N up to "
+                               f"{lib.ldl_max_n()}, not {MAX_N}")
+
+    def __call__(self, K, signs, dyn_eps, dyn_delta, dynamic_enable):
+        """Launch over the batch; returns (Linv, d, ok) on K's device."""
+        if K.device.type != "cuda" or signs.device != K.device:
+            raise ValueError("K and signs must be on one CUDA device")
+        if K.dtype != torch.float32 or signs.dtype != torch.float32:
+            raise ValueError(f"K and signs must be float32, got {K.dtype} "
+                             f"and {signs.dtype}")
+        if K.dim() != 3 or K.shape[1] != K.shape[2]:
+            raise ValueError(f"K must be (B, N, N), got {tuple(K.shape)}")
+        B, n, _ = K.shape
+        if not 1 <= n <= MAX_N:
+            raise ValueError(f"N must be in 1..{MAX_N}, got {n}")
+        if signs.shape != (n,):
+            raise ValueError(f"signs must be ({n},), got {tuple(signs.shape)}")
+        K = K.contiguous()
+        signs = signs.contiguous()
+        Linv = torch.empty_like(K)
+        d = torch.empty((B, n), dtype=K.dtype, device=K.device)
+        ok = torch.empty((B,), dtype=torch.bool, device=K.device)
+        if B == 0:
+            return Linv, d, ok
+        lib = self.load()
+        with torch.cuda.device(K.device):
+            stream = torch.cuda.current_stream(K.device).cuda_stream
+            rc = lib.ldl_inverse(K.data_ptr(), signs.data_ptr(), n, B,
+                                 float(dyn_eps), float(dyn_delta),
+                                 int(bool(dynamic_enable)), Linv.data_ptr(),
+                                 d.data_ptr(), ok.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"ldl_inverse launch failed: CUDA error {rc}")
+        self.launches += 1
+        return Linv, d, ok
+
+
+kernel = LdlInverseKernel()
+
+
+def batched_ldl_inverse(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
+                        dynamic_enable=True):
+    """LDLᵀ and L⁻¹ of a (B, N, N) float32 batch with static pivot signs
+    (N,).  Returns (Linv (B, N, N), d (B, N), ok (B,)): the CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors; mixed devices raise."""
+    devs = {K.device.type, signs.device.type}
+    if devs == {"cuda"}:
+        return kernel(K, signs, dyn_eps, dyn_delta, dynamic_enable)
+    if devs == {"cpu"}:
+        return ldl_inverse_plain(K, signs, dyn_eps, dyn_delta,
+                                 dynamic_enable)
+    raise ValueError(f"K and signs on mixed devices: {sorted(devs)}")

@@ -1,13 +1,22 @@
 """BatchSolver: solve thousands of same-layout conic programs at once.
 
-This slice of the port covers batches of zero/nonnegative/second-order
-programs in the megakernel regime.  The whole batched solve is one launch
-of the CUDA kernel on the card (`csrc/megakernel.cu`), or its plain
-PyTorch version when the caller asks for the CPU.  Everything outside the
-slice raises `NotImplementedError` naming the ROADMAP.md item that will
-bring it, instead of being ignored.
+Backends, resolved as the reference resolves them
+(`clarabel_tpu/parallel/batch_impl.py`), with "not on a CPU" read as "on a
+CUDA card":
+
+* the megakernel: the whole batched solve as one launch of the CUDA kernel
+  (`csrc/megakernel.cu`), or its plain PyTorch version when the caller
+  asks for it on the CPU with `kkt_backend="megakernel"`;
+* the loop solver (`ipm/loop.py`) with the `condensed` or the dense `ldl`
+  KKT backend, batched over the lanes; float32 factors with N ≤ 80 go
+  through the LDL kernel K2 (`csrc/ldl_inverse.cu`) on the card.
+
+`rescue=` re-solves the lanes that did not reach SOLVED with a cascade of
+loop solvers.  Everything outside this slice of the port raises
+`NotImplementedError` naming the ROADMAP.md item that will bring it.
 """
 
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -19,14 +28,15 @@ from ..statuscodes import SolverStatus
 from ..cones.api import SupportedCone, cones_collapse
 from ..cones.layout import ConeLayout
 from ..ipm import megakernel
+from ..ipm.loop import build_solve
 
-_LOOP_SOLVER = "ROADMAP.md Queue 1 item 5 (loop solver, dense backends)"
+SOLVED = int(SolverStatus.SOLVED)
 
 
 class BatchSolution:
     """Batched solve result.  x/status/obj_val/iterations are eager
-    numpy; z/s/r_prim/r_dual stay on the device until first read
-    (ipm/megakernel.LazyOutputs)."""
+    numpy; on the megakernel path z/s/r_prim/r_dual stay on the device
+    until first read (ipm/megakernel.LazyOutputs)."""
 
     def __init__(self, out, solve_time: float):
         self._out = out
@@ -54,7 +64,7 @@ class BatchSolution:
 
     @property
     def all_solved(self) -> bool:
-        return bool(np.all(self.status == int(SolverStatus.SOLVED)))
+        return bool(np.all(self.status == SOLVED))
 
 
 def resolve_device(device) -> torch.device:
@@ -72,8 +82,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _slice_check(layout: ConeLayout, settings: Settings, n: int, mesh,
-                 rescue, rescue_settings) -> None:
+def _next_pow2(k: int) -> int:
+    return 1 << max(0, (k - 1)).bit_length()
+
+
+def _symmetrize_triu(P):
+    """(B, n, n) per-instance P_sym = triu(P,1) + triu(P,1)' + diag(P):
+    accepts either full-symmetric or upper-triangular input."""
+    U = np.triu(P, 1)
+    eye = np.eye(P.shape[-1])
+    diag = np.diagonal(P, axis1=-2, axis2=-1)
+    return U + np.swapaxes(U, -1, -2) + diag[..., None, :] * eye
+
+
+def _slice_check(layout: ConeLayout, mesh, rescue) -> None:
     """Raise NotImplementedError for whatever this slice does not port."""
     names = {type(c).__name__ for c in layout.cones}
     if names & {"ExponentialConeT", "PowerConeT"}:
@@ -87,35 +109,27 @@ def _slice_check(layout: ConeLayout, settings: Settings, n: int, mesh,
     if "PSDTriangleConeT" in names:
         raise NotImplementedError(
             "PSD cones: ROADMAP.md Queue 1 item 9 (PSD cones, kernel K1d)")
-    if settings.kkt_backend not in ("auto", "megakernel"):
-        raise NotImplementedError(
-            f"kkt_backend={settings.kkt_backend!r}: {_LOOP_SOLVER}")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: ROADMAP.md Queue 1 item 13 (multi-device)")
-    if rescue is not None or rescue_settings is not None:
-        raise NotImplementedError(
-            "rescue=: ROADMAP.md Queue 1 item 6 (rescue cascade)")
-    if settings.mixed_precision or settings.factor_dtype not in (
-            None, "float64"):
-        raise NotImplementedError(
-            "mixed precision / f32 factors: ROADMAP.md Queue 1 item 10")
-    if settings.dtype != "float64":
-        raise NotImplementedError(
-            f"dtype={settings.dtype!r}: ROADMAP.md Queue 1 item 10 "
-            "(f32 solves)")
-    if settings.megakernel_two_phase:
-        raise NotImplementedError(
-            "megakernel_two_phase=True: ROADMAP.md Queue 2 K1e "
-            "(f32 first phase)")
-    if not megakernel.eligible(layout, settings, n):
-        if settings.kkt_backend == "megakernel":
-            raise ValueError(
-                "kkt_backend='megakernel' requires a small dense "
-                "zero/nn/soc layout at float64 with at least one barrier "
-                "cone (see ipm.megakernel.eligible)")
-        raise NotImplementedError(
-            f"layouts outside the megakernel regime: {_LOOP_SOLVER}")
+    if rescue not in (None, "cpu", "same"):
+        raise ValueError(f"rescue must be None, 'cpu' or 'same', got "
+                         f"{rescue!r}")
+
+
+def resolve_backend(layout: ConeLayout, settings: Settings, n: int,
+                    device: torch.device) -> str:
+    """The reference's rule (batch_impl.py:110-120): "auto" is the
+    megakernel on a card when the layout is eligible, else `condensed`
+    when the layout has no zero cone, else the dense `ldl` loop."""
+    backend = settings.kkt_backend
+    if backend == "auto":
+        if device.type == "cuda" and megakernel.eligible(layout, settings, n):
+            return "megakernel"
+        if not any(g.kind == "zero" for g in layout.groups.values()):
+            return "condensed"
+        return "ldl"
+    return backend
 
 
 class BatchSolver:
@@ -124,7 +138,13 @@ class BatchSolver:
         bs = BatchSolver(cones, n, settings)            # on the card
         bs = BatchSolver(cones, n, settings, device="cpu")
         sol = bs.solve(P, q, A, b)     # leading batch axis on every array
-    """
+
+    `rescue`: a second pass over the lanes that did not reach SOLVED.
+    "same" re-solves them on the solver's device, "cpu" on the CPU (the
+    caller's explicit request), each with a cascade of loop solvers in
+    float64: the primary backend, then `ldl` and `condensed` with
+    equilibration off.  Each stage sees only the lanes the earlier stages
+    left, and a lane takes a stage's result only where it is SOLVED."""
 
     def __init__(self, cones: Sequence[SupportedCone], n: int,
                  settings: Optional[Settings] = None, mesh=None,
@@ -136,12 +156,53 @@ class BatchSolver:
         self.layout = ConeLayout(self.cones)
         self.n = int(n)
         self.m = self.layout.m
-        _slice_check(self.layout, self.settings, self.n, mesh, rescue,
-                     rescue_settings)
+        _slice_check(self.layout, mesh, rescue)
         self.device = resolve_device(device)
-        self._mega_fn = megakernel.build_mega_solve(
-            self.layout, self.settings, self.n, p_nonzero=p_nonzero,
-            device=self.device)
+
+        backend = resolve_backend(self.layout, self.settings, self.n,
+                                  self.device)
+        self._mega_fn = None
+        self._solve_fn = None
+        if backend == "megakernel":
+            st = self.settings
+            if not megakernel.eligible(self.layout, st, self.n):
+                raise ValueError(
+                    "kkt_backend='megakernel' requires a small dense "
+                    "zero/nn/soc layout at float64 with at least one "
+                    "barrier cone (see ipm.megakernel.eligible)")
+            if st.megakernel_two_phase:
+                raise NotImplementedError(
+                    "megakernel_two_phase=True: ROADMAP.md Queue 2 K1e "
+                    "(f32 first phase)")
+            if st.factor_dtype not in (None, "float64"):
+                raise NotImplementedError(
+                    "float32 factors in the megakernel: ROADMAP.md Queue 1 "
+                    "item 10")
+            self._mega_fn = megakernel.build_mega_solve(
+                self.layout, st, self.n, p_nonzero=p_nonzero,
+                device=self.device)
+            backend = "condensed"  # the rescue's primary stage
+        else:
+            self._solve_fn = build_solve(self.layout, self.settings, self.n,
+                                         p_nonzero, kkt_backend=backend)
+
+        self._rescue_fns = None
+        if rescue is not None:
+            self._rescue_device = (torch.device("cpu") if rescue == "cpu"
+                                   else self.device)
+            rs = rescue_settings if rescue_settings is not None else \
+                dataclasses.replace(self.settings, factor_dtype="float64",
+                                    mixed_precision=False)
+            rs_ne = dataclasses.replace(rs, equilibrate_enable=False)
+            stages = [
+                (backend, rs),
+                ("ldl", dataclasses.replace(rs_ne, kkt_backend="ldl")),
+                ("condensed", dataclasses.replace(rs_ne,
+                                                  kkt_backend="condensed")),
+            ]
+            self._rescue_fns = [build_solve(self.layout, st_, self.n,
+                                            p_nonzero, kkt_backend=bk)
+                                for bk, st_ in stages]
 
     def _check_shapes(self, P, q, A, b):
         n, m = self.n, self.m
@@ -159,15 +220,60 @@ class BatchSolver:
         if b.shape != (B, m):
             raise ValueError(f"b must be ({B}, {m}), got {b.shape}")
 
+    def _run_loop(self, fn, P, q, A, b, device):
+        """A loop solver over host arrays -> host arrays, per key."""
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (P, q, A, b)]
+        return {k: v.cpu().numpy() for k, v in fn(*args).items()}
+
+    def _rescue_pass(self, out, P, q, A, b):
+        """Re-solve the lanes that did not reach SOLVED, stage by stage,
+        and keep a stage's result on the lanes it solves.  Lanes are padded
+        to a power of two (at least 32, by cycling the failed indices) so
+        that repeated rescues see a few batch shapes."""
+        B = out["status"].shape[0]
+        for fn in self._rescue_fns:
+            idx = np.nonzero(out["status"] != SOLVED)[0]
+            if len(idx) == 0:
+                return out
+            Bp = min(max(32, _next_pow2(len(idx))), B)
+            pad = np.resize(idx, Bp)
+            # the megakernel path passes P through raw (upper-triangular or
+            # full): symmetrize just the rescued slice
+            rargs = [arr[pad] for arr in (P, q, A, b)]
+            rargs[0] = _symmetrize_triu(rargs[0])
+            rout = self._run_loop(fn, *rargs, self._rescue_device)
+            fixed = rout["status"][:len(idx)] == SOLVED
+            take = idx[fixed]
+            if len(take):
+                sel = np.nonzero(fixed)[0]
+                for k in list(out.keys()):
+                    if k not in rout:
+                        continue
+                    merged = np.array(out[k])   # never write into a view
+                    merged[take] = rout[k][sel]
+                    out[k] = merged
+                if hasattr(out, "merge_lanes"):
+                    # LazyOutputs: z/s/diagnostics merge when first read
+                    out.merge_lanes(take, sel, rout)
+        return out
+
     def solve(self, P, q, A, b) -> BatchSolution:
         """P: (B,n,n) full or upper-triangular symmetric (or None for LP
-        batches); q: (B,n); A: (B,m,n); b: (B,m).  P passes through raw:
-        the kernel reads its upper triangle only."""
+        batches); q: (B,n); A: (B,m,n); b: (B,m).  On the megakernel path P
+        passes through raw (the kernel reads its upper triangle only); the
+        loop path symmetrizes it."""
         q, A, b = (np.asarray(x, np.float64) for x in (q, A, b))
         if P is None:
             P = np.zeros((q.shape[0] if q.ndim else 0, self.n, self.n))
         P = np.asarray(P, np.float64)
         self._check_shapes(P, q, A, b)
         t0 = time.perf_counter()
-        out = self._mega_fn(P, q, A, b)
+        if self._mega_fn is not None:
+            out = self._mega_fn(P, q, A, b)
+        else:
+            P = _symmetrize_triu(P)
+            out = self._run_loop(self._solve_fn, P, q, A, b, self.device)
+        if self._rescue_fns is not None:
+            out = self._rescue_pass(out, P, q, A, b)
         return BatchSolution(out, time.perf_counter() - t0)

@@ -11,6 +11,12 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def torch_dtype(name) -> torch.dtype:
+    """The torch dtype of a `dtype`/`factor_dtype` setting."""
+    return {"float32": torch.float32, "float64": torch.float64}[str(name)]
 
 
 @dataclasses.dataclass
@@ -171,3 +177,26 @@ class Settings:
         if unknown:
             raise ValueError(f"unknown settings: {sorted(unknown)}")
         return Settings(**d)
+
+    @staticmethod
+    def throughput(**overrides) -> "Settings":
+        """Preset for maximum batched throughput: a full-float32 solve with
+        tolerances at the float32 accuracy floor and float32-appropriate
+        regularization, on the dense `ldl` backend (whose float32 factor
+        is the LDL kernel K2 on the card).  Use when 1e-5-grade solutions
+        suffice.  reference: clarabel_tpu/settings.py:195-216"""
+        base = dict(
+            dtype="float32",
+            kkt_backend="ldl",
+            tol_gap_abs=1e-5, tol_gap_rel=1e-5, tol_feas=1e-5,
+            tol_infeas_abs=1e-5, tol_infeas_rel=1e-5,
+            reduced_tol_gap_abs=1e-3, reduced_tol_gap_rel=1e-3,
+            reduced_tol_feas=1e-3,
+            static_regularization_constant=1e-6,
+            dynamic_regularization_eps=1e-7,
+            dynamic_regularization_delta=2e-5,
+            iterative_refinement_abstol=1e-6,
+            iterative_refinement_reltol=1e-6,
+        )
+        base.update(overrides)
+        return Settings(**base)

@@ -1,6 +1,7 @@
 """BatchSolver of the PyTorch port: argument checking, the slice's limits,
-device selection, the host-side packing around the megakernel, and (on a
-card only) the CUDA kernel against its plain version.
+backend and device selection, the host-side packing around the megakernel,
+the loop paths and the rescue cascade on the CPU, and (on a card only) the
+CUDA kernels against their plain versions.
 
 Imports only the port, so that the card-only test runs where JAX is not
 installed:
@@ -14,17 +15,22 @@ import torch
 
 import clarabel_tpu_torch as ctt
 from clarabel_tpu_torch import bench_data
+from clarabel_tpu_torch.cones.layout import ConeLayout
 from clarabel_tpu_torch.ipm import _cuda, megakernel, megakernel_ref
+from clarabel_tpu_torch.linalg import batched_ldl
+from clarabel_tpu_torch.parallel import batch_impl
 
 N = 3
 CONES = [ctt.NonnegativeConeT(N), ctt.SecondOrderConeT(N + 1)]
+MEGA = ctt.Settings(kkt_backend="megakernel")
+SOLVED = int(ctt.SolverStatus.SOLVED)
 
 
 def _batch(B, seed=0):
     return bench_data.make_batch(B, N, seed)
 
 
-def _solver(cones=CONES, n=N, settings=None, **kw):
+def _solver(cones=CONES, n=N, settings=MEGA, **kw):
     return ctt.BatchSolver(cones, n, settings, device="cpu", **kw)
 
 
@@ -53,28 +59,152 @@ def test_cones_outside_the_slice_raise(cone):
 
 
 @pytest.mark.parametrize("change", [
-    {"kkt_backend": "condensed"}, {"kkt_backend": "ldl"},
-    {"kkt_backend": "blockarrow"}, {"mixed_precision": True},
-    {"factor_dtype": "float32"}, {"megakernel_two_phase": True},
-    {"dtype": "float32"}])
+    {"kkt_backend": "blockarrow"}, {"kkt_backend": "multifrontal"},
+    {"kkt_backend": "megakernel", "megakernel_two_phase": True},
+    {"kkt_backend": "megakernel", "factor_dtype": "float32"}])
 def test_settings_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _solver(settings=ctt.Settings(**change))
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"rescue": "cpu"},
-                                {"rescue_settings": ctt.Settings()}])
-def test_options_outside_the_slice_raise(kw):
+F32_TOLS = {"tol_gap_abs": 1e-5, "tol_gap_rel": 1e-5, "tol_feas": 1e-5}
+
+
+@pytest.mark.parametrize("change", [
+    {"kkt_backend": "condensed"}, {"kkt_backend": "ldl"},
+    {"mixed_precision": True}, {"factor_dtype": "float32"},
+    dict(F32_TOLS, dtype="float32"),
+    dict(F32_TOLS, dtype="float32", kkt_backend="ldl", use_pallas=True)])
+def test_settings_now_in_the_slice_solve(change):
+    """The loop solver runs what the megakernel path does not take."""
+    P, q, A, b = _batch(16)
+    bs = _solver(settings=ctt.Settings(**change))
+    assert bs._mega_fn is None
+    sol = bs.solve(P, q, A, b)
+    assert (sol.status == SOLVED).sum() >= 12, sol.status
+    assert sol.x.shape == (16, N) and np.isfinite(sol.x).all()
+
+
+def test_options_outside_the_slice_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _solver(**kw)
+        _solver(mesh=object())
+    with pytest.raises(ValueError, match="rescue"):
+        _solver(rescue="gpu")
+
+
+@pytest.mark.parametrize("kw", [{"rescue": "cpu"}, {"rescue": "same"},
+                                {"rescue_settings": ctt.Settings()}])
+def test_rescue_options_now_in_the_slice_solve(kw):
+    P, q, A, b = _batch(16)
+    sol = _solver(**kw).solve(P, q, A, b)
+    assert sol.all_solved
 
 
 def test_layouts_outside_the_megakernel_regime():
+    """Too wide for the megakernel: "auto" takes the condensed loop, an
+    explicit megakernel is refused."""
     big = [ctt.NonnegativeConeT(4)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _solver(big, 40)
+    bs = _solver(big, 40, ctt.Settings())
+    assert bs._mega_fn is None and bs._solve_fn is not None
     with pytest.raises(ValueError, match="megakernel"):
         _solver(big, 40, ctt.Settings(kkt_backend="megakernel"))
+
+
+def test_auto_resolves_as_the_reference_does():
+    """"auto" is the megakernel on a card only; elsewhere it is condensed,
+    or the dense ldl loop when the layout has a zero cone
+    (clarabel_tpu/parallel/batch_impl.py:110-120)."""
+    st = ctt.Settings()
+    lay = ConeLayout(CONES)
+    zero = ConeLayout([ctt.ZeroConeT(1)] + CONES)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    resolve = batch_impl.resolve_backend
+    assert resolve(lay, st, N, cuda) == "megakernel"
+    assert resolve(lay, st, N, cpu) == "condensed"
+    assert resolve(zero, st, N, cpu) == "ldl"
+    assert resolve(lay, st.replace(dtype="float32"), N, cuda) == "condensed"
+    assert resolve(zero, st, 40, cuda) == "ldl"
+    assert resolve(lay, ctt.Settings.throughput(), N, cuda) == "ldl"
+    bs = ctt.BatchSolver(CONES, N, st, device="cpu")
+    assert bs._mega_fn is None
+
+
+def _marginal_batch():
+    """The batch of tests/test_megakernel.py test_rescue_closes_marginal_lanes
+    (n=2, seed 1)."""
+    rng = np.random.default_rng(1)
+    B, n = 8, 2
+    F = rng.standard_normal((B, n, n))
+    P = np.einsum("bij,bkj->bik", F, F) + np.eye(n)
+    q = rng.standard_normal((B, n))
+    A = np.tile(np.vstack([np.eye(n), [[1.0, 0.3], [0.2, 1.0]]]), (B, 1, 1))
+    b = np.abs(rng.standard_normal((B, 4))) + 1.0
+    return [ctt.NonnegativeConeT(2), ctt.SecondOrderConeT(2)], n, (P, q, A, b)
+
+
+def test_rescue_closes_marginal_lanes():
+    """The port of tests/test_megakernel.py:98-105, and the same batch with
+    the megakernel cut at 6 iterations, so that the cascade has lanes to
+    close: every lane ends SOLVED, and a rescued lane carries the rescue
+    solver's solution."""
+    cones, n, data = _marginal_batch()
+    rs = ctt.Settings(kkt_backend="condensed")
+    bs = ctt.BatchSolver(cones, n, MEGA, rescue="same", rescue_settings=rs,
+                         device="cpu")
+    assert bs.solve(*data).all_solved
+    cut = MEGA.replace(max_iter=6)
+    before = ctt.BatchSolver(cones, n, cut, device="cpu").solve(*data)
+    failed = np.nonzero(before.status != SOLVED)[0]
+    assert len(failed) >= 4
+    out = ctt.BatchSolver(cones, n, cut, rescue="same", rescue_settings=rs,
+                          device="cpu").solve(*data)
+    assert out.all_solved
+    direct = ctt.BatchSolver(cones, n, rs, device="cpu").solve(*data)
+    np.testing.assert_array_equal(out.x[failed], direct.x[failed])
+    np.testing.assert_array_equal(out.z[failed], direct.z[failed])
+    kept = before.status == SOLVED
+    np.testing.assert_array_equal(out.x[kept], before.x[kept])
+
+
+def test_rescue_merge_leaves_z_and_s_lazy_until_read():
+    cones, n, data = _marginal_batch()
+    cut = MEGA.replace(max_iter=6)
+    rs = ctt.Settings(kkt_backend="condensed")
+    sol = ctt.BatchSolver(cones, n, cut, rescue="cpu", rescue_settings=rs,
+                          device="cpu").solve(*data)
+    out = sol._out
+    assert out._pending and out._fetch is not None
+    assert "z" not in dict.keys(out) and "s" not in dict.keys(out)
+    direct = ctt.BatchSolver(cones, n, rs, device="cpu").solve(*data)
+    take = out._pending[0][0]
+    np.testing.assert_array_equal(sol.s[take], direct.s[take])
+    assert not out._pending and "z" in dict.keys(out)
+    np.testing.assert_array_equal(sol.z[take], direct.z[take])
+    np.testing.assert_array_equal(out["r_prim"][take],
+                                  direct._out["r_prim"][take])
+
+
+def test_rescue_cascade_pads_to_a_power_of_two():
+    """Three failed lanes of 40 go to the rescue as one 32-lane batch that
+    cycles them; the first stage solves them, so no later stage runs."""
+    P, q, A, b = _batch(40)
+    bs = _solver(rescue="same")
+    out = {k: np.array(v) for k, v in dict(bs.solve(P, q, A, b)._out).items()}
+    failed = np.array([3, 17, 30])
+    out["status"][failed] = int(ctt.SolverStatus.ALMOST_SOLVED)
+    seen = []
+
+    def recorder(fn):
+        def run(*args):
+            seen.append(args[1].numpy())
+            return fn(*args)
+        return run
+
+    bs._rescue_fns = [recorder(fn) for fn in bs._rescue_fns]
+    out = bs._rescue_pass(out, P, q, A, b)
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], q[np.resize(failed, 32)])
+    assert (out["status"] == SOLVED).all()
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
@@ -201,3 +331,38 @@ def test_kernel_matches_plain_version_on_the_card():
     one = bs.solve(*(a[:1] for a in data))
     assert one.all_solved
     _assert_every_lane_is_the_one_solve(sol, one, 7, bs.m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(6, 13), (30, 50)])
+def test_ldl_kernel_matches_plain_version_on_the_card(n, m):
+    """K2 at N = 19 (the bench shape's KKT) and N = 80 (its largest N)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    K, signs = bench_data.make_kkts(1000, n, m, seed=n)
+    K = torch.tensor(K, dtype=torch.float32, device="cuda")
+    signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
+    before = batched_ldl.kernel.launches
+    Linv, d, ok = batched_ldl.batched_ldl_inverse(K, signs)
+    torch.cuda.synchronize()
+    assert batched_ldl.kernel.launches == before + 1
+    pLinv, pd, pok = batched_ldl.ldl_inverse_plain(K, signs)
+    assert ok.all() and torch.equal(ok, pok)
+    # float32 elimination, FMA-contracted on the card: relative to |L⁻¹|
+    scale = pLinv.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1.0)
+    assert ((Linv - pLinv).abs() / scale).max() < 1e-4
+    assert ((d - pd).abs() / pd.abs().clamp_min(1.0)).max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_throughput_path_launches_the_ldl_kernel_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    data = _batch(256)
+    before = batched_ldl.kernel.launches
+    sol = ctt.BatchSolver(CONES, N, ctt.Settings.throughput()).solve(*data)
+    assert batched_ldl.kernel.launches > before
+    plain = ctt.BatchSolver(CONES, N, ctt.Settings.throughput(use_pallas=True),
+                            device="cpu").solve(*data)
+    assert abs(int((sol.status == SOLVED).sum())
+               - int((plain.status == SOLVED).sum())) <= 3

@@ -1,0 +1,139 @@
+"""The port's dense LDL against the JAX package: K2's plain version
+(`clarabel_tpu_torch.linalg.batched_ldl.ldl_inverse_plain`) against the
+Pallas kernel `clarabel_tpu.linalg.pallas_ldl.batched_ldl_inverse` run in
+interpret mode on the CPU, and the batched float64 `ldl_factor`,
+`invert_unit_lower`, `ldl_solve` and `ldl_solve_via_inverse` against the
+reference's, vmapped.
+
+Bars: float32 L⁻¹ and d within 1e-4 (the bar of
+tests/test_pallas_kernel.py, which holds the Pallas kernel to the loop
+factor); float64 within 1e-12 (two orders of summation at N = 12)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from clarabel_tpu.linalg import ldl as ref_ldl
+from clarabel_tpu.linalg.pallas_ldl import (batched_ldl_inverse as
+                                            ref_batched_ldl_inverse,
+                                            make_factor_inverse)
+
+from clarabel_tpu_torch.linalg import batched_ldl, ldl
+
+from test_pallas_kernel import make_kkts
+
+F32_TOL, F64_TOL = 1e-4, 1e-12
+
+
+def _port_k2(K, signs, *args):
+    return batched_ldl.batched_ldl_inverse(
+        torch.tensor(K, dtype=torch.float32),
+        torch.tensor(signs, dtype=torch.float32), *args)
+
+
+def _assert_k2_close(port, ref, tol=F32_TOL):
+    Linv, d, ok = (t.numpy() for t in port)
+    rLinv, rd, rok = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(ok, rok)
+    np.testing.assert_allclose(Linv, rLinv, rtol=0, atol=tol)
+    np.testing.assert_allclose(d, rd, rtol=0, atol=tol)
+
+
+def test_plain_k2_matches_the_pallas_kernel():
+    K, signs = make_kkts(256)
+    ref = ref_batched_ldl_inverse(jnp.asarray(K, jnp.float32),
+                                  jnp.asarray(signs, jnp.float32),
+                                  interpret=True)
+    port = _port_k2(K, signs)
+    assert port[2].all()
+    _assert_k2_close(port, ref)
+
+
+def test_plain_k2_with_a_batch_that_is_not_a_multiple_of_128():
+    """The reference pads to its 128-lane blocks; the port takes B as it
+    is."""
+    K, signs = make_kkts(100, np_=3, nm=5, seed=4)
+    fi = make_factor_inverse(signs, 1e-13, 2e-7, True, interpret=True)
+    ref = jax.vmap(fi)(jnp.asarray(K, jnp.float32))
+    port = _port_k2(K, signs)
+    assert port[0].shape == (100, 8, 8)
+    _assert_k2_close(port, ref)
+
+
+def test_dynamic_regularization_replaces_wrong_sign_pivots():
+    """A pivot below eps, or whose sign disagrees with its static sign,
+    becomes sign * delta, in both packages."""
+    K, signs = make_kkts(128, np_=4, nm=4, seed=6)
+    K[:, 0, 1:] = K[:, 1:, 0] = 0.0
+    K[:, 0, 0] = 1e-9           # an x-block pivot below eps
+    K[:, -1, -1] = 1e3          # the last z-block pivot turns positive
+    eps, delta = 1e-7, 2e-5
+    ref = ref_batched_ldl_inverse(jnp.asarray(K, jnp.float32),
+                                  jnp.asarray(signs, jnp.float32),
+                                  dyn_eps=eps, dyn_delta=delta,
+                                  interpret=True)
+    port = _port_k2(K, signs, eps, delta, True)
+    assert port[2].all()
+    _assert_k2_close(port, ref)
+    d, rd = port[1].numpy(), np.asarray(ref[1])
+    for j in (0, -1):
+        np.testing.assert_array_equal(d[:, j],
+                                      np.float32(signs[j] * np.float32(delta)))
+        np.testing.assert_array_equal(rd[:, j], d[:, j])
+
+
+def test_ok_is_false_on_a_singular_K():
+    K, signs = make_kkts(128, np_=3, nm=3, seed=7)
+    K[3] = 0.0                 # zero pivots, no regularization
+    K[5, 2, 2] = np.nan        # a non-finite pivot
+    ref = ref_batched_ldl_inverse(jnp.asarray(K, jnp.float32),
+                                  jnp.asarray(signs, jnp.float32),
+                                  dynamic_enable=False, interpret=True)
+    port = _port_k2(K, signs, 1e-13, 2e-7, False)
+    ok = port[2].numpy()
+    assert not ok[3] and not ok[5] and ok.sum() == 126
+    np.testing.assert_array_equal(ok, np.asarray(ref[2]))
+    good = np.nonzero(ok)[0]
+    _assert_k2_close(tuple(t[good] for t in port),
+                     tuple(np.asarray(a)[good] for a in ref))
+
+
+def test_the_wrapper_refuses_cpu_and_mixed_devices():
+    K = torch.zeros((2, 3, 3))
+    signs = torch.ones(3)
+    before = batched_ldl.kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        batched_ldl.kernel(K, signs, 1e-13, 2e-7, True)
+    with pytest.raises(ValueError, match="mixed devices"):
+        batched_ldl.batched_ldl_inverse(K, signs.to("meta"))
+    assert batched_ldl.kernel.launches == before == 0
+
+
+def test_f64_ldl_matches_the_reference():
+    K, signs = make_kkts(16, seed=2)
+    rng = np.random.default_rng(3)
+    rhs = rng.standard_normal((16, K.shape[1], 2))
+    args = (1e-13, 2e-7, True)
+    rL, rd, rok = jax.vmap(lambda k: ref_ldl.ldl_factor(
+        k, jnp.asarray(signs), *args))(jnp.asarray(K))
+    rLinv = jax.vmap(ref_ldl.invert_unit_lower)(rL)
+    rx_inv = jax.vmap(ref_ldl.ldl_solve_via_inverse)(rLinv, rd,
+                                                     jnp.asarray(rhs))
+    rx = jax.vmap(ref_ldl.ldl_solve)(rL, rd, jnp.asarray(rhs))
+
+    Kt, rhs_t = torch.tensor(K), torch.tensor(rhs)
+    L, d, ok = ldl.ldl_factor(Kt, torch.tensor(signs), *args)
+    Linv = ldl.invert_unit_lower(L)
+    assert ok.all() and bool(np.all(rok))
+    for got, want in ((L, rL), (d, rd), (Linv, rLinv),
+                      (ldl.ldl_solve_via_inverse(Linv, d, rhs_t), rx_inv),
+                      (ldl.ldl_solve(L, d, rhs_t), rx)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=F64_TOL)
+    # one right-hand side as a vector, too
+    np.testing.assert_allclose(
+        ldl.ldl_solve_via_inverse(Linv, d, rhs_t[..., 0]).numpy(),
+        np.asarray(rx_inv)[..., 0], rtol=0, atol=F64_TOL)

@@ -1,15 +1,23 @@
-"""How far x is pinned at the bench shape: the JAX package's own condensed
-loop against its megakernel, and the port against the megakernel, on the
-committed 64-lane bench fixture (`megakernel_bench.npz`).
+"""What rounding alone moves in the JAX package, at the sizes the port's
+fixtures hold it to.
 
-Prints the largest |dx| of each pair over the lanes both solve, and each
-pair's largest ratio of |dx| to the sum of the two solutions' certificate
-radii sqrt(2 gap / lambda_min(P)) (the distance a point with duality gap
-`gap` can lie from the optimum of a QP with that P).  The JAX condensed
-loop compiles in about half a minute on the CPU.  Run from the repository
-root:
+`x`: how far x is pinned at the bench shape: the JAX package's own
+condensed loop against its megakernel, and the port's megakernel (plain
+version) against the JAX megakernel, on the committed 64-lane bench fixture
+(`megakernel_bench.npz`).  Prints the largest |dx| of each pair over the
+lanes both solve, and each pair's largest ratio of |dx| to the sum of the
+two solutions' certificate radii sqrt(2 gap / lambda_min(P)) (the distance
+a point with duality gap `gap` can lie from the optimum of a QP with that
+P).
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/reference_spread.py
+`floor`: the statuses of the JAX dense ldl loop at its accuracy floor: on
+the committed loop fixtures (`loop_bench.npz`, `loop_socs.npz`), the lanes
+whose status moves when q moves by 1e-15 (relative), for three draws.
+
+Each JAX solver compiles for half a minute or so on the CPU.  Run from the
+repository root (both parts, or the one named):
+
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/reference_spread.py [x] [floor]
 """
 
 import os
@@ -25,7 +33,7 @@ def radius(P, gap):
     return np.sqrt(2.0 * np.abs(gap) / np.linalg.eigvalsh(P)[:, 0])
 
 
-def main():
+def x_spread():
     import numpy as np
 
     sys.path.insert(0, ROOT)
@@ -45,7 +53,8 @@ def main():
                               P, q, A, b)
     port = ctt.BatchSolver(
         [ctt.NonnegativeConeT(n), ctt.SecondOrderConeT(n + 1)], n,
-        device="cpu").solve(P, q, A, b)
+        ctt.Settings(kkt_backend="megakernel"), device="cpu").solve(
+            P, q, A, b)
     for name, sol in (("jax condensed loop", cond), ("port", port)):
         other = {"x": sol.x, "status": sol.status,
                  "gap": sol.obj_val - np.asarray(sol._out["obj_val_dual"])}
@@ -57,6 +66,47 @@ def main():
               f"max |dx|/radius {(dx / rad).max():.3f}")
 
 
+
+def status_floor():
+    import json
+
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import clarabel_tpu as ct
+    from clarabel_tpu.cones.api import cones_collapse
+    from clarabel_tpu.cones.layout import ConeLayout
+    from clarabel_tpu.ipm.loop import build_solve
+
+    for case in ("bench", "socs"):
+        f = np.load(os.path.join(HERE, f"loop_{case}.npz"))
+        cones = [tuple(c) for c in json.loads(str(f["cones"]))]
+        n = int(f["n"])
+        P, q, A, b = f["P"], f["q"], f["A"], f["b"]
+        layout = ConeLayout(cones_collapse(
+            [getattr(ct, c)(d) for c, d in cones]))
+        fn = jax.jit(jax.vmap(build_solve(
+            layout, ct.Settings(kkt_backend="ldl"), n, p_nonzero=True)))
+        ref = f["ref_ldl_status"]
+        for seed in (7, 8, 9):
+            qj = q * (1 + 1e-15 * np.random.default_rng(seed).standard_normal(
+                q.shape))
+            st = np.asarray(jax.device_get(fn(P, qj, A, b))["status"])
+            moved = np.nonzero(st != ref)[0]
+            print(f"{case} ldl, q*(1+1e-15*xi) draw {seed}: statuses move on "
+                  f"lanes {moved.tolist()} ({ref[moved].tolist()} -> "
+                  f"{st[moved].tolist()}); SOLVED {(st == 1).sum()} against "
+                  f"{(ref == 1).sum()}", flush=True)
+
+
+def main(argv):
+    for part in argv or ["x", "floor"]:
+        {"x": x_spread, "floor": status_floor}[part]()
+
+
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    main()
+    main(sys.argv[1:])
