@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (clarabel_tpu_torch) on one NVIDIA card.
 
-Builds the two CUDA kernels from the sources beside this script, in
-parallel: the batched IPM megakernel K1a (clarabel_tpu_torch/csrc/
-megakernel.cu) and the float32 LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
+Builds the CUDA kernels from the sources beside this script, in parallel:
+the batched IPM megakernel (clarabel_tpu_torch/csrc/megakernel.cu) as K1a
+(zero/nn/SOC layouts) and as K1b (exponential and power cones), and the
+float32 LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
 Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
 
@@ -16,7 +17,13 @@ port's paths through `BatchSolver.solve` and prints what it measured:
 * [6] the loop solver on the card: `Settings.throughput()` (float32, K2
   once per IPM iteration) at B = 4096 and 65536, and the ldl backend with
   mixed precision at 4096, each with the kernel and with the plain K2;
-* [7] the rescue cascade behind the megakernel on the LP batch.
+* [7] the rescue cascade behind the megakernel on the LP batch;
+* [8] K1b: the megakernel against its plain version on the exponential-cone
+  batch of `bench.py` (n=3, cones [NN(2), Exp()]), a power-cone batch and
+  the exponential batch with the PrimalDual->Dual switch forced, wrong
+  kernels its bars must reject, `BatchSolver.solve` on the exponential
+  batch at B = 4096, 65536 and 131072, the condensed loop on the card, and
+  the rescue cascade behind the megakernel.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -95,6 +102,27 @@ LOOP_BATCHES = (("throughput", 4096), ("throughput", 65536), ("mixed", 4096))
 RESCUE_B = (4096, 131072)
 DEVICE = "cuda"   # the phases' device (a rehearsal on the CPU sets "cpu")
 
+# [8] K1b.  The exponential batch is bench.py's exp_cone_batched; the
+# switch batch is the same with min_switch_step_length raised so that the
+# lanes take the PrimalDual->Dual switch.  Bars as BARS (kernel against
+# plain on the card; x, iterations within 1 on a share of the lanes both
+# solve and within a maximum on all), set from the kernel's readings and
+# the plain version's under a 1e-15 change of q (PERF.md; DEVIATIONS.md
+# #4 and #11).  Wrong kernels as WRONG_KERNELS; the first changes only
+# code that nonsymmetric cones run (both backtracking line searches).
+NONSYM_N, NONSYM_B, SWITCH = 3, 4096, 0.9
+NONSYM_BARS = {
+    "exp": dict(x=1.5e-4, within1=0.98, it_max=10),
+    "pow": dict(x=1e-4, within1=0.998, it_max=4),
+    "switch": dict(x=1e-4, within1=0.98, it_max=8),
+}
+WRONG_NONSYM = {
+    "backtrack step 0.5": {"linesearch_backtrack_step": 0.5},
+    "step fraction 0.95": {"max_step_fraction": 0.95},
+    "gap tolerances 1e-7": {"tol_gap_abs": 1e-7, "tol_gap_rel": 1e-7},
+}
+NONSYM_THROUGHPUT = (4096, 65536, 131072)
+
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
@@ -114,10 +142,14 @@ def card_line():
 def flops_per_iteration(n, m, segs, passes):
     """FP64 operations of one IPM iteration of the kernel, counted from
     its code with `passes` refinement passes per refined solve; an FMA
-    counts two.  A lower bound: the small per-segment scalar work and
-    the comparisons are left out."""
+    counts two, a log, exp, pow or sqrt one.  A lower bound: the small
+    per-segment scalar work, the comparisons, and every trip of a Newton
+    or backtracking loop after its first are left out."""
     n_soc = sum(hi - lo for k, lo, hi in segs if k == "soc")
-    hinv = m + 4 * n_soc                      # one Hs^-1 (or Hs) apply
+    n_ns = sum(1 for k, _, _ in segs if k in ("exp", "pow"))
+    # an exp/pow segment's 3x3 solve or product costs 18 in place of the
+    # 3 of three nn rows
+    hinv = m + 4 * n_soc + 15 * n_ns          # one Hs^-1 (or Hs) apply
     matvec = 2 * m * n                        # A x or A' y
     pmv = 2 * n * n                           # P x
     chol_solve = 2 * n * n
@@ -133,8 +165,14 @@ def flops_per_iteration(n, m, segs, passes):
     tau = 3 * pmv + 12 * (n + m)
     steps = 2 * 2 * 8 * m                     # affine + combined step lengths
     shifts = 3 * 12 * m                       # affine_ds, combined shift, ds
+    # per exp/pow segment: the dual gradient and Hessian (~60), the primal
+    # gradient (Wright omega or one Newton trip and two polish steps, ~80),
+    # the BFGS scaling (~150), two 3x3 factors (~40), the third-order
+    # correction (~140), one trip of each feasibility backtrack (2 x 2 x
+    # ~25)
+    nonsym = n_ns * (60 + 80 + 150 + 40 + 140 + 100)
     return (residuals + info + scaling + build + solves + tau + steps
-            + shifts)
+            + shifts + nonsym)
 
 
 def true_kkt(P, q, A, b, x, z, s):
@@ -482,14 +520,18 @@ def main():
     solvers = {name: ctt.BatchSolver(c, BENCH_N, ctt.Settings(),
                                      p_nonzero=pn)
                for name, (c, pn, _) in cases.items()}
+    exp_cones = [ctt.NonnegativeConeT(2), ctt.ExponentialConeT()]
+    pow_cones = [ctt.NonnegativeConeT(2), ctt.PowerConeT(0.6)]
+    exp_solver = ctt.BatchSolver(exp_cones, NONSYM_N, ctt.Settings())
     shapes = sorted({_cuda.shape_of(s._mega_fn.spec)
                      for s in solvers.values()})
+    k1b_shape = _cuda.shape_of(exp_solver._mega_fn.spec)
     t0 = time.perf_counter()
-    cuda_build.build_together((_cuda.megakernel, shapes),
+    cuda_build.build_together((_cuda.megakernel, shapes + [k1b_shape]),
                               (batched_ldl.kernel, [()]))
-    print(f"[1] built K1a for {len(shapes)} shapes {shapes} and K2 in "
-          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
-          flush=True)
+    print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
+          f"{k1b_shape} and K2 in {time.perf_counter() - t0:.1f} s (one "
+          f"nvcc each, in parallel)", flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
             for line in log.splitlines():
@@ -684,7 +726,7 @@ def main():
     r = results["bench"]
     spec, B = r["spec"], r["B"]
     in_bytes = sum(t.numel() * 8 for t in r["flats"])
-    out_bytes = B * (spec.outd * 8 + 2 * 4)
+    out_bytes = B * (spec.outd * 8 + 3 * 4)
     passes = 0   # a lower bound: refinement passes taken would add work
     flops = int(r["iters"].sum()) * flops_per_iteration(
         spec.n, spec.m, spec.segs, passes)
@@ -700,6 +742,191 @@ def main():
     if k2_launches <= 0:
         failures.append("[6] the Settings.throughput() path did not launch K2")
     rescue_phase(card, failures)
+
+    # ---- phase 8: K1b (exponential and power cones) ----
+    def check_nonsym(name, cones, data, st):
+        """K1b against its plain version on one batch at NONSYM_B, the
+        plain version against itself under a 1e-15 change of q, and the
+        wrong kernels."""
+        P, q, A, b = data
+        spec = ctt.BatchSolver(cones, NONSYM_N, st)._mega_fn.spec
+        bars = NONSYM_BARS[name]
+        B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        k_ms, (kv, ki) = events_ms(
+            lambda: _cuda.megakernel(*flats, spec, B), 3)
+        p_ms, (pv, pi) = events_ms(
+            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
+        k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
+        qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
+            q.shape))
+        _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
+        pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
+                     spec)
+        tag = f"[8] {name} B={B}"
+        r = readings(k, p, P, q, A, b)
+        dual_k, dual_p = int(ki[2].sum()), int(pi[2].sum())
+        print(f"{tag}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; kernel "
+              f"statuses {np.bincount(k['status'], minlength=11).tolist()};"
+              f" lanes ending on the Dual strategy: kernel {dual_k}, plain "
+              f"{dual_p}; card {card}", flush=True)
+        print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
+        print(f"{tag}: plain(q*(1+1e-15*xi)) vs plain: "
+              f"{describe(readings(pj, p, P, qj, A, b))}", flush=True)
+        print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
+              f"{bars['within1']} and within {bars['it_max']} on all, "
+              f"objective {OBJ_TOL:.0e}, true KKT {KKT_TOL:.0e}, |s'z| "
+              f"{SZ_TOL:.0e}, SOLVED at least plain less 0.1 % of B",
+              flush=True)
+        for v in violations(r, bars, B):
+            failures.append(f"{tag}: the kernel fails the {v} bar")
+        if not all(np.isfinite(k[f][k["status"] == SOLVED]).all()
+                   for f in ("x", "z", "s")):
+            failures.append(f"{tag}: non-finite x/z/s on SOLVED lanes")
+        if name == "switch" and dual_k < B // 2:
+            failures.append(f"{tag}: only {dual_k} lanes took the switch")
+        for wname, change in WRONG_NONSYM.items():
+            wspec = dataclasses.replace(spec, st=spec.st.replace(**change))
+            w = outputs(*_cuda.megakernel(*flats, wspec, B), spec)
+            rw = readings(w, p, P, q, A, b)
+            rejected = violations(rw, bars, B)
+            print(f"{tag}: wrong kernel ({wname}) vs plain: {describe(rw)};"
+                  f" rejected by: {', '.join(rejected) or 'none'}",
+                  flush=True)
+            if not rejected:
+                failures.append(f"{tag}: the bars pass the wrong kernel "
+                                f"({wname})")
+        return dict(ms=k_ms, plain_ms=p_ms, iters=k["iterations"],
+                    max_abs_err=max(r["dx"], r["dobj"]), spec=spec, B=B,
+                    flats=flats)
+
+    mega_st = ctt.Settings(kkt_backend="megakernel")
+    exp_big = bench_data.make_exp_batch(max(NONSYM_THROUGHPUT))
+    exp_data = tuple(a[:NONSYM_B] for a in exp_big)
+    nonsym = {
+        "exp": check_nonsym("exp", exp_cones, exp_data, mega_st),
+        "pow": check_nonsym("pow", pow_cones,
+                            bench_data.make_pow_batch(NONSYM_B), mega_st),
+        "switch": check_nonsym(
+            "switch", exp_cones, exp_data,
+            mega_st.replace(min_switch_step_length=SWITCH)),
+    }
+
+    # BatchSolver.solve on the exponential batch through the megakernel
+    exp_spec = exp_solver._mega_fn.spec
+    k1b_ms = {}
+    for B in NONSYM_THROUGHPUT:
+        _, flats = megakernel.prepare(*(a[:B] for a in exp_big), exp_spec,
+                                      dev)
+        k1b_ms[B], _ = events_ms(
+            lambda: _cuda.megakernel(*flats, exp_spec, B), 3)
+        del flats
+    lines = []
+    exp_out = {}
+    _cuda.megakernel.launches = 0          # the exp path's run starts here
+    for B in NONSYM_THROUGHPUT:
+        data = tuple(a[:B] for a in exp_big)
+        exp_solver.solve(*data)            # warm-up
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = exp_solver.solve(*data)
+            walls.append(time.perf_counter() - t0)
+        wall = min(walls)
+        exp_out[B] = (out, wall)
+        solved = int((out.status == SOLVED).sum())
+        lines.append(
+            f"[8] exp B={B}: {solved / wall:,.0f} solves/s wall (best of 3:"
+            f" {wall * 1e3:.2f} ms), {solved / (k1b_ms[B] / 1e3):,.0f} "
+            f"solves/s kernel-only ({k1b_ms[B]:.3f} ms); mean iters "
+            f"{out.iterations.mean():.3f}; not SOLVED {B - solved}, "
+            f"statuses {np.bincount(out.status, minlength=11).tolist()}; "
+            f"card {card}")
+    k1b_launches = _cuda.megakernel.launches   # ... and ends here
+    for line in lines:
+        print(line, flush=True)
+    print(f"[8] megakernel launches on the exp path: {k1b_launches}",
+          flush=True)
+    if k1b_launches <= 0:
+        failures.append("[8] BatchSolver.solve did not launch K1b")
+    # where one exp solve's wall time goes at the largest batch (as [4])
+    data = tuple(a[:max(NONSYM_THROUGHPUT)] for a in exp_big)
+    marks = [time.perf_counter()]
+    megakernel.prepare(*data, exp_spec, "cpu")
+    marks.append(time.perf_counter())
+    B, flats = megakernel.prepare(*data, exp_spec, dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    vals, ints = _cuda.megakernel(*flats, exp_spec, B)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    eager, _ = megakernel.split_outputs(vals, ints, exp_spec)
+    megakernel.unpack_eager(eager.cpu().numpy(), exp_spec.n)
+    marks.append(time.perf_counter())
+    steps = np.diff(marks) * 1e3
+    print(f"[8] exp B={B} one solve, ms: host packing {steps[0]:.2f}; "
+          f"packing + copy to the card {steps[1]:.2f}; kernel "
+          f"{steps[2]:.2f}; copy back + unpack {steps[3]:.2f}; card {card}",
+          flush=True)
+    del flats, vals, ints
+    out, _ = exp_out[NONSYM_B]
+    P, q, A, b = exp_data
+    rp, rd, sz = true_kkt(P, q, A, b, out.x, out.z, out.s)
+    ok1 = out.status == SOLVED
+    kkt = max(rp[ok1].max(initial=0.0), rd[ok1].max(initial=0.0))
+    if kkt >= KKT_TOL:
+        failures.append(f"[8] exp B={NONSYM_B}: true KKT {kkt:.3e}")
+
+    # the condensed loop on the card, on the same batch
+    loop_bs = ctt.BatchSolver(exp_cones, NONSYM_N,
+                              ctt.Settings(kkt_backend="condensed"))
+    loop_bs.solve(*(a[:256] for a in exp_data))
+    lw, lo = synced_wall(lambda: loop_bs.solve(*exp_data))
+    l_solved = int((lo.status == SOLVED).sum())
+    k_solved = int(ok1.sum())
+    print(f"[8] condensed loop exp B={NONSYM_B}: {lw * 1e3:.1f} ms wall, "
+          f"SOLVED {l_solved} (the megakernel: {k_solved}), mean iters "
+          f"{lo.iterations.mean():.3f}, statuses "
+          f"{np.bincount(lo.status, minlength=11).tolist()}; card {card}",
+          flush=True)
+
+    # the rescue cascade behind the megakernel: on the exp batch, and on
+    # the switch setting, which leaves lanes unsolved
+    switch_st = ctt.Settings(min_switch_step_length=SWITCH)
+    for name, st, sizes in (("exp", ctt.Settings(), RESCUE_B),
+                            ("switch", switch_st, (NONSYM_B,))):
+        plain_bs = ctt.BatchSolver(exp_cones, NONSYM_N, st)
+        resc = ctt.BatchSolver(exp_cones, NONSYM_N, st, rescue="same")
+        for B in sizes:
+            data = tuple(a[:B] for a in exp_big)
+            plain_bs.solve(*data)
+            resc.solve(*data)
+            w0, s0 = synced_wall(lambda: plain_bs.solve(*data))
+            w1, s1 = synced_wall(lambda: resc.solve(*data))
+            before = int((s0.status == SOLVED).sum())
+            after = int((s1.status == SOLVED).sum())
+            kept = s0.status == SOLVED
+            print(f"[8] {name} rescue B={B}: megakernel alone "
+                  f"{w0 * 1e3:.1f} ms wall, SOLVED {before}; with "
+                  f"rescue='same' {w1 * 1e3:.1f} ms wall, SOLVED {after} "
+                  f"({after - before} of {B - before} closed), statuses "
+                  f"{np.bincount(s1.status, minlength=11).tolist()}; card "
+                  f"{card}", flush=True)
+            if after < before or not np.array_equal(s1.x[kept],
+                                                    s0.x[kept]):
+                failures.append(f"[8] {name} rescue B={B}: SOLVED lanes "
+                                f"lost or changed")
+
+    # K1b's bound: bytes and FP64 operations of this run's exp batch
+    rn = nonsym["exp"]
+    ns_in = sum(t.numel() * 8 for t in rn["flats"])
+    ns_out = rn["B"] * (rn["spec"].outd * 8 + 3 * 4)
+    ns_flops = int(rn["iters"].sum()) * flops_per_iteration(
+        rn["spec"].n, rn["spec"].m, rn["spec"].segs, 0)
+    ns_bytes_ms = (ns_in + ns_out) / HBM_RATE * 1e3
+    ns_ops_ms = ns_flops / FP64_RATE * 1e3
+    print(f"[8] K1b bound at exp B={rn['B']}: {ns_flops:.3e} FP64 ops -> "
+          f"{ns_ops_ms:.4f} ms, {ns_in + ns_out} bytes -> {ns_bytes_ms:.4f} "
+          f"ms", flush=True)
 
     if failures:
         fail("; ".join(failures))
@@ -729,6 +956,18 @@ def main():
         "bound_by": k2_main["bound_by"],
         # torch.linalg.ldl_factor pivots (Bunch-Kaufman) and has no
         # sign-aware regularization: no PyTorch call computes this function
+        "library_ms": None,
+    }, {
+        "name": "megakernel_nonsym",
+        "route": "cuda",
+        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
+        "launches": k1b_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in nonsym.values()),
+        "ms": rn["ms"],
+        "plain_ms": rn["plain_ms"],
+        "bound_ms": max(ns_bytes_ms, ns_ops_ms),
+        "bound_by": "operations" if ns_ops_ms >= ns_bytes_ms else "bytes",
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,9 @@ A homogeneous-embedding interior-point method for convex conic programs
 
 written in PyTorch for an NVIDIA H100, beside the JAX package that stays
 as its reference.  The port so far covers `BatchSolver` over batches of
-same-layout zero/nonnegative/second-order programs: the whole batched
-solve as one hand-written CUDA kernel (`csrc/megakernel.cu`), the batched
+same-layout programs with zero, nonnegative, second-order, exponential and
+power cones: the whole batched solve as one hand-written CUDA kernel
+(`csrc/megakernel.cu`; exp and pow cones as its K1b part), the batched
 IPM loop solver with the dense ldl and condensed KKT backends (float64,
 float32 and mixed precision; float32 factors through the CUDA LDL kernel
 `csrc/ldl_inverse.cu`), and the rescue cascade.  On the CPU (the caller

@@ -1,11 +1,11 @@
 """Instance generators for the batched small-conic workloads.
 
 The port's own copies of the generators in the repository's `bench.py`
-(`make_batch` and the qp_eq batch), so that the port and its smoke script
-draw the same instances as the JAX package's benchmark from the same seed,
-plus two variants of the bench shape (primal-infeasible lanes and an LP
-batch with P = 0) and batches of quasidefinite KKT matrices for the LDL
-kernel.  numpy only.
+(`make_batch`, the qp_eq batch and the exponential-cone batch), so that the
+port and its smoke script draw the same instances as the JAX package's
+benchmark from the same seed, plus two variants of the bench shape
+(primal-infeasible lanes and an LP batch with P = 0), a power-cone batch,
+and batches of quasidefinite KKT matrices for the LDL kernel.  numpy only.
 """
 
 import numpy as np
@@ -61,6 +61,53 @@ def make_lp_batch(B, n, seed=3):
     the SOC bounds every lane."""
     _, q, A, b = make_batch(B, n, seed)
     return None, q, A, b
+
+
+def _nonsym_rows(B, n):
+    """A of the exp and pow batches: x0 <= b0, x1 <= b1 (nn rows) and
+    (x0, x1, x2) + s = b3 in the 3-d cone."""
+    A = np.zeros((B, 5, n))
+    for r, c in ((0, 0), (1, 1), (2, 0), (3, 1), (4, 2)):
+        A[:, r, c] = 1.0
+    return A
+
+
+def make_exp_batch(B, seed=2):
+    """The exponential-cone batch of `bench.py` (`exp_cone_batched`): n=3,
+    cones [NN(2), Exp()], m=5; P = F F' + I/2, q < -0.5.  A copy of
+    `bench.py`'s draws, draw for draw."""
+    n = 3
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", F, F) + 0.5 * np.eye(n)
+    q = -np.abs(rng.standard_normal((B, n))) - 0.5
+    A = _nonsym_rows(B, n)
+    b = np.zeros((B, 5))
+    b[:, 0] = 2.0
+    b[:, 1] = 2.0
+    b[:, 2] = rng.uniform(1.0, 2.0, B)
+    b[:, 3] = rng.uniform(2.0, 3.0, B)
+    b[:, 4] = rng.uniform(3.0, 5.0, B)
+    return P, q, A, b
+
+
+def make_pow_batch(B, seed=1, alpha=0.6):
+    """The power-cone batch of `tests/test_megakernel_nonsym.py`
+    (`_pow_batch`): n=3, cones [NN(2), Pow(alpha)], m=5.  Its draws, in
+    bulk."""
+    n = 3
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", F, F) + 0.5 * np.eye(n)
+    q = rng.standard_normal((B, n))
+    A = _nonsym_rows(B, n)
+    b = np.zeros((B, 5))
+    b[:, 0] = 3.0
+    b[:, 1] = 3.0
+    b[:, 2] = rng.uniform(2.0, 3.0, B)
+    b[:, 3] = rng.uniform(2.0, 3.0, B)
+    b[:, 4] = rng.uniform(-0.3, 0.3, B)
+    return P, q, A, b
 
 
 def make_kkts(B, n, m, seed=0):

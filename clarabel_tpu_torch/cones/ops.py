@@ -1,20 +1,24 @@
-"""Batched cone operations over a static ConeLayout (zero, nn and SOC).
+"""Batched cone operations over a static ConeLayout.
 
-A port of the zero/nonnegative/second-order parts of
-`clarabel_tpu/cones/ops.py`: each cone family's operations are tensor ops
-over a group's (B, count, width) array, with the lane axis first.  Full
+A port of the zero, nonnegative, second-order, exponential and power parts
+of `clarabel_tpu/cones/ops.py`: each cone family's operations are tensor
+ops over a group's (B, count, width) array, with the lane axis first.  Full
 conic vectors are (B, m); per-lane scalars are (B,).  The scaling state is
 a dict {group name: {field: tensor}}: nn groups hold w and λ as (B, k), SOC
-groups w and λ as (B, count, width) and η as (B, count).
+groups w and λ as (B, count, width) and η as (B, count), exp and pow groups
+the dual gradient, the dual Hessian, Hs (B, count, 3, 3) and z
+(`cones/nonsymmetric.py`).
 
-Exponential, power and generalized power cones (ROADMAP.md Queue 1 item 8)
-and PSD cones (item 9) raise `NotImplementedError`.
+Generalized power cones (ROADMAP.md Queue 1 item 8b) and PSD cones (item
+9) raise `NotImplementedError`.
 
 Cone math provenance (the reference's reference):
 * zero cone       — src/cones/coneops_zerocone.jl
 * nonnegative     — src/cones/coneops_nncone.jl
 * second order    — src/cones/coneops_socone.jl
 * symmetric glue  — src/cones/coneops_symmetric_common.jl
+* exp, pow        — src/cones/coneops_{expcone,powcone}.jl,
+                    coneops_nonsymmetric_common.jl
 """
 
 from typing import Dict, Tuple
@@ -23,6 +27,10 @@ import torch
 
 from .layout import ConeLayout, ConeGroup, _gather, _scatter, _grow, \
     _srow_set, _on
+from . import nonsymmetric as nonsym_ops
+
+# the 3-d nonsymmetric cones this slice computes
+NONSYM = ("exp", "pow")
 
 # large-but-finite stand-in for floatmax in step length ratios
 _BIG = 1e30
@@ -33,13 +41,14 @@ def _unsupported(g: ConeGroup):
         return NotImplementedError(
             "PSD cones: ROADMAP.md Queue 1 item 9 (PSD cones)")
     return NotImplementedError(
-        f"{g.kind} cones: ROADMAP.md Queue 1 item 8 (nonsymmetric cones)")
+        f"{g.kind} cones: ROADMAP.md Queue 1 item 8b (generalized power "
+        "cones)")
 
 
 def check_supported(layout: ConeLayout) -> None:
     """Raise for any group this slice of the port does not compute."""
     for g in layout.groups.values():
-        if g.kind not in ("zero", "nn", "soc"):
+        if g.kind not in ("zero", "nn", "soc") + NONSYM:
             raise _unsupported(g)
 
 
@@ -118,6 +127,10 @@ def set_identity_scaling(layout: ConeLayout, dtype, B: int, device) -> Dict:
             }
         elif g.kind == "zero":
             state[name] = {}
+        elif g.kind in NONSYM:
+            raise RuntimeError(
+                "identity scaling is never used for nonsymmetric cones "
+                "(asymmetric problems use unit initialization)")
         else:
             raise _unsupported(g)
     return state
@@ -132,16 +145,20 @@ def unit_initialization(layout: ConeLayout, dtype, B: int, device
     """Unit (z, s) for the asymmetric start.  reference:
     src/variables.jl:213-226 and the per-cone unit_initialization!"""
     z = torch.zeros((B, layout.m), dtype=dtype, device=device)
+    s = z.clone()
     for name, g in layout.groups.items():
         if g.kind == "nn":
-            z = _scatter(z, g, torch.ones((B,) + g.idx.shape, dtype=dtype,
-                                          device=device))
+            ones = torch.ones((B,) + g.idx.shape, dtype=dtype, device=device)
+            z, s = _scatter(z, g, ones), _scatter(s, g, ones)
         elif g.kind == "soc":
-            z = z.clone()
+            z, s = z.clone(), s.clone()
             z[:, _soc_heads(g, device)] = 1.0
+            s[:, _soc_heads(g, device)] = 1.0
+        elif g.kind in NONSYM:
+            z, s = nonsym_ops.unit_initialization(g, z, s)
         elif g.kind != "zero":
             raise _unsupported(g)
-    return z, z.clone()
+    return z, s
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +181,8 @@ def margins(layout: ConeLayout, z, pd: str):
             a = Z[..., 0] - _norm(Z[..., 1:])
             alpha = torch.minimum(alpha, a.amin(dim=1))
             beta = beta + torch.clamp_min(a, 0.0).sum(dim=1)
-        elif g.kind != "zero":
+        elif g.kind not in ("zero",) + NONSYM:
+            # nonsymmetric cones never take this path
             raise _unsupported(g)
     return alpha, beta
 
@@ -182,7 +200,7 @@ def scaled_unit_shift(layout: ConeLayout, z, alpha, pd: str):
         elif g.kind == "zero":
             if pd == "primal":
                 z = _srow_set(z, g, torch.zeros_like(_grow(z, g)))
-        else:
+        elif g.kind not in NONSYM:
             raise _unsupported(g)
     return z
 
@@ -249,6 +267,11 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, scaling_strategy):
 
             ok = ok & okg.all(dim=1)
             new_state[name] = {"w": w, "lam": lam, "eta": eta}
+        elif g.kind in NONSYM:
+            st, okg = nonsym_ops.update_scaling(g, s, z, mu,
+                                                scaling_strategy)
+            ok = ok & okg
+            new_state[name] = st
         else:
             raise _unsupported(g)
     return new_state, ok
@@ -286,6 +309,10 @@ def hs_dense(layout: ConeLayout, state: Dict, like):
             blocks = blocks * (eta ** 2)[..., None, None]
             idx = _on(g, "idx", g.idx.astype("int64"), device)
             H[:, idx[:, :, None], idx[:, None, :]] = blocks.to(dtype)
+        elif g.kind in NONSYM:
+            idx = _on(g, "idx", g.idx.astype("int64"), device)
+            H[:, idx[:, :, None], idx[:, None, :]] = \
+                state[name]["Hs"].to(dtype)
         else:
             raise _unsupported(g)
     return H[:, :m, :m]
@@ -308,6 +335,9 @@ def hs_diag(layout: ConeLayout, state: Dict, like):
             jd = _soc_J(g.width, dtype, y.device)
             vals = (2.0 * w * w - jd) * (eta ** 2)[..., None]
             y = _scatter(y, g, vals)
+        elif g.kind in NONSYM:
+            y = _scatter(y, g, torch.diagonal(state[name]["Hs"], dim1=-2,
+                                              dim2=-1))
         else:
             raise _unsupported(g)
     return y
@@ -337,6 +367,8 @@ def mul_Hs(layout: ConeLayout, state: Dict, x):
             out = out + c[:, :, None, :] * w
             out = out * (eta ** 2)[..., None, None]
             y = _scatter(y, g, out)
+        elif g.kind in NONSYM:
+            y = _scatter(y, g, nonsym_ops.mul_Hs(g, state[name], X))
         else:
             raise _unsupported(g)
     return y[..., 0] if vec else y
@@ -345,7 +377,8 @@ def mul_Hs(layout: ConeLayout, state: Dict, x):
 def mul_Hs_inv(layout: ConeLayout, state: Dict, x, eps_zero):
     """y = Hs⁻¹ x per cone group with closed-form inverses, for x (B, m)
     or (B, m, k); `eps_zero` (B,) regularizes the zero-cone block (whose
-    true Hs is 0).  SOC: Hs⁻¹ = η⁻²(2w̄w̄'−J), w̄ = Jw."""
+    true Hs is 0).  SOC: Hs⁻¹ = η⁻²(2w̄w̄'−J), w̄ = Jw; exp/pow: a 3×3
+    solve against the stored Hs block."""
     X, vec = _as_columns(x)
     y = torch.zeros_like(X)
     for name, g in layout.groups.items():
@@ -363,6 +396,8 @@ def mul_Hs_inv(layout: ConeLayout, state: Dict, x, eps_zero):
             out = out + ccoef[:, :, None, :] * wbar
             out = out / (eta ** 2)[..., None, None]
             y = _scatter(y, g, out)
+        elif g.kind in NONSYM:
+            y = _scatter(y, g, nonsym_ops.mul_Hs_inv(g, state[name], X))
         else:
             raise _unsupported(g)
     return y[..., 0] if vec else y
@@ -373,7 +408,8 @@ def mul_Hs_inv(layout: ConeLayout, state: Dict, x, eps_zero):
 # ---------------------------------------------------------------------------
 
 def affine_ds(layout: ConeLayout, state: Dict, s):
-    """ds = λ ∘ λ.  reference: coneops_compositecone.jl:153-165"""
+    """ds = λ ∘ λ (symmetric) or s (nonsymmetric).  reference:
+    coneops_compositecone.jl:153-165"""
     ds = torch.zeros_like(s)
     for name, g in layout.groups.items():
         if g.kind == "zero":
@@ -384,6 +420,8 @@ def affine_ds(layout: ConeLayout, state: Dict, s):
         elif g.kind == "soc":
             lam = state[name]["lam"]
             ds = _scatter(ds, g, _soc_circ(lam, lam))
+        elif g.kind in NONSYM:
+            ds = _scatter(ds, g, _gather(s, g))
         else:
             raise _unsupported(g)
     return ds
@@ -391,8 +429,9 @@ def affine_ds(layout: ConeLayout, state: Dict, s):
 
 def combined_ds_shift(layout: ConeLayout, state: Dict, step_z, step_s,
                       sigma_mu, z):
-    """shift = W⁻¹Δs ∘ WΔz − σμe, sigma_mu (B,).  reference:
-    coneops_symmetric_common.jl:2-35"""
+    """shift = W⁻¹Δs ∘ WΔz − σμe (symmetric) or σμ·g(z) − η with the
+    third-order correction η (exp, pow); sigma_mu (B,).  reference:
+    coneops_symmetric_common.jl:2-35, coneops_nonsymmetric_common.jl"""
     shift = torch.zeros_like(step_z)
     for name, g in layout.groups.items():
         if g.kind == "zero":
@@ -412,13 +451,17 @@ def combined_ds_shift(layout: ConeLayout, state: Dict, step_z, step_s,
             out = torch.cat([out[..., :1] - sigma_mu[:, None, None],
                              out[..., 1:]], dim=-1)
             shift = _scatter(shift, g, out)
+        elif g.kind in NONSYM:
+            shift = nonsym_ops.combined_ds_shift(g, state[name], step_z,
+                                                 step_s, sigma_mu, shift)
         else:
             raise _unsupported(g)
     return shift
 
 
 def ds_from_dz_offset(layout: ConeLayout, state: Dict, ds, z):
-    """out = Wᵀ(λ \\ ds).  reference: coneops_compositecone.jl:185-202"""
+    """out = Wᵀ(λ \\ ds) (symmetric) or ds (nonsymmetric).  reference:
+    coneops_compositecone.jl:185-202"""
     out = torch.zeros_like(ds)
     for name, g in layout.groups.items():
         if g.kind == "zero":
@@ -442,6 +485,8 @@ def ds_from_dz_offset(layout: ConeLayout, state: Dict, ds, z):
                 + (w1ds1 / (1.0 + w[..., 0]))[..., None] * w[..., 1:])
             O = torch.cat([O0, O1], dim=-1) / lam[..., :1]
             out = _scatter(out, g, O)
+        elif g.kind in NONSYM:
+            out = _scatter(out, g, _gather(ds, g))
         else:
             raise _unsupported(g)
     return out
@@ -461,7 +506,10 @@ def _ratio_bound(x, dx):
 def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max,
                 settings_ls):
     """Per lane, the largest step α ≤ alpha_max (B,) keeping (z+αdz, s+αds)
-    in the cone.  reference: coneops_compositecone.jl:205-243."""
+    in the cone.  Symmetric cones come first; with a nonsymmetric cone in
+    the layout the step is then capped at 1−√eps and each exp/pow group
+    backtracks from the running minimum.  reference:
+    coneops_compositecone.jl:205-243."""
     alpha = alpha_max
     for name, g in layout.groups.items():
         if g.kind == "zero":
@@ -474,8 +522,16 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max,
             az = _soc_step_length_comp(_gather(z, g), _gather(dz, g))
             a_s = _soc_step_length_comp(_gather(s, g), _gather(ds, g))
             alpha = torch.minimum(alpha, torch.minimum(az, a_s))
-        else:
+        elif g.kind not in NONSYM:
             raise _unsupported(g)
+    if not layout.is_symmetric:
+        eps = float(torch.finfo(z.dtype).eps)
+        alpha = torch.clamp_max(alpha, 1.0 - eps ** 0.5)
+        for name, g in layout.groups.items():
+            if g.kind in NONSYM:
+                a = nonsym_ops.step_length(g, dz, ds, z, s, alpha,
+                                           settings_ls)
+                alpha = torch.minimum(alpha, a)
     return alpha
 
 
@@ -518,6 +574,36 @@ def _soc_step_length_comp(X, Y):
     return torch.minimum(alpha_i, a0).amin(dim=1)
 
 
+_logsafe = nonsym_ops._logsafe   # log, -inf where x <= 0 (mathutils.jl)
+
+
+def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
+    """f(s+αds) + f*(z+αdz) summed over the cones, per lane; α (B,).
+    reference: coneops_compositecone.jl:246-265"""
+    barrier = torch.zeros_like(alpha)
+    a2 = alpha[:, None]
+    for name, g in layout.groups.items():
+        if g.kind == "zero":
+            continue
+        if g.kind == "nn":
+            si = _grow(s, g) + a2 * _grow(ds, g)
+            zi = _grow(z, g) + a2 * _grow(dz, g)
+            barrier = barrier - _logsafe(si * zi).sum(dim=1)
+        elif g.kind == "soc":
+            a3 = alpha[:, None, None]
+            rs = _soc_residual(_gather(s, g) + a3 * _gather(ds, g))
+            rz = _soc_residual(_gather(z, g) + a3 * _gather(dz, g))
+            per = torch.where((rs > 0) & (rz > 0), -_logsafe(rs * rz) / 2.0,
+                              torch.inf)
+            barrier = barrier + per.sum(dim=1)
+        elif g.kind in NONSYM:
+            barrier = barrier + nonsym_ops.compute_barrier(g, z, s, dz, ds,
+                                                           alpha)
+        else:
+            raise _unsupported(g)
+    return barrier
+
+
 # ---------------------------------------------------------------------------
 # equilibration rectification
 # ---------------------------------------------------------------------------
@@ -531,7 +617,7 @@ def rectify_equilibration(layout: ConeLayout, e):
     for name, g in layout.groups.items():
         if g.kind in ("zero", "nn"):
             continue
-        if g.kind != "soc":
+        if g.kind not in ("soc",) + NONSYM:
             raise _unsupported(g)
         eg = _gather(e, g)  # (B, count, width)
         if g.true_dims is not None:

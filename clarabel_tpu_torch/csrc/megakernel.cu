@@ -1,14 +1,28 @@
-// The batched conic IPM as one CUDA kernel, one instance per thread (K1a).
+// The batched conic IPM as one CUDA kernel, one instance per thread (K1a,
+// and K1b where the build sets MK_NONSYM=1).
 //
 // Replaces: clarabel_tpu/ipm/megakernel.py `kernel` / `compute` (the Pallas
 // megakernel launched by `_pallas_fn`), restricted to zero, nonnegative and
-// second-order cone segments.  It computes what the plain PyTorch version
+// second-order cone segments (K1a) and exponential and power segments
+// (K1b).  It computes what the plain PyTorch version
 // clarabel_tpu_torch/ipm/megakernel_ref.py computes, formula for formula:
 // Ruiz equilibration (scalings in float32, applied in float64), the
 // symmetric initial point, the Mehrotra predictor-corrector loop over the
 // condensed normal equations (unrolled dense Cholesky plus accept-masked
 // refinement against the true augmented operator), the termination machine
 // with the gap-aware stall check, and finalization.
+//
+// K1b (MK_NONSYM=1, only in libraries whose layout has an exp or pow
+// segment, so K1a's code is unchanged): the unit-initialization start, the
+// dual and primal-dual (BFGS) 3x3 scalings with their Cholesky factors, the
+// Wright-omega and one-sided Newton primal gradients, the third-order
+// corrections, the joint feasibility backtrack, and per lane the
+// PrimalDual->Dual strategy machine with the barrier backtrack of Dual
+// lanes (reference l.848-1098, 1240-1511, 2091-2325, 2464-2701,
+// 2948-2976, 3355-3430).  log, exp and pow run in native FP64.  Each lane
+// runs its own Newton and backtracking loops (up to 50 or 60 trips), so
+// the lanes of a warp diverge there; this first version does nothing
+// about that.
 //
 // What bounds it on this card: FP64 operations.  A lane reads its P, q, A,
 // b once (at most (n(n+1)/2 + n + nm + m) * 8 bytes, about 0.9 KB at the
@@ -35,7 +49,8 @@
 //
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -o mk.so megakernel.cu
+//        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -DMK_NONSYM=0 \
+//        -o mk.so megakernel.cu
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,6 +58,9 @@
 
 #if !defined(MK_N) || !defined(MK_M) || !defined(MK_S)
 #error "build with -DMK_N=<n> -DMK_M=<m> -DMK_S=<number of cone segments>"
+#endif
+#ifndef MK_NONSYM
+#define MK_NONSYM 0
 #endif
 
 namespace {
@@ -56,13 +74,21 @@ constexpr int THREADS = 128;
 constexpr double BIG = 1e30;
 constexpr double TINY32 = 1.1754943508222875e-38;   // float32 tiny
 constexpr double EPS64 = 2.220446049250313e-16;
+constexpr double SQRT_EPS64 = 1.4901161193847656e-08;
+constexpr double PI = 3.141592653589793;
+// the nonsymmetric step cap (reference l.2169-2172) and the trip limits of
+// the joint feasibility backtrack and of the pow Newton iteration
+constexpr double STEP_CAP = 1.0 - 1.0 / 4096.0;
+constexpr int FEAS_TRIPS = 60, NR_TRIPS = 50;
+enum Strategy { PRIMAL_DUAL = 0, DUAL = 1 };
 
 enum Status {
   UNSOLVED = 0, SOLVED = 1, PINF = 2, DINF = 3, ALMOST_SOLVED = 4,
   ALMOST_PINF = 5, ALMOST_DINF = 6, MAX_ITERATIONS = 7,
   NUMERICAL_ERROR = 9, INSUFFICIENT_PROGRESS = 10
 };
-enum SegKind { SEG_ZERO = 0, SEG_NN = 1, SEG_SOC = 2 };
+enum SegKind { SEG_ZERO = 0, SEG_NN = 1, SEG_SOC = 2, SEG_EXP = 3,
+               SEG_POW = 4 };
 
 }  // namespace
 
@@ -76,8 +102,11 @@ struct MkParams {
   double max_step_fraction, min_terminate_step_length, stall_ratio;
   double tol[6];      // gap_abs, gap_rel, feas, infeas_abs, infeas_rel, ktratio
   double rtol[6];     // the reduced (ALMOST_*) tolerances, same order
+  double seg_alpha[S];  // a pow segment's exponent (0 for the other kinds)
+  double min_switch_step_length, linesearch_backtrack_step;
   int seg_kind[S], seg_lo[S], seg_hi[S];
   int degree, p_nonzero, max_iter, eq_enable, eq_max_iter, refine_passes;
+  int linesearch_max_iter;
 };
 }
 
@@ -110,10 +139,16 @@ struct Prob {
   double cinv, normq, normb, pdiag;
 };
 
-// NT scaling state.  nn rows: w2 in w, 1/w2 in winv2; soc rows: w.
+// Scaling state.  nn rows: w2 in w, 1/w2 in winv2; soc rows: w.  exp/pow
+// segments (K1b): the dual gradient g, the dual Hessian Hd, Hs and its 3x3
+// factor F (6 entries each: h11 h12 h13 h22 h23 h33; F: l21 l31 l32 and
+// the inverse pivots), and z.
 struct Scale {
   double w[M], winv2[M], lam[M];
   double eta[S], eta2[S], etainv[S], etainv2[S];
+#if MK_NONSYM
+  double ns_g[S][3], ns_Hd[S][6], ns_Hs[S][6], ns_F[S][6], ns_z[S][3];
+#endif
   bool ident;   // identity scaling (initial point)
 };
 
@@ -181,15 +216,460 @@ __device__ double soc_res_sqrt(const double* X, int len) {
   return res > 0 ? sqrt(nmax(res, 0.0)) : 0.0;
 }
 
-// ---- cone scaling (reference make_scaling, l.1452-1510) ----
+#if MK_NONSYM
+// ---- exponential and power cones (K1b; the plain version's helpers in
+// megakernel_ref.py, formula for formula).  Hessians are 6-vectors
+// (h11 h12 h13 h22 h23 h33). ----
+
+// log, with -BIG where x <= 0 (reference nslogsafe)
+__device__ __forceinline__ double nslog(double x) {
+  return x > 0 ? log(x) : -BIG;
+}
+
+__device__ __forceinline__ double dot3(const double* u, const double* v) {
+  return u[0] * v[0] + u[1] * v[1] + u[2] * v[2];
+}
+
+__device__ void hmul3(const double* H, const double* v, double* out) {
+  out[0] = H[0] * v[0] + H[1] * v[1] + H[2] * v[2];
+  out[1] = H[1] * v[0] + H[3] * v[1] + H[4] * v[2];
+  out[2] = H[2] * v[0] + H[4] * v[1] + H[5] * v[2];
+}
+
+// closed-form 3x3 Cholesky with clamped pivots: F = (l21, l31, l32, 1/l11,
+// 1/l22, 1/l33); returns whether every pivot was positive
+__device__ bool chol3_fac(const double* H, double* F) {
+  bool ok = H[0] > 0;
+  double l11 = sqrt(nmax(H[0], 0.0));
+  l11 = l11 > 0 ? l11 : 1.0;
+  const double i11 = 1.0 / l11;
+  const double l21 = H[1] * i11, l31 = H[2] * i11;
+  const double d2 = H[3] - l21 * l21;
+  ok = ok && d2 > 0;
+  double l22 = sqrt(nmax(d2, 0.0));
+  l22 = l22 > 0 ? l22 : 1.0;
+  const double i22 = 1.0 / l22;
+  const double l32 = (H[4] - l31 * l21) * i22;
+  const double d3 = H[5] - l31 * l31 - l32 * l32;
+  ok = ok && d3 > 0;
+  double l33 = sqrt(nmax(d3, 0.0));
+  l33 = l33 > 0 ? l33 : 1.0;
+  F[0] = l21; F[1] = l31; F[2] = l32;
+  F[3] = i11; F[4] = i22; F[5] = 1.0 / l33;
+  return ok;
+}
+
+__device__ void chol3_solve_fac(const double* F, const double* b,
+                                double* x) {
+  const double y1 = b[0] * F[3];
+  const double y2 = (b[1] - F[0] * y1) * F[4];
+  const double y3 = (b[2] - F[1] * y1 - F[2] * y2) * F[5];
+  const double x3 = y3 * F[5];
+  const double x2 = (y2 - F[2] * x3) * F[4];
+  x[0] = (y1 - F[0] * x2 - F[1] * x3) * F[3];
+  x[1] = x2;
+  x[2] = x3;
+}
+
+// y + log(y) = z (float64; cones/nonsymmetric.py _wright_omega)
+__device__ double wright_omega(double z) {
+  const double zm1 = z - 1.0;
+  const double p1 = zm1;
+  double w_small = 1.0 + 0.5 * p1;
+  const double p2 = p1 * zm1;
+  w_small = w_small + (1.0 / 16.0) * p2;
+  const double p3 = p2 * zm1;
+  w_small = w_small - (1.0 / 192.0) * p3;
+  const double p4 = p3 * zm1;
+  w_small = w_small - (1.0 / 3072.0) * p4;
+  const double p5 = p4 * zm1;
+  w_small = w_small + (13.0 / 61440.0) * p5;
+  const double z_big = nmax(z, 1.0 + PI);
+  const double logz = log(z_big);
+  const double zinv = 1.0 / z_big;
+  double w_big = z_big - logz;
+  double q = logz * zinv;
+  w_big = w_big + q;
+  q = q * zinv;
+  w_big = w_big + q * (logz / 2.0 - 1.0);
+  q = q * zinv;
+  w_big = w_big + q * (logz * logz / 3.0 - 1.5 * logz + 1.0);
+  double w = z < 1.0 + PI ? w_small : w_big;
+  double r = z - w - log(nmax(w, 1e-300));
+  for (int k = 0; k < 2; ++k) {
+    const double wp1 = w + 1.0;
+    const double t = wp1 * (wp1 + (2.0 * r) / 3.0);
+    w = w * (1.0 + (r / wp1) * (t - 0.5 * r) / (t - r));
+    r = (2.0 * w * w - 8.0 * w - 1.0) / (72.0 * pow(wp1, 6.0)) * pow(r, 4.0);
+  }
+  return w;
+}
+
+__device__ bool exp_feas_dual(const double* Z) {
+  const double zsafe = Z[0] < 0 ? Z[0] : -1.0;
+  const double res = Z[1] - Z[0] - Z[0] * nslog(-Z[2] / zsafe);
+  return Z[2] > 0 && Z[0] < 0 && res > 0;
+}
+
+__device__ bool exp_feas_primal(const double* S) {
+  const double res = S[1] * nslog(S[2] / (S[1] > 0 ? S[1] : 1.0)) - S[0];
+  return S[2] > 0 && S[1] > 0 && res > 0;
+}
+
+// reference: coneops_expcone.jl:370-399
+__device__ void exp_grad_hess_dual(const double* Z, double* g, double* H) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double l = nslog(-z3 / z1);
+  const double r = -z1 * l - z1 + z2;
+  const double c2 = 1.0 / r;
+  g[0] = c2 * l - 1.0 / z1;
+  g[1] = -c2;
+  g[2] = (c2 * z1 - 1.0) / z3;
+  const double rr = r * r, z1sq = z1 * z1;
+  H[0] = (rr - z1 * r + l * l * z1sq) / (rr * z1sq);
+  H[1] = -l / rr;
+  H[2] = (z2 - z1) / (rr * z3);
+  H[3] = 1.0 / rr;
+  H[4] = -z1 / (rr * z3);
+  H[5] = (rr - z1 * r + z1sq) / (rr * z3 * z3);
+}
+
+// reference: coneops_expcone.jl:284-297
+__device__ void exp_grad_primal(const double* S, double* g) {
+  const double s1 = S[0], s2 = S[1], s3 = S[2];
+  const double w = wright_omega(1.0 - s1 / s2 - nslog(s2 / s3));
+  const double g1 = 1.0 / ((w - 1.0) * s2);
+  g[0] = g1;
+  g[1] = g1 + g1 * nslog(w * s2 / s3) - 1.0 / s2;
+  g[2] = w / ((1.0 - w) * s3);
+}
+
+__device__ __forceinline__ double pow_phi_dual(double z1, double z2,
+                                               double a) {
+  return exp(nslog(z1 / a) * (2.0 * a) + nslog(z2 / (1.0 - a)) * (2.0 - 2.0 * a));
+}
+
+__device__ bool pow_feas_dual(const double* Z, double a) {
+  const double res = pow_phi_dual(Z[0], Z[1], a) - Z[2] * Z[2];
+  return Z[0] > 0 && Z[1] > 0 && res > 0;
+}
+
+__device__ bool pow_feas_primal(const double* S, double a) {
+  const double res =
+      exp(nslog(S[0]) * (2.0 * a) + nslog(S[1]) * (2.0 - 2.0 * a)) - S[2] * S[2];
+  return S[0] > 0 && S[1] > 0 && res > 0;
+}
+
+// reference: coneops_powcone.jl:408-440
+__device__ void pow_grad_hess_dual(const double* Z, double a, double* g,
+                                   double* H) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double phi = pow_phi_dual(z1, z2, a);
+  const double ipsi = 1.0 / (phi - z3 * z3);
+  const double g1p = phi * ipsi * (2.0 * a) / z1;
+  const double g2p = phi * ipsi * (2.0 - 2.0 * a) / z2;
+  const double g3p = z3 * ipsi * (-2.0);
+  H[0] = g1p * g1p - phi * ipsi * (2.0 * a * (2.0 * a - 1.0)) / (z1 * z1) +
+         (1.0 - a) / (z1 * z1);
+  H[1] = g1p * g2p - phi * ipsi * (4.0 * a * (1.0 - a)) / (z1 * z2);
+  H[2] = g1p * g3p;
+  H[3] = g2p * g2p -
+         phi * ipsi * (2.0 * (1.0 - a) * (1.0 - 2.0 * a)) / (z2 * z2) +
+         a / (z2 * z2);
+  H[4] = g2p * g3p;
+  H[5] = g3p * g3p + ipsi * 2.0;
+  g[0] = -g1p - (1.0 - a) / z1;
+  g[1] = -g2p - a / z2;
+  g[2] = -g3p;
+}
+
+__device__ __forceinline__ double pow_t0(double a) {
+  return -2.0 * a * log(a) - 2.0 * (1.0 - a) * log(1.0 - a);
+}
+
+// one-sided Newton-Raphson for |g3| of the pow primal gradient (reference
+// _pow_nr32, l.986-1051, in float64); sets big and absf
+__device__ double pow_nr(double s1, double s2, double s3, double a,
+                         bool& big, double& absf) {
+  const double phi = exp(2.0 * a * nslog(s1) + (2.0 - 2.0 * a) * nslog(s2));
+  const double abs_s = fabs(s3);
+  big = abs_s > EPS64;
+  absf = big ? abs_s : 1.0;
+  double den = phi - absf * absf;
+  den = fabs(den) > 0 ? den : 1.0;
+  double x = -1.0 / absf +
+             (2.0 * absf + sqrt(nmax(phi * phi / (absf * absf) + 3.0 * phi,
+                                     0.0))) / den;
+  const double t0 = pow_t0(a);
+  for (int k = 0; k < NR_TRIPS; ++k) {
+    const double t1 = x * x, t2 = 2.0 * x / absf;
+    const double f0 = 2.0 * a * nslog(2.0 * a * t1 + (1.0 + a) * t2) +
+                      (2.0 - 2.0 * a) *
+                          nslog((2.0 - 2.0 * a) * t1 + (2.0 - a) * t2) -
+                      nslog(phi) - nslog(t1 + t2) - 2.0 * nslog(t2) + t0;
+    const double d1 = 2.0 * a * a / (a * x + (1.0 + a) / absf) +
+                      (2.0 - 2.0 * a) * (1.0 - a) /
+                          ((1.0 - a) * x + (2.0 - a) / absf) -
+                      2.0 * (x + 1.0 / absf) / (t1 + t2 != 0 ? t1 + t2 : 1.0);
+    const double dx = -f0 / (d1 != 0 ? d1 : 1.0);
+    const bool stop = dx < EPS64 ||
+                      fabs(dx / (x != 0 ? x : 1.0)) < SQRT_EPS64 ||
+                      fabs(d1) < EPS64;
+    if (stop) break;
+    x = x + dx;
+  }
+  return x;
+}
+
+__device__ void pow_grad_from(double x, bool big, const double* S, double a,
+                              double* g) {
+  const double g3 = big ? x * (S[2] < 0 ? -1.0 : 1.0) : 0.0;
+  g[0] = big ? -(g3 * S[2] * a + (1.0 + a)) / S[0] : -(1.0 + a) / S[0];
+  g[1] = big ? -(g3 * S[2] * (1.0 - a) + (2.0 - a)) / S[1]
+             : -(2.0 - a) / S[1];
+  g[2] = g3;
+}
+
+// reference: coneops_powcone.jl:288-316,449-478 (pow_grad_primal,
+// l.1053-1096): the Newton iteration, then two Newton polish steps
+__device__ void pow_grad_primal(const double* S, double a, double* g) {
+  bool big;
+  double absf;
+  double x = pow_nr(S[0], S[1], S[2], a, big, absf);
+  const double iabs = 1.0 / absf, t0 = pow_t0(a);
+  for (int k = 0; k < 2; ++k) {
+    const double t1 = x * x, t2 = x * iabs * 2.0;
+    const double f0 = nslog(t1 * (2.0 * a) + t2 * (1.0 + a)) * (2.0 * a) +
+                      nslog(t1 * (2.0 - 2.0 * a) + t2 * (2.0 - a)) *
+                          (2.0 - 2.0 * a) -
+                      (nslog(S[0]) * (2.0 * a) +
+                       nslog(S[1]) * (2.0 - 2.0 * a)) -
+                      nslog(t1 + t2) - nslog(t2) * 2.0 + t0;
+    const double f1 = 1.0 / (x * a + iabs * (1.0 + a)) * (2.0 * a * a) +
+                      1.0 / (x * (1.0 - a) + iabs * (2.0 - a)) *
+                          ((2.0 - 2.0 * a) * (1.0 - a)) -
+                      (x + iabs) * 2.0 *
+                          (1.0 / (t1 + t2 != 0 ? t1 + t2 : 1.0));
+    x = x - f0 / (f1 != 0 ? f1 : 1.0);
+  }
+  pow_grad_from(x, big, S, a, g);
+}
+
+// the primal-dual (BFGS) Hs, with the fallback to mu_local H_dual where it
+// is not usable (reference pd_scaling_3d, l.1282-1334)
+__device__ void pd_scaling_3d(const double* Hd, const double* st,
+                              const double* zt, const double* S,
+                              const double* Z, double* Hs) {
+  const double dot_sz = dot3(S, Z);
+  const double mu_l = dot_sz * (1.0 / 3.0);
+  const double mut = dot3(zt, st) * (1.0 / 3.0);
+  double dsv[3], dzv[3], Hzt[3], tmp[3];
+  for (int i = 0; i < 3; ++i) {
+    dsv[i] = S[i] + mu_l * st[i];
+    dzv[i] = Z[i] + mu_l * zt[i];
+  }
+  const double dot_dsz = dot3(dsv, dzv);
+  const double de1 = mu_l * mut - 1.0;
+  hmul3(Hd, zt, Hzt);
+  const double de2 = dot3(zt, Hzt) - mut * mut * 3.0;
+  bool usable = fabs(de1) > SQRT_EPS64 && fabs(de2) > EPS64 && dot_sz > 0 &&
+                dot_dsz > 0;
+  const double ide2 = 1.0 / (de2 != 0 ? de2 : 1.0);
+  for (int i = 0; i < 3; ++i) tmp[i] = mut * st[i] - Hzt[i];
+  const int I[6] = {0, 0, 0, 1, 1, 2}, J[6] = {0, 1, 2, 1, 2, 2};
+  double w[6];
+  for (int k = 0; k < 6; ++k)
+    w[k] = Hd[k] - st[I[k]] * st[J[k]] * (1.0 / 3.0) -
+           tmp[I[k]] * tmp[J[k]] * ide2;
+  const double frob = w[0] * w[0] + w[3] * w[3] + w[5] * w[5] +
+                      (w[1] * w[1] + w[2] * w[2] + w[4] * w[4]) * 2.0;
+  const double t = mu_l * sqrt(nmax(frob, 0.0));
+  double ax[3] = {Z[1] * zt[2] - Z[2] * zt[1], Z[2] * zt[0] - Z[0] * zt[2],
+                  Z[0] * zt[1] - Z[1] * zt[0]};
+  const double axn = sqrt(nmax(dot3(ax, ax), 0.0));
+  const double iaxn = 1.0 / (axn > 0 ? axn : 1.0);
+  for (int i = 0; i < 3; ++i) ax[i] = ax[i] * iaxn;
+  const double isz = 1.0 / (dot_sz != 0 ? dot_sz : 1.0);
+  const double idsz = 1.0 / (dot_dsz != 0 ? dot_dsz : 1.0);
+  double pd[6];
+  for (int k = 0; k < 6; ++k) {
+    pd[k] = S[I[k]] * S[J[k]] * isz + dsv[I[k]] * dsv[J[k]] * idsz +
+            t * ax[I[k]] * ax[J[k]];
+    usable = usable && isfinite(pd[k]);
+  }
+  for (int k = 0; k < 6; ++k) Hs[k] = usable ? pd[k] : Hd[k] * mu_l;
+}
+
+// H_dual^{-1} b, or 0 where the factor breaks down or the result is not
+// finite (reference _hd_solve_guarded, l.2464)
+__device__ void hd_solve_guarded(const double* Hd, const double* b,
+                                 double* u) {
+  double F[6];
+  const bool okc = chol3_fac(Hd, F);
+  chol3_solve_fac(F, b, u);
+  const bool fin = okc && isfinite(u[0]) && isfinite(u[1]) && isfinite(u[2]);
+  for (int i = 0; i < 3; ++i) u[i] = fin ? u[i] : 0.0;
+}
+
+__device__ void finite_or_zero3(double* eta, bool ok) {
+  const bool fin = ok && isfinite(eta[0]) && isfinite(eta[1]) &&
+                   isfinite(eta[2]);
+  for (int i = 0; i < 3; ++i) eta[i] = fin ? eta[i] : 0.0;
+}
+
+// third-order correction (reference exp_higher_corr, l.2493)
+__device__ void exp_higher_corr(const double* Hd, const double* Zc,
+                                const double* ds3, const double* v3,
+                                double* eta) {
+  double u[3];
+  hd_solve_guarded(Hd, ds3, u);
+  const double z1 = Zc[0], z2 = Zc[1], z3 = Zc[2];
+  const double gpsi3 = -z1 / z3;
+  const double gpsi1 = nslog(gpsi3);
+  double psi = z1 * gpsi1 - z1 + z2;
+  const bool psi_ok = psi > 1e-9 * (fabs(z1 * gpsi1) + fabs(z1) + fabs(z2));
+  psi = psi_ok ? psi : 1.0;
+  const double gpsi[3] = {gpsi1, 1.0, gpsi3};
+  const double dpu = dot3(gpsi, u), dpv = dot3(gpsi, v3);
+  const double ipsi = 1.0 / psi, ipsi2 = ipsi * ipsi;
+  const double iz1 = 1.0 / z1, iz3 = 1.0 / z3;
+  const double coef = ((u[0] * (v3[0] * iz1 - v3[2] * iz3) +
+                        u[2] * (z1 * v3[2] * iz3 - v3[0]) * iz3) * psi -
+                       dpu * dpv * 2.0) * (ipsi2 * ipsi);
+  const double e0 = gpsi[0] * coef, e1 = gpsi[1] * coef, e2 = gpsi[2] * coef;
+  const double eta0 =
+      e0 + ((ipsi - iz1 * 2.0) * u[0] * v3[0] * (iz1 * iz1) -
+            u[2] * v3[2] * (iz3 * iz3) * ipsi +
+            dpu * ipsi2 * (v3[0] * iz1 - v3[2] * iz3) +
+            dpv * ipsi2 * (u[0] * iz1 - u[2] * iz3));
+  const double eta2 =
+      e2 + ((z1 * ipsi - 1.0) * u[2] * v3[2] * (iz3 * iz3 * iz3) * 2.0 -
+            (u[2] * v3[0] + u[0] * v3[2]) * (iz3 * iz3) * ipsi +
+            dpu * ipsi2 * (z1 * v3[2] * (iz3 * iz3) - v3[0] * iz3) +
+            dpv * ipsi2 * (z1 * u[2] * (iz3 * iz3) - u[0] * iz3));
+  eta[0] = eta0 * 0.5;
+  eta[1] = e1 * 0.5;
+  eta[2] = eta2 * 0.5;
+  finite_or_zero3(eta, psi_ok);
+}
+
+// third-order correction (reference pow_higher_corr, l.2535)
+__device__ void pow_higher_corr(const double* Hd, const double* Zc,
+                                double a, const double* ds3,
+                                const double* v3, double* eta) {
+  double u[3];
+  hd_solve_guarded(Hd, ds3, u);
+  const double z1 = Zc[0], z2 = Zc[1], z3 = Zc[2];
+  const double phi = pow_phi_dual(z1, z2, a);
+  double psi = phi - z3 * z3;
+  const bool psi_ok = psi > 1e-9 * (phi + z3 * z3);
+  psi = psi_ok ? psi : 1.0;
+  const double iz1 = 1.0 / z1, iz2 = 1.0 / z2;
+  const double gpsi[3] = {phi * iz1 * (2.0 * a), phi * iz2 * (2.0 - 2.0 * a),
+                          z3 * (-2.0)};
+  const double Hp11 = phi * (iz1 * iz1) * (2.0 * a * (2.0 * a - 1.0));
+  const double Hp12 = phi * (iz1 * iz2) * (4.0 * a * (1.0 - a));
+  const double Hp22 = phi * (iz2 * iz2) * (2.0 * (1.0 - a) * (1.0 - 2.0 * a));
+  const double dpu = dot3(gpsi, u), dpv = dot3(gpsi, v3);
+  const double Hv[3] = {Hp11 * v3[0] + Hp12 * v3[1],
+                        Hp12 * v3[0] + Hp22 * v3[1], v3[2] * (-2.0)};
+  const double uHv = u[0] * Hv[0] + u[1] * Hv[1] + u[2] * Hv[2];
+  const double ipsi = 1.0 / psi, ipsi2 = ipsi * ipsi;
+  const double coef = (uHv * psi - dpu * dpv * 2.0) * (ipsi2 * ipsi);
+  const double coef2 = phi * (u[0] * iz1 - u[1] * iz2) *
+                       (v3[0] * iz1 - v3[1] * iz2) * ipsi *
+                       (4.0 * a * (2.0 * a - 1.0) * (1.0 - a));
+  const double e1 = coef * gpsi[0] -
+                    u[0] * v3[0] * (iz1 * iz1 * iz1) * (2.0 * (1.0 - a)) +
+                    coef2 * iz1 + Hv[0] * dpu * ipsi2;
+  const double e2 = coef * gpsi[1] -
+                    u[1] * v3[1] * (iz2 * iz2 * iz2) * (2.0 * a) -
+                    coef2 * iz2 + Hv[1] * dpu * ipsi2;
+  const double e3 = coef * gpsi[2] + Hv[2] * dpu * ipsi2;
+  const double Hu[3] = {Hp11 * u[0] + Hp12 * u[1], Hp12 * u[0] + Hp22 * u[1],
+                        u[2] * (-2.0)};
+  eta[0] = (e1 + Hu[0] * dpv * ipsi2) * 0.5;
+  eta[1] = (e2 + Hu[1] * dpv * ipsi2) * 0.5;
+  eta[2] = (e3 + Hu[2] * dpv * ipsi2) * 0.5;
+  finite_or_zero3(eta, psi_ok);
+}
+
+// f*(z) + f(s) of one segment, BIG where infeasible (reference
+// _nonsym_barrier32, l.2271-2324, in float64)
+__device__ double nonsym_barrier(int kind, double a, const double* Z,
+                                 const double* S) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double s1 = S[0], s2 = S[1], s3 = S[2];
+  double bd, bp;
+  bool dfeas, pfeas;
+  if (kind == SEG_EXP) {
+    const double l = nslog(-z3 / (z1 != 0 ? z1 : -1.0));
+    bd = -nslog(-z3 * z1) - nslog(z2 - z1 - z1 * l);
+    dfeas = z3 > 0 && z1 < 0 && z2 - z1 - z1 * l > 0;
+    const double s2s = s2 > 0 ? s2 : 1.0, s3s = s3 > 0 ? s3 : 1.0;
+    const double arg = 1.0 - s1 / s2s - nslog(s2s / s3s);
+    const double w = wright_omega(nmax(arg, 0.0));
+    const double wm = (w - 1.0) * (w - 1.0) / (w != 0 ? w : 1.0);
+    bp = -nslog(wm) - 2.0 * nslog(s2) - nslog(s3) - 3.0;
+    pfeas = s3 > 0 && s2 > 0 && s2 * nslog(s3 / s2s) - s1 > 0;
+  } else {
+    const double resd = pow_phi_dual(z1, z2, a) - z3 * z3;
+    bd = -nslog(resd) - (1.0 - a) * nslog(z1) - a * nslog(z2);
+    dfeas = z1 > 0 && z2 > 0 && resd > 0;
+    bool big;
+    double absf, g[3];
+    const double x = pow_nr(s1, s2, s3, a, big, absf);
+    pow_grad_from(x, big, S, a, g);
+    const double phig = pow_phi_dual(-g[0], -g[1], a);
+    bp = nslog(phig - g[2] * g[2]) + (1.0 - a) * nslog(-g[0]) +
+         a * nslog(-g[1]) - 3.0;
+    pfeas = pow_feas_primal(S, a);
+  }
+  return (dfeas ? bd : BIG) + (pfeas ? bp : BIG);
+}
+#endif  // MK_NONSYM
+
+// ---- cone scaling (reference make_scaling, l.1355-1510); mu and strat
+// choose the exp/pow Hs (Dual: mu H_dual; PrimalDual: the BFGS form) ----
 __device__ bool make_scaling(const Ctx& cx, const double* s,
-                             const double* z, Scale& sc) {
+                             const double* z, double mu, int strat,
+                             Scale& sc) {
   bool ok = true;
   sc.ident = false;
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) continue;
+#if MK_NONSYM
+    if (kind == SEG_EXP || kind == SEG_POW) {
+      const double a = cx.p.seg_alpha[g];
+      const double S3[3] = {s[lo], s[lo + 1], s[lo + 2]};
+      const double Z3[3] = {z[lo], z[lo + 1], z[lo + 2]};
+      double zt[3], pd[6];
+      bool feas;
+      if (kind == SEG_EXP) {
+        feas = exp_feas_dual(Z3) && exp_feas_primal(S3);
+        exp_grad_hess_dual(Z3, sc.ns_g[g], sc.ns_Hd[g]);
+        exp_grad_primal(S3, zt);
+      } else {
+        feas = pow_feas_dual(Z3, a) && pow_feas_primal(S3, a);
+        pow_grad_hess_dual(Z3, a, sc.ns_g[g], sc.ns_Hd[g]);
+        pow_grad_primal(S3, a, zt);
+      }
+      pd_scaling_3d(sc.ns_Hd[g], sc.ns_g[g], zt, S3, Z3, pd);
+      bool fin = true;
+      for (int k = 0; k < 6; ++k) {
+        const double h = strat == PRIMAL_DUAL ? pd[k] : sc.ns_Hd[g][k] * mu;
+        sc.ns_Hs[g][k] = h;
+        fin = fin && isfinite(h);
+      }
+      ok = ok && feas && fin;
+      // a breakdown of the 3x3 factor is not fatal (reference l.1397-1414)
+      chol3_fac(sc.ns_Hs[g], sc.ns_F[g]);
+      for (int k = 0; k < 3; ++k) sc.ns_z[g][k] = Z3[k];
+      continue;
+    }
+#endif
     if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) {
         double prod = s[i] * z[i];
@@ -258,6 +738,11 @@ __device__ double eps_of(const Ctx& cx, const Scale* sc) {
       if (hi > lo) maxdiag = nmax(maxdiag, 0.0);
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) maxdiag = nmax(maxdiag, fabs(sc->w[i]));
+#if MK_NONSYM
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      const double* h = sc->ns_Hs[g];   // h11, h22, h33
+      maxdiag = nmax(nmax(nmax(maxdiag, fabs(h[0])), fabs(h[3])), fabs(h[5]));
+#endif
     } else {
       const double eta2 = sc->eta2[g];
       for (int i = lo; i < hi; ++i) {
@@ -283,6 +768,10 @@ __device__ void hinv_apply(const Ctx& cx, const Scale& sc, double eps,
       for (int i = lo; i < hi; ++i) out[i] = v[i];
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = v[i] * sc.winv2[i];
+#if MK_NONSYM
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      chol3_solve_fac(sc.ns_F[g], v + lo, out + lo);
+#endif
     } else {
       double cc = sc.w[lo] * v[lo];
       for (int i = lo + 1; i < hi; ++i) cc += (-sc.w[i]) * v[i];
@@ -306,6 +795,10 @@ __device__ void hs_apply(const Ctx& cx, const Scale& sc, const double* v,
       for (int i = lo; i < hi; ++i) out[i] = v[i];
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = v[i] * sc.w[i];
+#if MK_NONSYM
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      hmul3(sc.ns_Hs[g], v + lo, out + lo);
+#endif
     } else {
       double c = 0.0;
       for (int i = lo; i < hi; ++i) c += sc.w[i] * v[i];
@@ -523,6 +1016,33 @@ __device__ double soc_step_len(const double* X, const double* Y, int len) {
   return nmin(alpha, a0);
 }
 
+#if MK_NONSYM
+// (z + a dz, s + a ds) strictly inside every exp/pow segment's dual and
+// primal cone
+__device__ bool nonsym_feasible(const Ctx& cx, const double* z,
+                                const double* s, const double* dz,
+                                const double* ds, double a) {
+  bool ok = true;
+  for (int g = 0; g < S; ++g) {
+    const int lo = cx.p.seg_lo[g], kind = cx.p.seg_kind[g];
+    if (kind != SEG_EXP && kind != SEG_POW) continue;
+    double Z[3], Sv[3];
+    for (int i = 0; i < 3; ++i) {
+      Z[i] = z[lo + i] + a * dz[lo + i];
+      Sv[i] = s[lo + i] + a * ds[lo + i];
+    }
+    if (kind == SEG_EXP)
+      ok = ok && exp_feas_dual(Z) && exp_feas_primal(Sv);
+    else
+      ok = ok && pow_feas_dual(Z, cx.p.seg_alpha[g]) &&
+           pow_feas_primal(Sv, cx.p.seg_alpha[g]);
+  }
+  return ok;
+}
+#endif
+
+// symmetric segments first; with exp/pow segments the step is then capped
+// and backtracked jointly over all of them (reference l.2091-2229)
 __device__ double step_length(const Ctx& cx, const double* dz,
                               const double* ds, const double* z,
                               const double* s, double amax) {
@@ -530,7 +1050,7 @@ __device__ double step_length(const Ctx& cx, const double* dz,
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
-    if (kind == SEG_ZERO) continue;
+    if (kind == SEG_ZERO || kind == SEG_EXP || kind == SEG_POW) continue;
     if (kind == SEG_NN) {
       double az = BIG, as = BIG;
       bool first = true;
@@ -548,16 +1068,30 @@ __device__ double step_length(const Ctx& cx, const double* dz,
       alpha = nmin(alpha, soc_step_len(s + lo, ds + lo, hi - lo));
     }
   }
+#if MK_NONSYM
+  alpha = nmin(alpha, STEP_CAP);
+  for (int k = 0; k < FEAS_TRIPS; ++k) {
+    if (nonsym_feasible(cx, z, s, dz, ds, alpha)) break;
+    alpha = alpha * cx.p.linesearch_backtrack_step;
+    if (alpha < cx.p.min_terminate_step_length) {
+      alpha = 0.0;
+      break;
+    }
+  }
+#endif
   return alpha;
 }
 
 // ---- predictor-corrector pieces ----
-__device__ void affine_ds(const Ctx& cx, const Scale& sc, double* out) {
+__device__ void affine_ds(const Ctx& cx, const Scale& sc, const double* s,
+                          double* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
       for (int i = lo; i < hi; ++i) out[i] = 0.0;
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      for (int i = lo; i < hi; ++i) out[i] = s[i];
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = sc.lam[i] * sc.lam[i];
     } else {
@@ -590,6 +1124,18 @@ __device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
       for (int i = lo; i < hi; ++i) out[i] = 0.0;
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = dz[i] * ds[i] - sigma_mu;
+#if MK_NONSYM
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      // sigma mu g(z) - eta, eta the third-order correction
+      double eta[3];
+      if (kind == SEG_EXP)
+        exp_higher_corr(sc.ns_Hd[g], sc.ns_z[g], ds + lo, dz + lo, eta);
+      else
+        pow_higher_corr(sc.ns_Hd[g], sc.ns_z[g], cx.p.seg_alpha[g], ds + lo,
+                        dz + lo, eta);
+      for (int i = 0; i < 3; ++i)
+        out[lo + i] = sc.ns_g[g][i] * sigma_mu - eta[i];
+#endif
     } else {
       const int len = hi - lo;
       double wdz[M], wids[M];
@@ -612,6 +1158,8 @@ __device__ void ds_from_dz_offset(const Ctx& cx, const Scale& sc,
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
       for (int i = lo; i < hi; ++i) out[i] = 0.0;
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      for (int i = lo; i < hi; ++i) out[i] = dsv[i];
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = dsv[i] / z[i];
     } else {
@@ -748,20 +1296,61 @@ __device__ double max_step(double tau, double kappa, double dtau,
   return nmin(nmin(a_tau, a_kap), 1.0);
 }
 
-// One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977)
+#if MK_NONSYM
+// the total barrier a step a along the direction, float64 (reference
+// barrier_at, l.2230-2269, in f32)
+__device__ double barrier_at(const Ctx& cx, const double* z, const double* s,
+                             const double* dz, const double* ds, double tau,
+                             double kappa, double dtau, double dkappa,
+                             double a) {
+  const double cur_tau = tau + a * dtau, cur_kappa = kappa + a * dkappa;
+  double zs[M], ss[M], sz = 0.0;
+  for (int k = 0; k < M; ++k) {
+    zs[k] = z[k] + a * dz[k];
+    ss[k] = s[k] + a * ds[k];
+    sz += zs[k] * ss[k];
+  }
+  const double deg1 = (double)(cx.p.degree + 1);
+  const double mu_a = (sz + cur_tau * cur_kappa) / deg1;
+  double bar = deg1 * nslog(mu_a) - nslog(cur_tau) - nslog(cur_kappa);
+  for (int g = 0; g < S; ++g) {
+    const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
+    const int kind = cx.p.seg_kind[g];
+    if (kind == SEG_NN) {
+      double acc = 0.0;
+      for (int i = lo; i < hi; ++i) acc += nslog(ss[i] * zs[i]);
+      bar = bar - acc;
+    } else if (kind == SEG_SOC) {
+      double s1 = 0.0, z1 = 0.0;
+      for (int i = lo + 1; i < hi; ++i) {
+        s1 += ss[i] * ss[i];
+        z1 += zs[i] * zs[i];
+      }
+      const double rs = ss[lo] * ss[lo] - s1, rz = zs[lo] * zs[lo] - z1;
+      bar = bar + ((rs > 0 && rz > 0) ? -0.5 * nslog(rs * rz) : BIG);
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      bar = bar + nonsym_barrier(kind, cx.p.seg_alpha[g], zs + lo, ss + lo);
+    }
+  }
+  return bar;
+}
+#endif
+
+// One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977);
+// on a Dual lane (K1b) the step is then backtracked to a barrier below 1
 __device__ void pc_step(const Ctx& cx, const double* x, const double* z,
                         const double* s, double tau, double kappa,
                         double tinv, const Res& res, double mu, int iters1,
-                        Step& st) {
+                        int strat, Step& st) {
   Scale sc;
-  const bool ok_scale = make_scaling(cx, s, z, sc);
+  const bool ok_scale = make_scaling(cx, s, z, mu, strat, sc);
   const double eps = eps_of(cx, &sc);
   Kkt kk;
   const bool ok_chol = build_kkt(cx, sc, eps, kk);
   bool ok_kkt = ok_scale && ok_chol;
 
   double aff[M];
-  affine_ds(cx, sc, aff);
+  affine_ds(cx, sc, s, aff);
   double bx[2][N], bz[2][M], xs[2][N], zs[2][M];
   for (int j = 0; j < N; ++j) { bx[0][j] = -cx.pr.q[j]; bx[1][j] = res.rx[j]; }
   for (int k = 0; k < M; ++k) { bz[0][k] = cx.pr.b[k]; bz[1][k] = s[k] - res.rz[k]; }
@@ -812,6 +1401,16 @@ __device__ void pc_step(const Ctx& cx, const double* x, const double* z,
                          max_step(tau, kappa, st.dtau, st.dkappa)) *
              cx.p.max_step_fraction;
   st.sigma = sigma;
+#if MK_NONSYM
+  if (strat == DUAL) {
+    for (int k = 0; k < cx.p.linesearch_max_iter; ++k) {
+      if (barrier_at(cx, z, s, st.dz, st.ds, tau, kappa, st.dtau, st.dkappa,
+                     st.alpha) < 1.0)
+        break;
+      st.alpha = st.alpha * cx.p.linesearch_backtrack_step;
+    }
+  }
+#endif
 }
 
 // ---- Ruiz equilibration: scalings in float32 (reference l.2997-3046) ----
@@ -873,9 +1472,10 @@ __device__ void ruiz(const Ctx& cx, const double* Praw, const double* Araw,
     for (int j = 0; j < N; ++j) qa[j] = qa[j] * ctmp;
     cf = cf * ctmp;
   }
-  // cone rectification: one scalar (the mean) on each SOC segment
+  // cone rectification: one scalar (the mean) on each segment that is not
+  // elementwise (soc, exp, pow)
   for (int g = 0; g < S; ++g) {
-    if (cx.p.seg_kind[g] != SEG_SOC) continue;
+    if (cx.p.seg_kind[g] == SEG_ZERO || cx.p.seg_kind[g] == SEG_NN) continue;
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     float acc = 0.0f;
     for (int k = lo; k < hi; ++k) acc = acc + ef[k];
@@ -934,8 +1534,30 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
     for (int j = 1; j < N; ++j) pr.pdiag = nmax(pr.pdiag, fabs(pr.P[j * N + j]));
   }
 
-  // ---- initial point (symmetric cones; reference l.3139-3157) ----
+  // ---- initial point (reference l.3089-3157) ----
   double x[N], z[M], s[M];
+#if MK_NONSYM
+  // the unit point of every cone, x = 0
+  for (int j = 0; j < N; ++j) x[j] = 0.0;
+  for (int g = 0; g < S; ++g) {
+    const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
+    const int kind = cx.p.seg_kind[g];
+    for (int i = lo; i < hi; ++i) z[i] = 0.0;
+    if (kind == SEG_NN) {
+      for (int i = lo; i < hi; ++i) z[i] = 1.0;
+    } else if (kind == SEG_SOC) {
+      z[lo] = 1.0;
+    } else if (kind == SEG_EXP) {
+      z[lo] = -1.051383945322714;
+      z[lo + 1] = 0.556409619469370;
+      z[lo + 2] = 1.258967884768947;
+    } else if (kind == SEG_POW) {
+      z[lo] = sqrt(1.0 + cx.p.seg_alpha[g]);
+      z[lo + 1] = sqrt(2.0 - cx.p.seg_alpha[g]);
+    }
+  }
+  for (int k = 0; k < M; ++k) s[k] = z[k];
+#else
   {
     Scale id;
     id.ident = true;
@@ -959,13 +1581,14 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
     shift_to_interior(cx, s, true);
     shift_to_interior(cx, z, false);
   }
+#endif
   double tau = 1.0, kappa = 1.0;
   double px[N], pz[M], ps[M], ptau = tau, pkap = kappa;
   for (int j = 0; j < N; ++j) px[j] = x[j];
   for (int k = 0; k < M; ++k) { pz[k] = z[k]; ps[k] = s[k]; }
   double prev_rp = BIG, prev_rd = BIG, prev_ga = BIG, prev_gr = BIG;
   double mu_f = BIG, alpha_f = 0.0, sigma_f = 1.0;
-  int iters = 0, status = UNSOLVED;
+  int iters = 0, status = UNSOLVED, strat = PRIMAL_DUAL;
   const double inv_deg1 = 1.0 / (p.degree + 1);
   const double sr = p.stall_ratio;
 
@@ -1005,20 +1628,44 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
         for (int k = 0; k < M; ++k) { z[k] = pz[k]; s[k] = ps[k]; }
         tau = ptau;
         kappa = pkap;
+#if MK_NONSYM
+        // a PrimalDual lane downgrades to Dual and continues from the
+        // restored iterate (reference l.3354-3383)
+        if (strat == PRIMAL_DUAL) {
+          strat = DUAL;
+          continue;
+        }
+#endif
       }
       status = status2;
       break;
     }
     const int iters1 = iters + 1;
     Step stp;
-    pc_step(cx, x, z, s, tau, kappa, tinv, res, mu, iters1, stp);
+    pc_step(cx, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, stp);
 
+    // numerical-error and small-step checkpoints (reference l.3391-3430)
     int fail_status = stp.kkt_fail ? NUMERICAL_ERROR : UNSOLVED;
-    const bool small_term =
-        stp.alpha <= nmax(0.0, p.min_terminate_step_length);
-    if (fail_status == UNSOLVED && small_term)
+    bool small_term = stp.alpha <= nmax(0.0, p.min_terminate_step_length);
+#if MK_NONSYM
+    // a PrimalDual lane downgrades to Dual instead of failing
+    const bool can_dg = strat == PRIMAL_DUAL;
+    if (stp.kkt_fail && can_dg) fail_status = UNSOLVED;
+    const bool small_switch =
+        can_dg && !stp.kkt_fail && stp.alpha < p.min_switch_step_length;
+    small_term = small_term && !small_switch;
+    const bool dg_fail = (stp.kkt_fail && can_dg) || small_switch;
+#endif
+    if (fail_status == UNSOLVED && !stp.kkt_fail && small_term)
       fail_status = INSUFFICIENT_PROGRESS;
-    const bool take = !stp.kkt_fail && !small_term;
+    bool take = !stp.kkt_fail && !small_term;
+#if MK_NONSYM
+    if (dg_fail) {
+      take = false;
+      strat = DUAL;
+      fail_status = UNSOLVED;
+    }
+#endif
     const double a = take ? stp.alpha : 0.0;
     if (take) {
       for (int j = 0; j < N; ++j) { px[j] = x[j]; x[j] = x[j] + stp.dx[j] * a; }
@@ -1074,6 +1721,7 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
   for (int i = 0; i < 13; ++i) o[(r++) * B] = scalars[i];
   ints[lane] = status;
   ints[B + lane] = iters;
+  ints[2 * B + lane] = strat;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -1090,18 +1738,20 @@ mk_kernel(In P, In q, In A, In b, long long B, MkParams prm,
 
 extern "C" {
 
-// Shape this library was built for: {n, m, segments, OUTD}.
+// Shape this library was built for: {n, m, segments, nonsymmetric, OUTD}.
 int mk_shape(int* out) {
   out[0] = N;
   out[1] = M;
   out[2] = S;
-  out[3] = OUTD;
+  out[3] = MK_NONSYM;
+  out[4] = OUTD;
   return 0;
 }
 
 // Launch the whole batched solve on `stream`.  Input component k of lane l
-// is ptr[k * ld + l * ls].  vals is (OUTD, B) float64, ints (2, B) int32.
-// Returns cudaGetLastError() after the launch.
+// is ptr[k * ld + l * ls].  vals is (OUTD, B) float64, ints (3, B) int32
+// (status, iterations, final scaling strategy).  Returns cudaGetLastError()
+// after the launch.
 int mk_solve(const double* P, long long P_ld, long long P_ls,
              const double* q, long long q_ld, long long q_ls,
              const double* A, long long A_ld, long long A_ls,

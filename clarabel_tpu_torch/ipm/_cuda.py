@@ -1,8 +1,10 @@
-"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a).
+"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a and K1b).
 
 The kernel has compile-time sizes, so there is one library per problem
-shape (n, m, number of cone segments), built at first use by
-`cuda_build.CudaLibrary` (nvcc for sm_90a, loaded with ctypes).
+shape (n, m, number of cone segments, and whether the layout has an
+exponential or power segment: only then is the K1b code compiled in),
+built at first use by `cuda_build.CudaLibrary` (nvcc for sm_90a, loaded
+with ctypes).
 
 `megakernel(Ptri, q, A, b, spec, B)` checks its inputs, allocates the outputs
 with `torch.empty`, launches on the current stream and counts the launch.
@@ -17,9 +19,9 @@ import torch
 
 from ..cuda_build import CudaLibrary, nvcc_path  # noqa: F401 (re-exported)
 
-_SEG_CODES = {"zero": 0, "nn": 1, "soc": 2}
+_SEG_CODES = {"zero": 0, "nn": 1, "soc": 2, "exp": 3, "pow": 4}
 
-Shape = Tuple[int, int, int]   # (n, m, number of segments)
+Shape = Tuple[int, int, int, int]   # (n, m, segments, nonsymmetric 0/1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,6 +29,7 @@ def _params_struct(nseg: int):
     """The ctypes mirror of MkParams for `nseg` cone segments (one class
     per count: ctypes checks a by-value argument's class)."""
     seg = ctypes.c_int * nseg
+    seg_d = ctypes.c_double * nseg
 
     class MkParams(ctypes.Structure):
         _fields_ = [
@@ -42,6 +45,9 @@ def _params_struct(nseg: int):
             ("stall_ratio", ctypes.c_double),
             ("tol", ctypes.c_double * 6),
             ("rtol", ctypes.c_double * 6),
+            ("seg_alpha", seg_d),
+            ("min_switch_step_length", ctypes.c_double),
+            ("linesearch_backtrack_step", ctypes.c_double),
             ("seg_kind", seg),
             ("seg_lo", seg),
             ("seg_hi", seg),
@@ -51,6 +57,7 @@ def _params_struct(nseg: int):
             ("eq_enable", ctypes.c_int),
             ("eq_max_iter", ctypes.c_int),
             ("refine_passes", ctypes.c_int),
+            ("linesearch_max_iter", ctypes.c_int),
         ]
 
     return MkParams
@@ -74,10 +81,14 @@ def _params(spec):
     prm.rtol[:] = [st.reduced_tol_gap_abs, st.reduced_tol_gap_rel,
                    st.reduced_tol_feas, st.reduced_tol_infeas_abs,
                    st.reduced_tol_infeas_rel, st.reduced_tol_ktratio]
-    for g, (kind, lo, hi) in enumerate(spec.segs):
+    prm.min_switch_step_length = st.min_switch_step_length
+    prm.linesearch_backtrack_step = st.linesearch_backtrack_step
+    prm.linesearch_max_iter = int(st.linesearch_max_iter)
+    for g, ((kind, lo, hi), a) in enumerate(zip(spec.segs, spec.alphas)):
         prm.seg_kind[g] = _SEG_CODES[kind]
         prm.seg_lo[g] = lo
         prm.seg_hi[g] = hi
+        prm.seg_alpha[g] = a
     prm.degree = spec.degree
     prm.p_nonzero = int(spec.p_nonzero)
     prm.max_iter = st.max_iter
@@ -89,15 +100,16 @@ def _params(spec):
 
 
 def shape_of(spec) -> Shape:
-    return (spec.n, spec.m, len(spec.segs))
+    return (spec.n, spec.m, len(spec.segs), int(spec.nonsym))
 
 
 class Megakernel(CudaLibrary):
     """The built libraries, one per shape, and the launch count."""
 
     def __init__(self):
-        super().__init__("megakernel.cu", macros=("MK_N", "MK_M", "MK_S"),
-                         tags=("n", "m", "s"))
+        super().__init__("megakernel.cu",
+                         macros=("MK_N", "MK_M", "MK_S", "MK_NONSYM"),
+                         tags=("n", "m", "s", "ns"))
         self.launches = 0
 
     def bind(self, lib: ctypes.CDLL, shape: Shape) -> None:
@@ -108,15 +120,16 @@ class Megakernel(CudaLibrary):
         lib.mk_solve.restype = ctypes.c_int
         lib.mk_shape.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.mk_shape.restype = ctypes.c_int
-        got = (ctypes.c_int * 4)()
+        got = (ctypes.c_int * 5)()
         lib.mk_shape(got)
-        if tuple(got[:3]) != shape:
+        if tuple(got[:4]) != shape:
             raise RuntimeError(f"{self.lib_path(shape)} was built for "
-                               f"{tuple(got[:3])}, not {shape}")
+                               f"{tuple(got[:4])}, not {shape}")
 
     def __call__(self, Ptri, q, A, b, spec, B):
         """Launch the batched solve over B lanes; returns (vals (OUTD, B)
-        float64, ints (2, B) int32) on the inputs' device."""
+        float64, ints (3, B) int32: status, iterations, final scaling
+        strategy) on the inputs' device."""
         dims = (spec.triu, spec.n, spec.n * spec.m, spec.m)
         device = Ptri.device
         if B < 1:
@@ -143,7 +156,7 @@ class Megakernel(CudaLibrary):
             else:
                 raise ValueError(f"{name} must be 1-D or 2-D")
         vals = torch.empty((spec.outd, B), dtype=torch.float64, device=device)
-        ints = torch.empty((2, B), dtype=torch.int32, device=device)
+        ints = torch.empty((3, B), dtype=torch.int32, device=device)
         lib = self.load(shape_of(spec))
         args = []
         for t, (ld, ls) in zip((Ptri, q, A, b), strides):

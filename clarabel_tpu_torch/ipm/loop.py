@@ -1,7 +1,8 @@
 """The homogeneous-embedding IPM loop solver, batched over a leading lane axis.
 
-A port of `clarabel_tpu/ipm/loop.py` for zero, nonnegative and second-order
-cones with the dense `ldl` and the `condensed` KKT backends.  The
+A port of `clarabel_tpu/ipm/loop.py` for zero, nonnegative, second-order,
+exponential and power cones with the dense `ldl` and the `condensed` KKT
+backends.  The
 reference builds a single-instance function and batches it with
 `jax.vmap`; `build_solve` here returns the batched function itself,
 solve(P (B,n,n), q (B,n), A (B,m,n), b (B,m)) -> dict of (B, ...) tensors,
@@ -16,6 +17,10 @@ What `vmap` does to the reference's control flow is written out:
   are still factored; their values never reach a live lane, because every
   merge is a select and never a product with a mask.
 * Refinement is masked per lane (`kkt.refine`).
+* Layouts with an exponential or power cone take the asymmetric IPM: the
+  unit-initialization start, and per lane the PrimalDual→Dual strategy
+  machine with the barrier backtrack of Dual lanes (reference:
+  src/solver.jl:407-514).  Symmetric layouts never run those ops.
 
 Variable set: (x, z, s, τ, κ) with residuals
     rx = −Aᵀz − Px − qτ
@@ -36,9 +41,10 @@ from ..settings import torch_dtype
 from ..statuscodes import SolverStatus
 from .equilibration import ruiz_equilibrate
 
-# scaling strategy code (reference: src/types.jl:73-76); symmetric cones
-# keep PrimalDual throughout
+# scaling strategy codes (reference: src/types.jl:73-76); symmetric cones
+# keep PrimalDual throughout, a nonsymmetric layout may downgrade a lane
 PRIMAL_DUAL = 0
+DUAL = 1
 
 _BIG = 1e30  # large-but-finite in both f32 and f64
 
@@ -229,10 +235,14 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         # float32 default is for multifrontal fronts on a TPU only)
         settings = settings.replace(factor_dtype=settings.dtype)
     if settings.dense_ldl_diag_order is None:
-        # auto: descending-|diag| elimination order for zero/nn/soc layouts,
-        # which are the only ones this slice runs
-        settings = settings.replace(dense_ldl_diag_order=True)
+        # auto: descending-|diag| elimination order for zero/nn/soc layouts
+        # only; nonsymmetric Hs blocks have dominant off-diagonals, where
+        # the diagonal is a poor pivoting guide (reference loop.py:260-271)
+        safe = all(g.kind in ("zero", "nn", "soc")
+                   for g in layout.groups.values())
+        settings = settings.replace(dense_ldl_diag_order=safe)
     eps_T = float(np.finfo(settings.dtype).eps)
+    is_symmetric = layout.is_symmetric
 
     def shift_to_cone_interior(vec, pd):
         """reference: src/variables.jl:180-208"""
@@ -289,7 +299,12 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     def default_start(P, q, A, b, signs):
         """reference: src/solver.jl:383-404, src/kktsystem.jl:95-132"""
         B = q.shape[0]
+        one = torch.ones((B,), dtype=dtype, device=q.device)
         zero_n = torch.zeros_like(q)
+        if not is_symmetric:
+            # asymmetric problems: the unit point for every cone
+            z0, s0 = cone_ops.unit_initialization(layout, dtype, B, q.device)
+            return zero_n, z0, s0, one, one.clone()
         zero_m = torch.zeros_like(b)
         state0 = cone_ops.set_identity_scaling(layout, dtype, B, q.device)
         _, solve_xz, _ = make_kkt(P, A, state0, settings.factor_dtype, signs)
@@ -304,7 +319,6 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             _, z0, _ = solve_xz(-q, zero_m)
         s0 = shift_to_cone_interior(s0, "primal")
         z0 = shift_to_cone_interior(z0, "dual")
-        one = torch.ones((B,), dtype=dtype, device=q.device)
         return x0, z0, s0, one, one.clone()
 
     def calc_step_length(dz, ds, dtau, dkappa, z, s, tau, kappa, state,
@@ -324,6 +338,37 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             alpha = alpha * settings.max_step_fraction
         return alpha
 
+    def barrier_fn(z, s, tau, kappa, dz, ds, dtau, dkappa, state, alpha):
+        """reference: src/variables.jl:46-72"""
+        central_coef = degree + 1
+        cur_tau = tau + alpha * dtau
+        cur_kappa = kappa + alpha * dkappa
+        a = alpha[:, None]
+        sz = so.vdot(z + a * dz, s + a * ds)
+        mu = (sz + cur_tau * cur_kappa) / central_coef
+        barrier = (central_coef * cone_ops._logsafe(mu)
+                   - cone_ops._logsafe(cur_tau)
+                   - cone_ops._logsafe(cur_kappa))
+        return barrier + cone_ops.compute_barrier(layout, state, z, s, dz,
+                                                  ds, alpha)
+
+    def backtrack_to_barrier(z, s, tau, kappa, dz, ds, dtau, dkappa, state,
+                             alpha_init, active):
+        """Backtracking line search on barrier < 1 for the lanes `active`
+        (the Dual ones), each for at most linesearch_max_iter trips; the
+        other lanes keep alpha_init.  reference: src/solver.jl:424-442"""
+        step = settings.linesearch_backtrack_step
+        alpha = alpha_init
+        done = ~active
+        for _ in range(settings.linesearch_max_iter):
+            if bool(done.all()):
+                break
+            good = barrier_fn(z, s, tau, kappa, dz, ds, dtau, dkappa, state,
+                              alpha) < 1.0
+            alpha = torch.where(done | good, alpha, alpha * step)
+            done = done | good
+        return alpha
+
     def prepare(P, q, A, b):
         """Equilibration and the initial point: (data, initial carry)."""
         P, q, A, b = (t.to(dtype) for t in (P, q, A, b))
@@ -336,8 +381,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         normq = (equil.dinv * q).abs().amax(dim=1) / equil.c
         normb = (equil.einv * b).abs().amax(dim=1)
 
-        # -- initial point (the symmetric start: the layout has only
-        # zero/nn/soc cones)
+        # -- initial point
         x0, z0, s0, tau0, kappa0 = default_start(P, q, A, b, signs)
 
         B = q.shape[0]
@@ -403,8 +447,9 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             MAX_ITERATIONS, status).to(torch.int32)
 
         # insufficient-progress checkpoint (reference: src/solver.jl:453-472):
-        # roll back to the previous iterate.  Symmetric cones never
-        # downgrade the scaling strategy.
+        # roll back to the previous iterate; a nonsymmetric layout's
+        # PrimalDual lane downgrades to Dual and continues (it skips this
+        # pass).  Symmetric cones never downgrade.
         restore = status == INSUFFICIENT_PROGRESS
         x = _select(restore, carry.px, x)
         z = _select(restore, carry.pz, z)
@@ -412,7 +457,15 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         tau = _select(restore, carry.ptau, tau)
         kappa = _select(restore, carry.pkappa, kappa)
         scaling = carry.scaling
-        done_or_restart = status != UNSOLVED
+        if is_symmetric:
+            done_or_restart = status != UNSOLVED
+        else:
+            downgraded_ip = restore & (scaling == PRIMAL_DUAL)
+            status = torch.where(downgraded_ip, UNSOLVED,
+                                 status).to(torch.int32)
+            scaling = torch.where(downgraded_ip, DUAL,
+                                  scaling).to(torch.int32)
+            done_or_restart = (status != UNSOLVED) | downgraded_ip
 
         skipped = carry._replace(x=x, z=z, s=s, tau=tau, kappa=kappa,
                                  mu=mu, status=status, scaling=scaling)
@@ -478,23 +531,48 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                                                 comb_kappa)
         ok_kkt = ok_kkt & ok3
 
-        # numerical-error checkpoint (reference: src/solver.jl:475-489);
-        # symmetric cones cannot downgrade, so a failed KKT is an error
+        # numerical-error checkpoint (reference: src/solver.jl:475-489): a
+        # failed KKT is an error, except on a nonsymmetric layout's
+        # PrimalDual lane, which downgrades to Dual
         kkt_fail = ~ok_kkt
-        fail_status = torch.where(kkt_fail, NUMERICAL_ERROR, UNSOLVED)
+        new_scaling = scaling
+        if is_symmetric:
+            fail_status = torch.where(kkt_fail, NUMERICAL_ERROR, UNSOLVED)
+        else:
+            can_downgrade = scaling == PRIMAL_DUAL
+            new_scaling = torch.where(kkt_fail & can_downgrade, DUAL,
+                                      scaling)
+            fail_status = torch.where(kkt_fail & ~can_downgrade,
+                                      NUMERICAL_ERROR, UNSOLVED)
 
         # final step length
         alpha = calc_step_length(dz, ds, dtau, dkappa, z, s, tau, kappa,
                                  state, "combined")
 
         # small-step checkpoint (reference: src/solver.jl:492-505)
-        small_terminate = alpha <= max(0.0,
-                                       settings.min_terminate_step_length)
+        min_term = max(0.0, settings.min_terminate_step_length)
+        if is_symmetric:
+            small_terminate = alpha <= min_term
+            take_step = ~kkt_fail & ~small_terminate
+        else:
+            # extra barrier backtrack on the Dual lanes (reference:
+            # src/solver.jl:416-419)
+            on_dual = scaling == DUAL
+            alpha_bt = backtrack_to_barrier(z, s, tau, kappa, dz, ds, dtau,
+                                            dkappa, state, alpha, on_dual)
+            alpha = torch.where(on_dual, alpha_bt, alpha)
+            # a PrimalDual lane with a short step switches to Dual
+            small_switch = can_downgrade & (
+                alpha < settings.min_switch_step_length)
+            small_terminate = ~small_switch & (alpha <= min_term)
+            new_scaling = torch.where(~kkt_fail & small_switch, DUAL,
+                                      new_scaling)
+            take_step = ~kkt_fail & ~small_switch & ~small_terminate
+        new_scaling = new_scaling.to(torch.int32)
         fail_status = torch.where(
             (fail_status == UNSOLVED) & ~kkt_fail & small_terminate,
             INSUFFICIENT_PROGRESS, fail_status).to(torch.int32)
 
-        take_step = ~kkt_fail & ~small_terminate
         alpha_eff = torch.where(take_step, alpha, torch.zeros_like(alpha))
         a = alpha_eff[:, None]
 
@@ -518,7 +596,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             prev_gap_abs=_select(take_step, info.gap_abs, carry.prev_gap_abs),
             prev_gap_rel=_select(take_step, info.gap_rel, carry.prev_gap_rel),
             mu=mu, alpha=alpha_eff, sigma=sigma,
-            iters=iters, status=fail_status, scaling=scaling,
+            iters=iters, status=fail_status, scaling=new_scaling,
         )
         return _select_tuple(done_or_restart, skipped, stepped)
 
@@ -610,6 +688,9 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             "ktratio": info.ktratio,
             "tau": final.tau * scaleinv,
             "kappa": final.kappa * scaleinv,
+            # the final scaling strategy (PRIMAL_DUAL or DUAL), a
+            # diagnostic the reference does not return
+            "scaling": final.scaling,
         }
 
     def solve(P, q, A, b):

@@ -1,4 +1,5 @@
-"""Host side of the batched IPM megakernel (K1a: zero/nn/soc segments).
+"""Host side of the batched IPM megakernel (K1a: zero/nn/soc segments;
+K1b: exponential and power segments).
 
 The reference (`clarabel_tpu/ipm/megakernel.py`) runs the whole batched
 IPM as one Pallas kernel per 1024-lane block.  The port runs it as one
@@ -21,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..cones.api import NonnegativeConeT, SecondOrderConeT, ZeroConeT
+from ..cones.api import (ExponentialConeT, NonnegativeConeT, PowerConeT,
+                         SecondOrderConeT, ZeroConeT)
 from ..cones.layout import ConeLayout
 from ..settings import Settings
 from . import megakernel_ref
@@ -88,17 +90,21 @@ def eligible(layout: ConeLayout, settings: Settings, n: int) -> bool:
     return True
 
 
+_KINDS = {ZeroConeT: "zero", NonnegativeConeT: "nn", SecondOrderConeT: "soc",
+          ExponentialConeT: "exp", PowerConeT: "pow"}
+
+
 def covered(layout: ConeLayout) -> bool:
-    """True when every segment is one this slice's kernel computes:
-    zero, nonnegative and second-order cones."""
-    return all(isinstance(c, (ZeroConeT, NonnegativeConeT, SecondOrderConeT))
-               for c in layout.cones)
+    """True when every segment is one the port's kernel computes: zero,
+    nonnegative, second-order (K1a), exponential and power cones (K1b)."""
+    return all(type(c) in _KINDS for c in layout.cones)
 
 
 @dataclasses.dataclass(frozen=True)
 class MegaSpec:
     """What the kernel is specialised to: the shape, the cone segments
-    (kind, lo, hi) and the settings."""
+    (kind, lo, hi), each segment's power-cone exponent (0 for the other
+    kinds) and the settings."""
 
     n: int
     m: int
@@ -106,6 +112,12 @@ class MegaSpec:
     degree: int
     p_nonzero: bool
     st: Settings
+    alphas: Tuple[float, ...]
+
+    @property
+    def nonsym(self) -> bool:
+        """The layout has an exponential or power segment (K1b)."""
+        return any(k in ("exp", "pow") for k, _, _ in self.segs)
 
     @property
     def outd(self) -> int:
@@ -129,15 +141,16 @@ def make_spec(layout: ConeLayout, settings: Settings, n: int,
               p_nonzero: bool = True) -> MegaSpec:
     if not covered(layout):
         raise NotImplementedError(
-            "the megakernel covers zero, nonnegative and second-order "
-            "segments only (ROADMAP.md Queue 2 K1b-K1d)")
-    segs = []
+            "the megakernel covers zero, nonnegative, second-order, "
+            "exponential and power segments (generalized power: ROADMAP.md "
+            "Queue 1 item 8b, K1c; PSD: item 9, K1d)")
+    segs, alphas = [], []
     for cone, (lo, hi) in zip(layout.cones, layout.ranges):
-        kind = {ZeroConeT: "zero", NonnegativeConeT: "nn",
-                SecondOrderConeT: "soc"}[type(cone)]
-        segs.append((kind, lo, hi))
+        segs.append((_KINDS[type(cone)], lo, hi))
+        alphas.append(float(cone.alpha) if isinstance(cone, PowerConeT)
+                      else 0.0)
     return MegaSpec(n, layout.m, tuple(segs), layout.degree,
-                    bool(p_nonzero), settings)
+                    bool(p_nonzero), settings, tuple(alphas))
 
 
 REST_NAMES = ["obj_val_dual", "r_prim", "r_dual", "gap_abs", "gap_rel",
@@ -198,8 +211,8 @@ def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
     """The megakernel wrapper over B lanes: on CUDA tensors it launches
     the kernel (or raises); on CPU tensors it runs the plain PyTorch
     version.  B is passed, not read from the flats: every flat may be a
-    batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (2, B)
-    int32)."""
+    batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (3, B)
+    int32: status, iterations, final scaling strategy)."""
     devs = {t.device.type for t in (Ptri, q, A, b)}
     if devs == {"cuda"}:
         from . import _cuda
@@ -211,11 +224,12 @@ def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
 
 
 def split_outputs(vals, ints, spec: MegaSpec):
-    """(OUTD, B), (2, B) -> the eager block (x, obj_val, status,
+    """(OUTD, B), (3, B) -> the eager block (x, obj_val, status,
     iterations; (n+3, B) float64) and the rest (z, s, diagnostics), both
     lane-minor on the device."""
     n, k = spec.n, spec.n + 2 * spec.m
-    eager = torch.cat([vals[:n], vals[k:k + 1], ints.to(vals.dtype)], dim=0)
+    eager = torch.cat([vals[:n], vals[k:k + 1], ints[:2].to(vals.dtype)],
+                      dim=0)
     rest = torch.cat([vals[n:k], vals[k + 1:]], dim=0)
     return eager, rest
 

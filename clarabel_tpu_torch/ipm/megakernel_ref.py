@@ -1,20 +1,25 @@
-"""The plain PyTorch version of the batched IPM megakernel (K1a).
+"""The plain PyTorch version of the batched IPM megakernel (K1a, K1b).
 
 Computes what the reference's one-block function
 (`clarabel_tpu/ipm/megakernel.py` `compute`) computes for zero,
-nonnegative and second-order segments, formula for formula, over a
-(B, ·) batch: Ruiz equilibration with SOC rectification, the symmetric
-initial point, the Mehrotra predictor-corrector loop over the condensed
-KKT (Cholesky plus accept-masked refinement against the true operator),
-the termination machine, and finalization.  Every per-lane update is
-masked; the loops run while any lane is still active, so each lane's
-result is what a loop run for that lane alone gives.  This is what lets
-the CUDA kernel (`csrc/megakernel.cu`) run one instance per thread.
+nonnegative, second-order, exponential and power segments, formula for
+formula, over a (B, ·) batch: Ruiz equilibration with cone rectification,
+the symmetric initial point (or the unit initialization when the layout
+has an exp or pow segment), the Mehrotra predictor-corrector loop over the
+condensed KKT (Cholesky plus accept-masked refinement against the true
+operator), the termination machine, and finalization.  With exp or pow
+segments (K1b) the loop adds the dual and primal-dual 3×3 scalings, the
+third-order corrections, the joint feasibility backtrack, and per lane the
+PrimalDual→Dual strategy machine with the barrier backtrack of Dual lanes.
+Every per-lane update is masked; the loops run while any lane is still
+active, so each lane's result is what a loop run for that lane alone
+gives.  This is what lets the CUDA kernel (`csrc/megakernel.cu`) run one
+instance per thread.
 
 Arithmetic is native float64 where the reference uses f32-pair
-double-float, triple-float residuals, or f32 norms and step lengths; the
-Ruiz scalings alone are computed in float32 from |data|, as in the
-reference (clarabel_tpu_torch/DEVIATIONS.md).
+double-float, triple-float residuals, or f32 norms, step lengths, Newton
+starts and barrier checks; the Ruiz scalings alone are computed in float32
+from |data|, as in the reference (clarabel_tpu_torch/DEVIATIONS.md).
 
 This is the port's path on the CPU.  On a card the main path runs the
 CUDA kernel; this version then only serves to check it.
@@ -22,12 +27,16 @@ CUDA kernel; this version then only serves to check it.
 Inputs are the kernel's flats, component-major and lane-minor: Ptri
 (n(n+1)/2, B) column-major upper triangle, q (n, B), A (n*m, B)
 column-major, b (m, B); a batch-constant component may come as a 1-D
-(d,) tensor instead.  Outputs are (OUTD, B) float64 values and (2, B)
-int32 (status, iterations), OUTD = n + 2m + 13, in the reference's row
-order.
+(d,) tensor instead.  Outputs are (OUTD, B) float64 values and (3, B)
+int32 (status, iterations, final scaling strategy), OUTD = n + 2m + 13,
+the values in the reference's row order.
 """
 
+import math
+
 import torch
+
+from ..cones.nonsymmetric import _wright_omega
 
 # status codes (statuscodes.SolverStatus), as the kernel writes them
 UNSOLVED, SOLVED, PINF, DINF = 0, 1, 2, 3
@@ -36,6 +45,17 @@ MAX_ITERATIONS, NUMERICAL_ERROR, INSUFFICIENT_PROGRESS = 7, 9, 10
 
 BIG = 1e30
 F64 = torch.float64
+EPS64 = float(torch.finfo(F64).eps)
+
+# scaling strategies (reference src/types.jl:73-76)
+PRIMAL_DUAL, DUAL = 0, 1
+NONSYM = ("exp", "pow")
+# the nonsymmetric step cap (reference l.2169-2172: 1 - 2^-12, where the
+# Julia reference's 1 - sqrt(eps) rounds to 1 in f32; DEVIATIONS.md #11)
+STEP_CAP = 1.0 - 2.0 ** -12
+# trip limits of the joint feasibility backtrack (reference l.2209) and of
+# the one-sided Newton iteration of the pow primal gradient (l.1029)
+FEAS_TRIPS, NR_TRIPS = 60, 50
 
 
 def _lanes(flat, d, B):
@@ -108,7 +128,7 @@ def ruiz(P, q, A, spec):
         c = c * ctmp
     e = e.clone()
     for kind, lo, hi in spec.segs:
-        if kind == "soc":
+        if kind not in ("zero", "nn"):
             e[:, lo:hi] = (e[:, lo:hi].sum(dim=1, keepdim=True)
                            / (hi - lo))
     return d, e, c
@@ -122,6 +142,8 @@ class _Ops:
         self.st = spec.st
         self.n, self.m = spec.n, spec.m
         self.segs = spec.segs
+        self.alphas = spec.alphas
+        self.nonsym = spec.nonsym
         self.Ps, self.As, self.qe, self.be = Ps, As, qe, be
         self.pn = spec.p_nonzero
         st = spec.st
@@ -144,14 +166,30 @@ class _Ops:
     def Aty(self, y):
         return (self.As * y[:, :, None]).sum(1)
 
-    # ---- cone scaling (reference make_scaling, l.1452-1510) ----
-    def make_scaling(self, s, z):
+    # ---- cone scaling (reference make_scaling, l.1355-1510) ----
+    def make_scaling(self, s, z, mu, strat, live):
+        """The scaling state per segment and ok (B,).  mu and strat (B,)
+        choose the exp/pow Hs (Dual: mu·H_dual; PrimalDual: the BFGS
+        form); `live` (B,) marks the lanes whose state is used."""
         ok = torch.ones_like(s[:, 0], dtype=torch.bool)
         state = []
-        for kind, lo, hi in self.segs:
+        for (kind, lo, hi), a in zip(self.segs, self.alphas):
             sg, zg = s[:, lo:hi], z[:, lo:hi]
             if kind == "zero":
                 state.append(None)
+            elif kind in NONSYM:
+                S3, Z3 = list(sg.unbind(1)), list(zg.unbind(1))
+                g, Hd, zt, feas = _nonsym_grad_hess(kind, a, S3, Z3, live)
+                pd_hs, _ = _pd_scaling_3d(Hd, g, zt, S3, Z3)
+                use_pd = strat == PRIMAL_DUAL
+                Hs = [torch.where(use_pd, p, h * mu)
+                      for p, h in zip(pd_hs, Hd)]
+                fin = _all_finite(Hs)
+                ok = ok & feas & fin
+                # a breakdown of the 3x3 factor is not fatal (reference
+                # l.1397-1414, docs/DEVIATIONS.md #16)
+                F, _ = _chol3_fac(Hs)
+                state.append({"g": g, "Hd": Hd, "Hs": Hs, "F": F, "z": Z3})
             elif kind == "nn":
                 prod = sg * zg
                 ok = ok & (prod > 0).all(dim=1)
@@ -201,6 +239,9 @@ class _Ops:
         for stg, (kind, lo, hi) in zip(state, self.segs):
             if kind == "zero":
                 parts.append(torch.zeros_like(self.be[:, lo:hi]))
+            elif kind in NONSYM:
+                h = stg["Hs"]
+                parts.append(torch.stack([h[0], h[3], h[5]], dim=1))
             elif kind == "nn":
                 parts.append(stg["w2"])
             else:
@@ -232,6 +273,11 @@ class _Ops:
             elif kind == "nn":
                 w = state[i]["winv2"]
                 out[:, lo:hi] = vg * (w[:, :, None] if mat else w)
+            elif kind in NONSYM:
+                F = [f[:, None] for f in state[i]["F"]] if mat \
+                    else state[i]["F"]
+                out[:, lo:hi] = torch.stack(
+                    _chol3_solve_fac(F, list(vg.unbind(1))), dim=1)
             else:
                 stg = state[i]
                 wbar = stg["wbar"] if not mat else stg["wbar"][:, :, None]
@@ -253,6 +299,9 @@ class _Ops:
                 out[:, lo:hi] = vg
             elif kind == "nn":
                 out[:, lo:hi] = vg * state[i]["w2"]
+            elif kind in NONSYM:
+                out[:, lo:hi] = torch.stack(
+                    _hmul3(state[i]["Hs"], list(vg.unbind(1))), dim=1)
             else:
                 stg = state[i]
                 w = stg["w"]
@@ -384,10 +433,13 @@ class _Ops:
         return out
 
     # ---- step length (reference step_length/soc_step_len) ----
-    def step_length(self, dz, ds, z, s, amax):
+    def step_length(self, dz, ds, z, s, amax, live):
+        """Symmetric segments first; with exp/pow segments the step is
+        then capped and backtracked jointly over all of them (reference
+        l.2091-2229) on the `live` lanes."""
         alpha = amax
         for kind, lo, hi in self.segs:
-            if kind == "zero":
+            if kind in ("zero",) + NONSYM:
                 continue
             if kind == "nn":
                 for v, dv in ((z[:, lo:hi], dz[:, lo:hi]),
@@ -400,13 +452,87 @@ class _Ops:
                                                            dz[:, lo:hi]))
                 alpha = torch.minimum(alpha, _soc_step_len(s[:, lo:hi],
                                                            ds[:, lo:hi]))
+        if not self.nonsym:
+            return alpha
+        alpha = torch.clamp_max(alpha, STEP_CAP)
+        step = self.st.linesearch_backtrack_step
+        amin = self.st.min_terminate_step_length
+        done = ~live
+        for _ in range(FEAS_TRIPS):
+            if bool(done.all()):
+                break
+            newdone = done | self.nonsym_feasible(z, s, dz, ds, alpha)
+            alpha = torch.where(newdone, alpha, alpha * step)
+            killed = ~newdone & (alpha < amin)
+            alpha = torch.where(killed, 0.0, alpha)
+            done = newdone | killed
+        return alpha
+
+    def nonsym_feasible(self, z, s, dz, ds, a):
+        """(z + a dz, s + a ds) strictly inside every exp/pow segment's
+        dual and primal cone, per lane."""
+        ok = torch.ones_like(a, dtype=torch.bool)
+        a2 = a[:, None]
+        for (kind, lo, hi), al in zip(self.segs, self.alphas):
+            if kind not in NONSYM:
+                continue
+            Z = list((z[:, lo:hi] + a2 * dz[:, lo:hi]).unbind(1))
+            S = list((s[:, lo:hi] + a2 * ds[:, lo:hi]).unbind(1))
+            if kind == "exp":
+                ok = ok & _exp_feas_dual(Z) & _exp_feas_primal(S)
+            else:
+                ok = ok & _pow_feas_dual(Z, al) & _pow_feas_primal(S, al)
+        return ok
+
+    def barrier_at(self, z, s, dz, ds, tau, kappa, dtau, dkappa, a):
+        """The total barrier at the point a step a (B,) along the
+        direction, float64 (reference barrier_at, l.2230-2269, in f32)."""
+        cur_tau = tau + a * dtau
+        cur_kappa = kappa + a * dkappa
+        zs = z + a[:, None] * dz
+        ss = s + a[:, None] * ds
+        mu_a = ((zs * ss).sum(-1) + cur_tau * cur_kappa) / (
+            self.spec.degree + 1)
+        bar = ((self.spec.degree + 1) * _nslog(mu_a) - _nslog(cur_tau)
+               - _nslog(cur_kappa))
+        for (kind, lo, hi), al in zip(self.segs, self.alphas):
+            zg, sg = zs[:, lo:hi], ss[:, lo:hi]
+            if kind == "nn":
+                bar = bar - _nslog(sg * zg).sum(-1)
+            elif kind == "soc":
+                rs = sg[:, 0] * sg[:, 0] - (sg[:, 1:] * sg[:, 1:]).sum(-1)
+                rz = zg[:, 0] * zg[:, 0] - (zg[:, 1:] * zg[:, 1:]).sum(-1)
+                bar = bar + torch.where((rs > 0) & (rz > 0),
+                                        -0.5 * _nslog(rs * rz), BIG)
+            elif kind in NONSYM:
+                bar = bar + _nonsym_barrier(kind, al, list(zg.unbind(1)),
+                                            list(sg.unbind(1)))
+        return bar
+
+    def barrier_backtrack(self, z, s, dz, ds, tau, kappa, dtau, dkappa,
+                          alpha, active):
+        """Backtrack alpha on the `active` lanes until the barrier is
+        below 1, at most linesearch_max_iter trips (reference pc_step,
+        l.2948-2976)."""
+        step = self.st.linesearch_backtrack_step
+        done = ~active
+        for _ in range(int(self.st.linesearch_max_iter)):
+            if bool(done.all()):
+                break
+            good = self.barrier_at(z, s, dz, ds, tau, kappa, dtau, dkappa,
+                                   alpha) < 1.0
+            newdone = done | good
+            alpha = torch.where(newdone, alpha, alpha * step)
+            done = newdone
         return alpha
 
     # ---- predictor-corrector pieces ----
     def affine_ds(self, state, s):
         out = torch.zeros_like(s)
         for stg, (kind, lo, hi) in zip(state, self.segs):
-            if kind == "nn":
+            if kind in NONSYM:
+                out[:, lo:hi] = s[:, lo:hi]
+            elif kind == "nn":
                 out[:, lo:hi] = stg["lam"] * stg["lam"]
             elif kind == "soc":
                 lam = stg["lam"]
@@ -416,9 +542,18 @@ class _Ops:
 
     def combined_ds_shift(self, state, dz, ds, sigma_mu):
         out = torch.zeros_like(dz)
-        for stg, (kind, lo, hi) in zip(state, self.segs):
+        for stg, (kind, lo, hi), al in zip(state, self.segs, self.alphas):
             dzg, dsg = dz[:, lo:hi], ds[:, lo:hi]
-            if kind == "nn":
+            if kind in NONSYM:
+                ds3, v3 = list(dsg.unbind(1)), list(dzg.unbind(1))
+                if kind == "exp":
+                    eta = _exp_higher_corr(stg["Hd"], stg["z"], ds3, v3)
+                else:
+                    eta = _pow_higher_corr(stg["Hd"], stg["z"], al, ds3, v3)
+                out[:, lo:hi] = torch.stack(
+                    [gj * sigma_mu - ej for gj, ej in zip(stg["g"], eta)],
+                    dim=1)
+            elif kind == "nn":
                 out[:, lo:hi] = dzg * dsg - sigma_mu[:, None]
             elif kind == "soc":
                 w, eta, etainv = stg["w"], stg["eta"], stg["etainv"]
@@ -433,7 +568,9 @@ class _Ops:
         out = torch.zeros_like(dsv)
         for stg, (kind, lo, hi) in zip(state, self.segs):
             dsg, zg = dsv[:, lo:hi], z[:, lo:hi]
-            if kind == "nn":
+            if kind in NONSYM:
+                out[:, lo:hi] = dsg
+            elif kind == "nn":
                 out[:, lo:hi] = dsg / zg
             elif kind == "soc":
                 w, eta, lam = stg["w"], stg["eta"], stg["lam"]
@@ -551,6 +688,399 @@ def _soc_step_len(X, Y):
     return torch.minimum(alpha, a0)
 
 
+# ---- exponential and power cones (K1b; reference l.848-1098, 1240-1353,
+# 2271-2325, 2464-2584).  A segment's values are 3-lists of (B,) tensors;
+# Hessians are 6-tuples (h11, h12, h13, h22, h23, h33). ----
+
+def _nslog(x):
+    """log, with -BIG where x <= 0 (reference nslogsafe)."""
+    return torch.where(x > 0, torch.log(torch.where(x > 0, x, 1.0)), -BIG)
+
+
+def _all_finite(vals):
+    ok = torch.isfinite(vals[0])
+    for v in vals[1:]:
+        ok = ok & torch.isfinite(v)
+    return ok
+
+
+def _dot3(u, v):
+    return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+
+def _hmul3(H, v):
+    h11, h12, h13, h22, h23, h33 = H
+    return [h11 * v[0] + h12 * v[1] + h13 * v[2],
+            h12 * v[0] + h22 * v[1] + h23 * v[2],
+            h13 * v[0] + h23 * v[1] + h33 * v[2]]
+
+
+def _chol3_fac(H):
+    """Closed-form 3x3 Cholesky with clamped pivots; returns the factor
+    (l21, l31, l32, 1/l11, 1/l22, 1/l33) and ok (reference chol3_fac)."""
+    h11, h12, h13, h22, h23, h33 = H
+    ok = h11 > 0
+    l11 = torch.sqrt(h11.clamp_min(0.0))
+    l11 = torch.where(l11 > 0, l11, 1.0)
+    i11 = 1.0 / l11
+    l21 = h12 * i11
+    l31 = h13 * i11
+    d2 = h22 - l21 * l21
+    ok = ok & (d2 > 0)
+    l22 = torch.sqrt(d2.clamp_min(0.0))
+    l22 = torch.where(l22 > 0, l22, 1.0)
+    i22 = 1.0 / l22
+    l32 = (h23 - l31 * l21) * i22
+    d3 = h33 - l31 * l31 - l32 * l32
+    ok = ok & (d3 > 0)
+    l33 = torch.sqrt(d3.clamp_min(0.0))
+    l33 = torch.where(l33 > 0, l33, 1.0)
+    return (l21, l31, l32, i11, i22, 1.0 / l33), ok
+
+
+def _chol3_solve_fac(F, b):
+    l21, l31, l32, i11, i22, i33 = F
+    y1 = b[0] * i11
+    y2 = (b[1] - l21 * y1) * i22
+    y3 = (b[2] - l31 * y1 - l32 * y2) * i33
+    x3 = y3 * i33
+    x2 = (y2 - l32 * x3) * i22
+    x1 = (y1 - l21 * x2 - l31 * x3) * i11
+    return [x1, x2, x3]
+
+
+def _exp_feas_dual(Z):
+    z1, z2, z3 = Z
+    zsafe = torch.where(z1 < 0, z1, -1.0)
+    res = z2 - z1 - z1 * _nslog(-z3 / zsafe)
+    return (z3 > 0) & (z1 < 0) & (res > 0)
+
+
+def _exp_feas_primal(S):
+    s1, s2, s3 = S
+    res = s2 * _nslog(s3 / torch.where(s2 > 0, s2, 1.0)) - s1
+    return (s3 > 0) & (s2 > 0) & (res > 0)
+
+
+def _exp_grad_hess_dual(Z):
+    """reference: coneops_expcone.jl:370-399"""
+    z1, z2, z3 = Z
+    l = _nslog(-z3 / z1)
+    r = -z1 * l - z1 + z2
+    c2 = 1.0 / r
+    g = [c2 * l - 1.0 / z1, -c2, (c2 * z1 - 1.0) / z3]
+    rr = r * r
+    z1sq = z1 * z1
+    H11 = (rr - z1 * r + l * l * z1sq) / (rr * z1sq)
+    H12 = -l / rr
+    H22 = 1.0 / rr
+    H13 = (z2 - z1) / (rr * z3)
+    H23 = -z1 / (rr * z3)
+    H33 = (rr - z1 * r + z1sq) / (rr * z3 * z3)
+    return g, (H11, H12, H13, H22, H23, H33)
+
+
+def _exp_grad_primal(S):
+    """reference: coneops_expcone.jl:284-297; the Wright omega is the
+    float64 algorithm of cones/nonsymmetric.py (DEVIATIONS.md #11)."""
+    s1, s2, s3 = S
+    w = _wright_omega(1.0 - s1 / s2 - _nslog(s2 / s3))
+    g1 = 1.0 / ((w - 1.0) * s2)
+    g2 = g1 + g1 * _nslog(w * s2 / s3) - 1.0 / s2
+    g3 = w / ((1.0 - w) * s3)
+    return [g1, g2, g3]
+
+
+def _pow_phi_dual(Z, a):
+    return torch.exp(_nslog(Z[0] / a) * (2.0 * a)
+                     + _nslog(Z[1] / (1.0 - a)) * (2.0 - 2.0 * a))
+
+
+def _pow_feas_dual(Z, a):
+    res = _pow_phi_dual(Z, a) - Z[2] * Z[2]
+    return (Z[0] > 0) & (Z[1] > 0) & (res > 0)
+
+
+def _pow_feas_primal(S, a):
+    res = torch.exp(_nslog(S[0]) * (2.0 * a)
+                    + _nslog(S[1]) * (2.0 - 2.0 * a)) - S[2] * S[2]
+    return (S[0] > 0) & (S[1] > 0) & (res > 0)
+
+
+def _pow_grad_hess_dual(Z, a):
+    """reference: coneops_powcone.jl:408-440"""
+    z1, z2, z3 = Z
+    phi = _pow_phi_dual(Z, a)
+    ipsi = 1.0 / (phi - z3 * z3)
+    g1p = phi * ipsi * (2.0 * a) / z1
+    g2p = phi * ipsi * (2.0 - 2.0 * a) / z2
+    g3p = z3 * ipsi * (-2.0)
+    H11 = (g1p * g1p - phi * ipsi * (2.0 * a * (2.0 * a - 1.0)) / (z1 * z1)
+           + (1.0 - a) / (z1 * z1))
+    H12 = g1p * g2p - phi * ipsi * (4.0 * a * (1.0 - a)) / (z1 * z2)
+    H22 = (g2p * g2p
+           - phi * ipsi * (2.0 * (1.0 - a) * (1.0 - 2.0 * a)) / (z2 * z2)
+           + a / (z2 * z2))
+    H13 = g1p * g3p
+    H23 = g2p * g3p
+    H33 = g3p * g3p + ipsi * 2.0
+    g = [-g1p - (1.0 - a) / z1, -g2p - a / z2, -g3p]
+    return g, (H11, H12, H13, H22, H23, H33)
+
+
+def _pow_t0(a):
+    return -2.0 * a * math.log(a) - 2.0 * (1.0 - a) * math.log(1.0 - a)
+
+
+def _pow_nr(s1, s2, s3, a, live=None):
+    """One-sided Newton-Raphson for |g3| of the pow primal gradient
+    (reference _pow_nr32, l.986-1051, run in float64): at most NR_TRIPS
+    steps, a per-lane stop.  Returns (x, big, 1/|s3| or 1)."""
+    phi = torch.exp(2.0 * a * _nslog(s1) + (2.0 - 2.0 * a) * _nslog(s2))
+    abs_s = s3.abs()
+    big = abs_s > EPS64
+    absf = torch.where(big, abs_s, 1.0)
+    den = phi - absf * absf
+    den = torch.where(den.abs() > 0, den, 1.0)
+    x = -1.0 / absf + (2.0 * absf + torch.sqrt(
+        (phi * phi / (absf * absf) + 3.0 * phi).clamp_min(0.0))) / den
+    t0 = _pow_t0(a)
+
+    def f0(x):
+        t1 = x * x
+        t2 = 2.0 * x / absf
+        return (2.0 * a * _nslog(2.0 * a * t1 + (1.0 + a) * t2)
+                + (2.0 - 2.0 * a) * _nslog((2.0 - 2.0 * a) * t1
+                                           + (2.0 - a) * t2)
+                - _nslog(phi) - _nslog(t1 + t2) - 2.0 * _nslog(t2) + t0)
+
+    def f1(x):
+        t1 = x * x
+        t2 = 2.0 * x / absf
+        return (2.0 * a * a / (a * x + (1.0 + a) / absf)
+                + (2.0 - 2.0 * a) * (1.0 - a)
+                / ((1.0 - a) * x + (2.0 - a) / absf)
+                - 2.0 * (x + 1.0 / absf)
+                / torch.where(t1 + t2 != 0, t1 + t2, 1.0))
+
+    done = torch.zeros_like(big) if live is None else ~live
+    for _ in range(NR_TRIPS):
+        if bool(done.all()):
+            break
+        d1 = f1(x)
+        dx = -f0(x) / torch.where(d1 != 0, d1, 1.0)
+        stop = ((dx < EPS64)
+                | ((dx / torch.where(x != 0, x, 1.0)).abs()
+                   < math.sqrt(EPS64))
+                | (d1.abs() < EPS64))
+        x = torch.where(done | stop, x, x + dx)
+        done = done | stop
+    return x, big, absf
+
+
+def _pow_grad_from(x, big, s1, s2, s3, a):
+    g3 = torch.where(big, x * torch.where(s3 < 0, -1.0, 1.0), 0.0)
+    g1 = torch.where(big, -(g3 * s3 * a + (1.0 + a)) / s1, -(1.0 + a) / s1)
+    g2 = torch.where(big, -(g3 * s3 * (1.0 - a) + (2.0 - a)) / s2,
+                     -(2.0 - a) / s2)
+    return [g1, g2, g3]
+
+
+def _pow_grad_primal(S, a, live=None):
+    """reference: coneops_powcone.jl:288-316,449-478 (pow_grad_primal,
+    l.1053-1096): the Newton iteration, then two Newton polish steps."""
+    s1, s2, s3 = S
+    x, big, absf = _pow_nr(s1, s2, s3, a, live)
+    iabs = 1.0 / absf
+    t0 = _pow_t0(a)
+    for _ in range(2):
+        t1 = x * x
+        t2 = x * iabs * 2.0
+        f0 = (_nslog(t1 * (2.0 * a) + t2 * (1.0 + a)) * (2.0 * a)
+              + _nslog(t1 * (2.0 - 2.0 * a) + t2 * (2.0 - a))
+              * (2.0 - 2.0 * a)
+              - (_nslog(s1) * (2.0 * a) + _nslog(s2) * (2.0 - 2.0 * a))
+              - _nslog(t1 + t2) - _nslog(t2) * 2.0 + t0)
+        f1 = (1.0 / (x * a + iabs * (1.0 + a)) * (2.0 * a * a)
+              + 1.0 / (x * (1.0 - a) + iabs * (2.0 - a))
+              * ((2.0 - 2.0 * a) * (1.0 - a))
+              - (x + iabs) * 2.0
+              * (1.0 / torch.where(t1 + t2 != 0, t1 + t2, 1.0)))
+        x = x - f0 / torch.where(f1 != 0, f1, 1.0)
+    return _pow_grad_from(x, big, s1, s2, s3, a)
+
+
+def _nonsym_grad_hess(kind, a, S, Z, live=None):
+    """(dual gradient, dual Hessian, primal gradient, feasible) of one
+    segment (reference nonsym_grad_hess, l.1342)."""
+    if kind == "exp":
+        feas = _exp_feas_dual(Z) & _exp_feas_primal(S)
+        g, Hd = _exp_grad_hess_dual(Z)
+        zt = _exp_grad_primal(S)
+    else:
+        feas = _pow_feas_dual(Z, a) & _pow_feas_primal(S, a)
+        g, Hd = _pow_grad_hess_dual(Z, a)
+        zt = _pow_grad_primal(S, a, live)
+    return g, Hd, zt, feas
+
+
+_SYM3 = {(0, 0): 0, (0, 1): 1, (1, 0): 1, (0, 2): 2, (2, 0): 2,
+         (1, 1): 3, (1, 2): 4, (2, 1): 4, (2, 2): 5}
+_UPPER3 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def _pd_scaling_3d(Hd, st_g, zt, S, Z):
+    """The primal-dual (BFGS) Hs, with the per-lane fallback to the local
+    mu times H_dual where it is not usable (reference pd_scaling_3d,
+    l.1282-1334; coneops_nonsymmetric_common.jl:50-164)."""
+    dot_sz = _dot3(S, Z)
+    mu_l = dot_sz * (1.0 / 3.0)
+    mut = _dot3(zt, st_g) * (1.0 / 3.0)
+    dsv = [S[i] + mu_l * st_g[i] for i in range(3)]
+    dzv = [Z[i] + mu_l * zt[i] for i in range(3)]
+    dot_dsz = _dot3(dsv, dzv)
+    de1 = mu_l * mut - 1.0
+    Hzt = _hmul3(Hd, zt)
+    de2 = _dot3(zt, Hzt) - mut * mut * 3.0
+    usable = ((de1.abs() > math.sqrt(EPS64)) & (de2.abs() > EPS64)
+              & (dot_sz > 0) & (dot_dsz > 0))
+    ide2 = 1.0 / torch.where(de2 != 0, de2, 1.0)
+    tmp = [mut * st_g[i] - Hzt[i] for i in range(3)]
+    w = [Hd[_SYM3[i, j]] - st_g[i] * st_g[j] * (1.0 / 3.0)
+         - tmp[i] * tmp[j] * ide2 for i, j in _UPPER3]
+    frob = (w[0] * w[0] + w[3] * w[3] + w[5] * w[5]
+            + (w[1] * w[1] + w[2] * w[2] + w[4] * w[4]) * 2.0)
+    t = mu_l * torch.sqrt(frob.clamp_min(0.0))
+    ax = [Z[1] * zt[2] - Z[2] * zt[1],
+          Z[2] * zt[0] - Z[0] * zt[2],
+          Z[0] * zt[1] - Z[1] * zt[0]]
+    axn = torch.sqrt(_dot3(ax, ax).clamp_min(0.0))
+    iaxn = 1.0 / torch.where(axn > 0, axn, 1.0)
+    ax = [c * iaxn for c in ax]
+    isz = 1.0 / torch.where(dot_sz != 0, dot_sz, 1.0)
+    idsz = 1.0 / torch.where(dot_dsz != 0, dot_dsz, 1.0)
+    pd = [S[i] * S[j] * isz + dsv[i] * dsv[j] * idsz + t * ax[i] * ax[j]
+          for i, j in _UPPER3]
+    usable = usable & _all_finite(pd)
+    return [torch.where(usable, p, h * mu_l) for p, h in zip(pd, Hd)], usable
+
+
+def _hd_solve_guarded(Hd, b3):
+    """H_dual^{-1} b, or 0 where the factor breaks down or the result is
+    not finite (reference _hd_solve_guarded, l.2464)."""
+    F, okc = _chol3_fac(Hd)
+    u = _chol3_solve_fac(F, b3)
+    fin = _all_finite(u) & okc
+    return [torch.where(fin, ui, 0.0) for ui in u]
+
+
+def _finite_or_zero3(eta, ok):
+    fin = _all_finite(eta) & ok
+    return [torch.where(fin, e, 0.0) for e in eta]
+
+
+def _exp_higher_corr(Hd, Zc, ds3, v3):
+    """The third-order correction (reference exp_higher_corr, l.2493;
+    coneops_expcone.jl:319-366), with the reference's psi noise guard."""
+    u = _hd_solve_guarded(Hd, ds3)
+    z1, z2, z3 = Zc
+    gpsi3 = -z1 / z3
+    gpsi1 = _nslog(gpsi3)
+    psi = z1 * gpsi1 - z1 + z2
+    psi_ok = psi > 1e-9 * ((z1 * gpsi1).abs() + z1.abs() + z2.abs())
+    psi = torch.where(psi_ok, psi, 1.0)
+    gpsi = [gpsi1, torch.ones_like(z1), gpsi3]
+    dpu = _dot3(gpsi, u)
+    dpv = _dot3(gpsi, v3)
+    ipsi = 1.0 / psi
+    ipsi2 = ipsi * ipsi
+    iz1 = 1.0 / z1
+    iz3 = 1.0 / z3
+    coef = ((u[0] * (v3[0] * iz1 - v3[2] * iz3)
+             + u[2] * (z1 * v3[2] * iz3 - v3[0]) * iz3) * psi
+            - dpu * dpv * 2.0) * (ipsi2 * ipsi)
+    eta = [gp * coef for gp in gpsi]
+    eta0 = eta[0] + (
+        (ipsi - iz1 * 2.0) * u[0] * v3[0] * (iz1 * iz1)
+        - u[2] * v3[2] * (iz3 * iz3) * ipsi
+        + dpu * ipsi2 * (v3[0] * iz1 - v3[2] * iz3)
+        + dpv * ipsi2 * (u[0] * iz1 - u[2] * iz3))
+    eta2 = eta[2] + (
+        (z1 * ipsi - 1.0) * u[2] * v3[2] * (iz3 * iz3 * iz3) * 2.0
+        - (u[2] * v3[0] + u[0] * v3[2]) * (iz3 * iz3) * ipsi
+        + dpu * ipsi2 * (z1 * v3[2] * (iz3 * iz3) - v3[0] * iz3)
+        + dpv * ipsi2 * (z1 * u[2] * (iz3 * iz3) - u[0] * iz3))
+    return _finite_or_zero3([eta0 * 0.5, eta[1] * 0.5, eta2 * 0.5], psi_ok)
+
+
+def _pow_higher_corr(Hd, Zc, a, ds3, v3):
+    """The third-order correction (reference pow_higher_corr, l.2535;
+    coneops_powcone.jl:329-404), with the reference's psi noise guard."""
+    u = _hd_solve_guarded(Hd, ds3)
+    z1, z2, z3 = Zc
+    phi = _pow_phi_dual(Zc, a)
+    psi = phi - z3 * z3
+    psi_ok = psi > 1e-9 * (phi + z3 * z3)
+    psi = torch.where(psi_ok, psi, 1.0)
+    iz1, iz2 = 1.0 / z1, 1.0 / z2
+    gpsi = [phi * iz1 * (2.0 * a), phi * iz2 * (2.0 - 2.0 * a), z3 * (-2.0)]
+    Hp11 = phi * (iz1 * iz1) * (2.0 * a * (2.0 * a - 1.0))
+    Hp12 = phi * (iz1 * iz2) * (4.0 * a * (1.0 - a))
+    Hp22 = phi * (iz2 * iz2) * (2.0 * (1.0 - a) * (1.0 - 2.0 * a))
+    dpu = _dot3(gpsi, u)
+    dpv = _dot3(gpsi, v3)
+    Hv = [Hp11 * v3[0] + Hp12 * v3[1], Hp12 * v3[0] + Hp22 * v3[1],
+          v3[2] * (-2.0)]
+    uHv = u[0] * Hv[0] + u[1] * Hv[1] + u[2] * Hv[2]
+    ipsi = 1.0 / psi
+    ipsi2 = ipsi * ipsi
+    coef = (uHv * psi - dpu * dpv * 2.0) * (ipsi2 * ipsi)
+    coef2 = (phi * (u[0] * iz1 - u[1] * iz2) * (v3[0] * iz1 - v3[1] * iz2)
+             * ipsi * (4.0 * a * (2.0 * a - 1.0) * (1.0 - a)))
+    e1 = (coef * gpsi[0] - u[0] * v3[0] * (iz1 * iz1 * iz1)
+          * (2.0 * (1.0 - a)) + coef2 * iz1 + Hv[0] * dpu * ipsi2)
+    e2 = (coef * gpsi[1] - u[1] * v3[1] * (iz2 * iz2 * iz2) * (2.0 * a)
+          - coef2 * iz2 + Hv[1] * dpu * ipsi2)
+    e3 = coef * gpsi[2] + Hv[2] * dpu * ipsi2
+    Hu = [Hp11 * u[0] + Hp12 * u[1], Hp12 * u[0] + Hp22 * u[1],
+          u[2] * (-2.0)]
+    return _finite_or_zero3([(e1 + Hu[0] * dpv * ipsi2) * 0.5,
+                             (e2 + Hu[1] * dpv * ipsi2) * 0.5,
+                             (e3 + Hu[2] * dpv * ipsi2) * 0.5], psi_ok)
+
+
+def _nonsym_barrier(kind, a, Z, S):
+    """f*(z) + f(s) of one segment, BIG where infeasible (reference
+    _nonsym_barrier32, l.2271-2324, in float64)."""
+    z1, z2, z3 = Z
+    s1, s2, s3 = S
+    if kind == "exp":
+        l = _nslog(-z3 / torch.where(z1 != 0, z1, -1.0))
+        bd = -_nslog(-z3 * z1) - _nslog(z2 - z1 - z1 * l)
+        dfeas = (z3 > 0) & (z1 < 0) & (z2 - z1 - z1 * l > 0)
+        s2s = torch.where(s2 > 0, s2, 1.0)
+        s3s = torch.where(s3 > 0, s3, 1.0)
+        arg = 1.0 - s1 / s2s - _nslog(s2s / s3s)
+        w = _wright_omega(arg.clamp_min(0.0))
+        wm = (w - 1.0) * (w - 1.0) / torch.where(w != 0, w, 1.0)
+        bp = -_nslog(wm) - 2.0 * _nslog(s2) - _nslog(s3) - 3.0
+        pfeas = (s3 > 0) & (s2 > 0) & (s2 * _nslog(s3 / s2s) - s1 > 0)
+    else:
+        resd = _pow_phi_dual(Z, a) - z3 * z3
+        bd = -_nslog(resd) - (1.0 - a) * _nslog(z1) - a * _nslog(z2)
+        dfeas = (z1 > 0) & (z2 > 0) & (resd > 0)
+        # the primal barrier through the dual barrier of -grad (reference
+        # coneops_powcone.jl:310-317); the Newton iteration alone suffices
+        # for the < 1 check
+        x, big, _ = _pow_nr(s1, s2, s3, a)
+        g1, g2, g3 = _pow_grad_from(x, big, s1, s2, s3, a)
+        phig = _pow_phi_dual([-g1, -g2], a)
+        bp = (_nslog(phig - g3 * g3) + (1.0 - a) * _nslog(-g1)
+              + a * _nslog(-g2) - 3.0)
+        pfeas = _pow_feas_primal(S, a)
+    return torch.where(dfeas, bd, BIG) + torch.where(pfeas, bp, BIG)
+
+
 def _check_convergence(info, bz, qx, tols):
     (tga, tgr, tfe, tia, tir, tkt, s_st, p_st, d_st) = tols
     is_solved = (((info["gap_abs"] < tga) | (info["gap_rel"] < tgr))
@@ -578,7 +1108,7 @@ def tolerances(st):
 
 def mega_solve_plain(Ptri, q, A, b, spec, B):
     """The whole batched solve over B lanes; see the module docstring for
-    the layout.  Returns (vals (OUTD, B) float64, ints (2, B) int32)."""
+    the layout.  Returns (vals (OUTD, B) float64, ints (3, B) int32)."""
     st = spec.st
     n, m = spec.n, spec.m
     for name, t in zip("PqAb", (Ptri, q, A, b)):
@@ -600,20 +1130,27 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
               normb=(einv * be).abs().amax(dim=1))
     ops = _Ops(spec, Ps, As, qe, be)
 
-    # ---- initial point (symmetric cones; reference l.3139-3157) ----
-    K0, _ = ops.build_kkt(None, ops.eps_of(torch.ones_like(be)))
-    if spec.p_nonzero:
-        sols, _ = ops.refined_solve(K0, [(-qe, be)])
-        x, z = sols[0]
-        s = -z
+    # ---- initial point (reference l.3089-3157) ----
+    if spec.nonsym:
+        # the unit point of every cone, x = 0
+        x = torch.zeros_like(qe)
+        z = unit_point(spec, B, qe.device)
+        s = z.clone()
     else:
-        sols, _ = ops.refined_solve(
-            K0, [(torch.zeros_like(qe), be), (-qe, torch.zeros_like(be))])
-        x, ms = sols[0]
-        s = -ms
-        z = sols[1][1]
-    s = ops.shift_to_interior(s, primal=True)
-    z = ops.shift_to_interior(z, primal=False)
+        K0, _ = ops.build_kkt(None, ops.eps_of(torch.ones_like(be)))
+        if spec.p_nonzero:
+            sols, _ = ops.refined_solve(K0, [(-qe, be)])
+            x, z = sols[0]
+            s = -z
+        else:
+            sols, _ = ops.refined_solve(
+                K0, [(torch.zeros_like(qe), be),
+                     (-qe, torch.zeros_like(be))])
+            x, ms = sols[0]
+            s = -ms
+            z = sols[1][1]
+        s = ops.shift_to_interior(s, primal=True)
+        z = ops.shift_to_interior(z, primal=False)
     tau = torch.ones_like(qe[:, 0])
     kappa = torch.ones_like(tau)
 
@@ -627,6 +1164,7 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
     sigma_f = torch.ones_like(tau)
     iters = torch.zeros_like(tau, dtype=torch.int32)
     status = torch.full_like(iters, UNSOLVED)
+    strat = torch.full_like(iters, PRIMAL_DUAL)
     full_tols, reduced_tols = tolerances(st)
     inv_deg1 = 1.0 / (spec.degree + 1)
     sr = st.stall_detection_ratio
@@ -661,23 +1199,48 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
                               & (iters >= st.max_iter),
                               MAX_ITERATIONS, status2).to(torch.int32)
 
-        # rollback for insufficient progress
+        # rollback for insufficient progress; with exp/pow segments a
+        # PrimalDual lane downgrades to Dual and continues, skipping this
+        # pass (reference l.3354-3383)
         restore = active & (status2 == INSUFFICIENT_PROGRESS)
+        if spec.nonsym:
+            downgraded_ip = restore & (strat == PRIMAL_DUAL)
+            status2 = torch.where(downgraded_ip, UNSOLVED,
+                                  status2).to(torch.int32)
+            strat = torch.where(downgraded_ip, DUAL, strat).to(torch.int32)
         xr, zr, sr_ = W(restore, px, x), W(restore, pz, z), W(restore, ps, s)
         taur = torch.where(restore, ptau, tau)
         kapr = torch.where(restore, pkap, kappa)
         do = active & (status2 == UNSOLVED)
+        if spec.nonsym:
+            do = do & ~downgraded_ip
         iters1 = iters + do.to(torch.int32)
 
         dx, dz, dsv, dtau, dkappa, alpha, sigma, kkt_fail = _pc_step(
-            ops, x, z, s, tau, kappa, tinv, res, mu, iters1)
+            ops, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, do)
 
-        fail_status = torch.where(kkt_fail, NUMERICAL_ERROR, UNSOLVED)
+        # numerical-error and small-step checkpoints (reference
+        # l.3391-3430): PrimalDual lanes downgrade instead of failing
         small_term = alpha <= max(0.0, st.min_terminate_step_length)
+        if spec.nonsym:
+            can_dg = strat == PRIMAL_DUAL
+            fail_status = torch.where(kkt_fail & ~can_dg, NUMERICAL_ERROR,
+                                      UNSOLVED)
+            small_switch = (can_dg & ~kkt_fail
+                            & (alpha < st.min_switch_step_length))
+            small_term = small_term & ~small_switch
+            dg_fail = (kkt_fail & can_dg) | small_switch
+        else:
+            fail_status = torch.where(kkt_fail, NUMERICAL_ERROR, UNSOLVED)
         fail_status = torch.where((fail_status == UNSOLVED) & ~kkt_fail
                                   & small_term, INSUFFICIENT_PROGRESS,
                                   fail_status).to(torch.int32)
         take = ~kkt_fail & ~small_term
+        if spec.nonsym:
+            take = take & ~dg_fail
+            strat = torch.where(do & dg_fail, DUAL, strat).to(torch.int32)
+            fail_status = torch.where(dg_fail, UNSOLVED,
+                                      fail_status).to(torch.int32)
         alpha_eff = torch.where(take, alpha, 0.0)
         dotake = do & take
         a = alpha_eff[:, None]
@@ -725,15 +1288,37 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
                       z * e * (scaleinv * cinv)[:, None],
                       s * einv * scaleinv[:, None],
                       torch.stack(scalars, dim=1)], dim=1)
-    return vals.t().contiguous(), torch.stack([status, iters]).contiguous()
+    return (vals.t().contiguous(),
+            torch.stack([status, iters, strat]).contiguous())
 
 
-def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1):
+def unit_point(spec, B, device):
+    """The unit initialization of every cone, (B, m) (reference
+    l.3096-3137)."""
+    z = torch.zeros((B, spec.m), dtype=F64, device=device)
+    for (kind, lo, hi), a in zip(spec.segs, spec.alphas):
+        if kind == "nn":
+            z[:, lo:hi] = 1.0
+        elif kind == "soc":
+            z[:, lo] = 1.0
+        elif kind == "exp":
+            z[:, lo:hi] = torch.tensor(
+                [-1.051383945322714, 0.556409619469370, 1.258967884768947],
+                dtype=F64, device=device)
+        elif kind == "pow":
+            z[:, lo] = math.sqrt(1.0 + a)
+            z[:, lo + 1] = math.sqrt(2.0 - a)
+    return z
+
+
+def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, live):
     """One Mehrotra predictor-corrector step (reference pc_step,
-    l.2839-2977).  alpha is already scaled by max_step_fraction."""
+    l.2839-2977).  alpha is already scaled by max_step_fraction and, on
+    the Dual lanes of a layout with exp/pow segments, backtracked to a
+    barrier below 1.  `live` marks the lanes whose step is used."""
     st = ops.st
     qe, be = ops.qe, ops.be
-    state, ok_scale = ops.make_scaling(s, z)
+    state, ok_scale = ops.make_scaling(s, z, mu, strat, live)
     eps = ops.eps_of(ops.hs_diag(state))
     K, ok_chol = ops.build_kkt(state, eps)
     ok_kkt = ok_scale & ok_chol
@@ -771,7 +1356,8 @@ def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1):
 
     dxa, dza, dsa, dtaua, dkappaa = tau_recovery(x1a, z1a, s, res["rtau"],
                                                  tau * kappa)
-    alpha_aff = ops.step_length(dza, dsa, z, s, max_step(dtaua, dkappaa))
+    alpha_aff = ops.step_length(dza, dsa, z, s, max_step(dtaua, dkappaa),
+                                live)
     sigma = (1.0 - alpha_aff) ** 3
     m_corr = torch.where(iters1 > 1, 1.0, alpha_aff)
     sigma_mu = sigma * mu
@@ -790,6 +1376,11 @@ def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1):
     dx, dz, dsv, dtau, dkappa = tau_recovery(x1c, z1c, ds_const, comb_tau,
                                              comb_kappa)
     kkt_fail = ~(ok_kkt & ok3)
-    alpha = ops.step_length(dz, dsv, z, s, max_step(dtau, dkappa))
+    alpha = ops.step_length(dz, dsv, z, s, max_step(dtau, dkappa), live)
     alpha = alpha * st.max_step_fraction
+    if ops.nonsym:
+        on_dual = strat == DUAL
+        alpha_bt = ops.barrier_backtrack(z, s, dz, dsv, tau, kappa, dtau,
+                                         dkappa, alpha, on_dual & live)
+        alpha = torch.where(on_dual, alpha_bt, alpha)
     return dx, dz, dsv, dtau, dkappa, alpha, sigma, kkt_fail

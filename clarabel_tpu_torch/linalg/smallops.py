@@ -32,3 +32,31 @@ def rmv(A, x):
 def mm(A, B):
     """A @ B for batched matrices."""
     return torch.matmul(A, B)
+
+
+def chol3_solve(H, B):
+    """Batched 3×3 SPD solve by the closed-form Cholesky and substitution
+    of the reference (`clarabel_tpu/linalg/smallops.py` chol3_solve;
+    src/utils/mathutils.jl:427-466).  NaNs propagate on indefinite input.
+
+    H: (..., 3, 3); B: (..., 3) or (..., 3, k)."""
+    vec_in = B.dim() == H.dim() - 1
+    if vec_in:
+        B = B.unsqueeze(-1)
+    l11 = torch.sqrt(H[..., 0, 0])
+    l21 = H[..., 1, 0] / l11
+    l31 = H[..., 2, 0] / l11
+    l22 = torch.sqrt(H[..., 1, 1] - l21 * l21)
+    l32 = (H[..., 2, 1] - l31 * l21) / l22
+    l33 = torch.sqrt(H[..., 2, 2] - l31 * l31 - l32 * l32)
+    l11, l21, l31, l22, l32, l33 = (t[..., None] for t in
+                                    (l11, l21, l31, l22, l32, l33))
+    # forward: L y = B; back: Lᵀ x = y
+    y1 = B[..., 0, :] / l11
+    y2 = (B[..., 1, :] - l21 * y1) / l22
+    y3 = (B[..., 2, :] - l31 * y1 - l32 * y2) / l33
+    x3 = y3 / l33
+    x2 = (y2 - l32 * x3) / l22
+    x1 = (y1 - l21 * x2 - l31 * x3) / l11
+    X = torch.stack([x1, x2, x3], dim=-2)
+    return X[..., 0] if vec_in else X

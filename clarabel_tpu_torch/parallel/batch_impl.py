@@ -98,14 +98,10 @@ def _symmetrize_triu(P):
 def _slice_check(layout: ConeLayout, mesh, rescue) -> None:
     """Raise NotImplementedError for whatever this slice does not port."""
     names = {type(c).__name__ for c in layout.cones}
-    if names & {"ExponentialConeT", "PowerConeT"}:
-        raise NotImplementedError(
-            "exponential/power cones: ROADMAP.md Queue 1 item 8 "
-            "(nonsymmetric cones, kernel K1b)")
     if "GenPowerConeT" in names:
         raise NotImplementedError(
-            "generalized power cones: ROADMAP.md Queue 1 item 8 "
-            "(nonsymmetric cones, kernel K1c)")
+            "generalized power cones: ROADMAP.md Queue 1 item 8b "
+            "(generalized power cones, kernel K1c)")
     if "PSDTriangleConeT" in names:
         raise NotImplementedError(
             "PSD cones: ROADMAP.md Queue 1 item 9 (PSD cones, kernel K1d)")
@@ -168,8 +164,8 @@ class BatchSolver:
             if not megakernel.eligible(self.layout, st, self.n):
                 raise ValueError(
                     "kkt_backend='megakernel' requires a small dense "
-                    "zero/nn/soc layout at float64 with at least one "
-                    "barrier cone (see ipm.megakernel.eligible)")
+                    "layout at float64 with at least one barrier cone "
+                    "(see ipm.megakernel.eligible)")
             if st.megakernel_two_phase:
                 raise NotImplementedError(
                     "megakernel_two_phase=True: ROADMAP.md Queue 2 K1e "

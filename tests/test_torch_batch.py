@@ -51,7 +51,7 @@ def test_empty_batch_raises_value_error():
 
 
 @pytest.mark.parametrize("cone", [
-    ctt.ExponentialConeT(), ctt.PowerConeT(0.3),
+    ctt.GenPowerConeT((0.2, 0.3, 0.5), 2), ctt.PSDTriangleConeT(3),
     ctt.GenPowerConeT((0.4, 0.6), 1), ctt.PSDTriangleConeT(2)])
 def test_cones_outside_the_slice_raise(cone):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -254,7 +254,7 @@ def test_prepare_passes_batch_constant_components_once():
     v2, i2 = megakernel_ref.mega_solve_plain(flats[0], flats[1], wide,
                                              flats[3], spec, B)
     assert torch.equal(v1, v2) and torch.equal(i1, i2)
-    assert v1.shape == (spec.outd, B) and i1.shape == (2, B)
+    assert v1.shape == (spec.outd, B) and i1.shape == (3, B)
 
 
 def _identical_lanes(B):
@@ -296,7 +296,7 @@ def test_outputs_stay_lazy_until_read():
 
 def test_kernel_source_and_params_cover_the_spec():
     spec = _solver([ctt.ZeroConeT(1)] + CONES)._mega_fn.spec
-    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3)
+    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3, 0)
     prm = _cuda._params(spec)
     assert list(prm.seg_kind) == [0, 1, 2]
     assert list(prm.seg_hi) == [1, 1 + N, 2 + 2 * N]
@@ -331,6 +331,32 @@ def test_kernel_matches_plain_version_on_the_card():
     one = bs.solve(*(a[:1] for a in data))
     assert one.all_solved
     _assert_every_lane_is_the_one_solve(sol, one, 7, bs.m)
+
+
+@pytest.mark.gpu
+def test_nonsym_kernel_matches_plain_version_on_the_card():
+    """K1b on the exponential batch of bench.py and on a power batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    for cone, make in ((ctt.ExponentialConeT(), bench_data.make_exp_batch),
+                       (ctt.PowerConeT(0.6), bench_data.make_pow_batch)):
+        bs = ctt.BatchSolver([ctt.NonnegativeConeT(2), cone], 3)
+        spec = bs._mega_fn.spec
+        assert _cuda.shape_of(spec) == (3, 5, 2, 1)
+        _, flats = megakernel.prepare(*make(256), spec, "cuda")
+        before = _cuda.megakernel.launches
+        kv, ki = _cuda.megakernel(*flats, spec, 256)
+        torch.cuda.synchronize()
+        assert _cuda.megakernel.launches == before + 1
+        pv, pi = megakernel_ref.mega_solve_plain(*flats, spec, 256)
+        assert (ki[0] == SOLVED).sum() >= (pi[0] == SOLVED).sum() - 1
+        both = (ki[0] == SOLVED) & (pi[0] == SOLVED)
+        obj = 3 + 2 * spec.m
+        # flat optima: x to 1e-4, the objective to 1e-6 (DEVIATIONS.md #11)
+        assert torch.allclose(kv[:3][:, both], pv[:3][:, both], rtol=0,
+                              atol=1e-4)
+        assert torch.allclose(kv[obj][both], pv[obj][both], rtol=0,
+                              atol=1e-6)
 
 
 @pytest.mark.gpu
