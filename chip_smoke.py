@@ -3,7 +3,8 @@
 
 Builds the CUDA kernels from the sources beside this script, in parallel:
 the batched IPM megakernel (clarabel_tpu_torch/csrc/megakernel.cu) as K1a
-(zero/nn/SOC layouts) and as K1b (exponential and power cones), and the
+(zero/nn/SOC layouts), as K1b (exponential and power cones), as K1d (PSD
+cones of side at most 3) and as K1c (generalized power cones), and the
 float32 LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
 Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
@@ -23,7 +24,14 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   the exponential batch with the PrimalDual->Dual switch forced, wrong
   kernels its bars must reject, `BatchSolver.solve` on the exponential
   batch at B = 4096, 65536 and 131072, the condensed loop on the card, and
-  the rescue cascade behind the megakernel.
+  the rescue cascade behind the megakernel;
+* [9] K1d: the megakernel against its plain version on the small-SDP
+  batches (side 3, the PSD batch of `bench.py`; side 2; side 2 with a zero
+  cone), wrong kernels its bars must reject, `BatchSolver.solve` on the
+  side-3 batch at B = 4096, 65536 and 131072, the condensed loop on the
+  card and the rescue behind the megakernel;
+* [10] K1c: the same on the generalized-power-cone batch, every lane on the
+  Dual strategy.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -123,6 +131,40 @@ WRONG_NONSYM = {
 }
 NONSYM_THROUGHPUT = (4096, 65536, 131072)
 
+# [9] K1d on the small-SDP batches of tests/test_megakernel_psd.py (psd3 is
+# bench.py's psd_cone_batched: n=3, cones [NN(6), PSD(3)]; psd2 the same at
+# side 2; psd_zero with a zero cone) and [10] K1c on the genpow batch of
+# tests/test_megakernel_nonsym.py (n=4, [NN(2), GenPow((0.3, 0.7), 2)]).
+# Bars as BARS, set from the kernel's readings and the plain version's
+# under a 1e-15 change of q (PERF.md); the PSD slacks of SOLVED lanes must
+# keep their least eigenvalue above -EIG_TOL.  On psd3 the true-KKT bar is
+# 5e-7 in place of KKT_TOL: at 4096 lanes the plain version's own SOLVED
+# lanes read up to 1.6e-7 there (its termination is relative to b, whose
+# PSD block is up to ~10).  Wrong kernels as
+# WRONG_KERNELS: "no Jacobi sweep" leaves the SVD and the eigenvalues
+# unrotated; one sweep is wrong at side 3 only (one rotation diagonalizes
+# a 2 x 2); the backtrack step changes only code that genpow runs there.
+FAMILY_B = 4096
+FAMILY_THROUGHPUT = (4096, 65536, 131072)
+EIG_TOL = 1e-8
+PSD_BARS = {
+    "psd3": dict(x=5e-5, within1=0.99, it_max=4, kkt=5e-7),
+    "psd2": dict(x=1e-6, within1=0.99, it_max=4),
+    "psd_zero": dict(x=1e-6, within1=0.99, it_max=4),
+}
+GENPOW_BARS = {"genpow": dict(x=1e-6, within1=0.99, it_max=4)}
+WRONG_PSD = {
+    "no Jacobi sweep": {"psd_sweeps": 0},
+    "step fraction 0.95": {"max_step_fraction": 0.95},
+    "gap tolerances 1e-7": {"tol_gap_abs": 1e-7, "tol_gap_rel": 1e-7},
+}
+WRONG_PSD3 = {"one Jacobi sweep": {"psd_sweeps": 1}}
+WRONG_GENPOW = {
+    "backtrack step 0.5": {"linesearch_backtrack_step": 0.5},
+    "step fraction 0.95": {"max_step_fraction": 0.95},
+    "gap tolerances 1e-7": {"tol_gap_abs": 1e-7, "tol_gap_rel": 1e-7},
+}
+
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
@@ -147,9 +189,10 @@ def flops_per_iteration(n, m, segs, passes):
     or backtracking loop after its first are left out."""
     n_soc = sum(hi - lo for k, lo, hi in segs if k == "soc")
     n_ns = sum(1 for k, _, _ in segs if k in ("exp", "pow"))
+    hinv_x, extra = psd_genpow_flops(segs, m)
     # an exp/pow segment's 3x3 solve or product costs 18 in place of the
     # 3 of three nn rows
-    hinv = m + 4 * n_soc + 15 * n_ns          # one Hs^-1 (or Hs) apply
+    hinv = m + 4 * n_soc + 15 * n_ns + hinv_x  # one Hs^-1 (or Hs) apply
     matvec = 2 * m * n                        # A x or A' y
     pmv = 2 * n * n                           # P x
     chol_solve = 2 * n * n
@@ -172,7 +215,40 @@ def flops_per_iteration(n, m, segs, passes):
     # ~25)
     nonsym = n_ns * (60 + 80 + 150 + 40 + 140 + 100)
     return (residuals + info + scaling + build + solves + tau + steps
-            + shifts + nonsym)
+            + shifts + nonsym + extra)
+
+
+def psd_genpow_flops(segs, m):
+    """(the extra FP64 operations of one Hs^-1 or Hs apply, the other
+    extra operations of one iteration) of the PSD (K1d) and generalized
+    power (K1c) segments over what the same rows cost as nn rows, counted
+    as `flops_per_iteration` counts, one trip of every Jacobi, Newton or
+    backtracking loop (0, 0 for a layout without such segments).  Side-k
+    PSD: a k x k product is 2k^3; an Hs apply is two sandwiches (four
+    products); the scaling two factors, L2'L1, one Jacobi sweep of the SVD
+    (k(k-1)/2 pairs, ~22k + 15 each) and R, Rinv; each of the four step
+    components a sandwich and one eigenvalue sweep (~30); the shifts three
+    sandwiches and two products.  Genpow of width w = d1 + d2: Hs^-1 by
+    three Sherman-Morrison updates with their A u vectors (~33w), the
+    scaling (at least 11w + 30 with its logs and exps), one trip of both
+    feasibility tests per step length (~4w each), and one barrier trip (at
+    least 7w + 10, and 3m for the rest of the barrier)."""
+    hinv_x, extra = 0, 0
+    for kind, lo, hi in segs:
+        w = hi - lo
+        if kind == "psd":
+            k = {1: 1, 3: 2, 6: 3}[w]
+            mm = 2 * k ** 3
+            hinv_x += 4 * mm + w
+            scaling = (2 * k ** 3 // 3 + mm + k * (k - 1) // 2 * (22 * k + 15)
+                       + 2 * mm + 2 * k * k)
+            steps = 4 * (2 * mm + 3 * k * k + 30)
+            shifts = 3 * 2 * mm + 2 * mm + 3 * k * k
+            extra += scaling + steps + shifts + mm + 3 * w
+        elif kind == "genpow":
+            hinv_x += 32 * w
+            extra += (11 * w + 30) + 2 * 2 * 4 * w + (7 * w + 10 + 3 * m)
+    return hinv_x, extra
 
 
 def true_kkt(P, q, A, b, x, z, s):
@@ -526,12 +602,21 @@ def main():
     shapes = sorted({_cuda.shape_of(s._mega_fn.spec)
                      for s in solvers.values()})
     k1b_shape = _cuda.shape_of(exp_solver._mega_fn.spec)
+    k1d_shapes = sorted({_cuda.shape_of(ctt.BatchSolver(
+        [ctt.ZeroConeT(z), ctt.NonnegativeConeT(6 - z),
+         ctt.PSDTriangleConeT(k)], 3)._mega_fn.spec)
+        for z, k in ((0, 3), (0, 2), (1, 2))})
+    k1c_shape = _cuda.shape_of(ctt.BatchSolver(
+        [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)],
+        4)._mega_fn.spec)
     t0 = time.perf_counter()
-    cuda_build.build_together((_cuda.megakernel, shapes + [k1b_shape]),
-                              (batched_ldl.kernel, [()]))
+    cuda_build.build_together(
+        (_cuda.megakernel, shapes + [k1b_shape] + k1d_shapes + [k1c_shape]),
+        (batched_ldl.kernel, [()]))
     print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
-          f"{k1b_shape} and K2 in {time.perf_counter() - t0:.1f} s (one "
-          f"nvcc each, in parallel)", flush=True)
+          f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape} and K2 "
+          f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
+          f"parallel)", flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
             for line in log.splitlines():
@@ -574,7 +659,7 @@ def main():
             out.append("x")
         if r["within1"] < bars["within1"] or r["it_max"] > bars["it_max"]:
             out.append("iterations")
-        if r["kkt"] >= KKT_TOL or r["sz"] >= SZ_TOL:
+        if r["kkt"] >= bars.get("kkt", KKT_TOL) or r["sz"] >= SZ_TOL:
             out.append("true KKT")
         return out
 
@@ -928,6 +1013,243 @@ def main():
           f"{ns_ops_ms:.4f} ms, {ns_in + ns_out} bytes -> {ns_bytes_ms:.4f} "
           f"ms", flush=True)
 
+    # ---- phases 9-10: K1d (PSD cones) and K1c (generalized power cones)
+    def psd_min_eig(spec, s):
+        """(B,) least eigenvalue over the PSD segments of slacks s (B, m)
+        (+inf without one)."""
+        out = np.full(s.shape[0], np.inf)
+        for kind, lo, hi in spec.segs:
+            if kind != "psd":
+                continue
+            k = {1: 1, 3: 2, 6: 3}[hi - lo]
+            M = np.zeros((s.shape[0], k, k))
+            p = lo
+            for c in range(k):
+                for r_ in range(c + 1):
+                    v = s[:, p] / (1.0 if r_ == c else np.sqrt(2.0))
+                    M[:, r_, c] = M[:, c, r_] = v
+                    p += 1
+            out = np.minimum(out, np.linalg.eigvalsh(M)[:, 0])
+        return out
+
+    def check_family(phase, name, cones, n, data, bars, wrong):
+        """K1c or K1d against its plain version on one batch, the plain
+        version against itself under a 1e-15 change of q, and the wrong
+        kernels (a change of the spec, such as the Jacobi sweep cap, or of
+        the settings)."""
+        P, q, A, b = data
+        spec = ctt.BatchSolver(cones, n, mega_st)._mega_fn.spec
+        B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        k_ms, (kv, ki) = events_ms(
+            lambda: _cuda.megakernel(*flats, spec, B), 3)
+        p_ms, (pv, pi) = events_ms(
+            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
+        k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
+        qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
+            q.shape))
+        _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
+        pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
+                     spec)
+        tag = f"[{phase}] {name} B={B}"
+        r = readings(k, p, P, q, A, b)
+        counts = np.bincount(k["status"], minlength=11).tolist()
+        pcounts = np.bincount(p["status"], minlength=11).tolist()
+        dual_k, dual_p = int(ki[2].sum()), int(pi[2].sum())
+        eig = psd_min_eig(spec, k["s"])[k["status"] == SOLVED]
+        print(f"{tag}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; statuses "
+              f"kernel {counts}, plain {pcounts} (ALMOST {counts[4]} vs "
+              f"{pcounts[4]}, MAX_ITERATIONS {counts[7]} vs {pcounts[7]});"
+              f" mean iters {k['iterations'].mean():.3f}; lanes ending on "
+              f"the Dual strategy: kernel {dual_k}, plain {dual_p}; least "
+              f"PSD slack eigenvalue of the SOLVED lanes "
+              f"{eig.min(initial=np.inf):.3e}; card {card}", flush=True)
+        print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
+        print(f"{tag}: plain(q*(1+1e-15*xi)) vs plain: "
+              f"{describe(readings(pj, p, P, qj, A, b))}", flush=True)
+        print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
+              f"{bars['within1']} and within {bars['it_max']} on all, "
+              f"objective {OBJ_TOL:.0e}, true KKT "
+              f"{bars.get('kkt', KKT_TOL):.0e}, |s'z| {SZ_TOL:.0e}, PSD "
+              f"slack eigenvalue above -{EIG_TOL:.0e}, SOLVED at least "
+              f"plain less 0.1 % of B", flush=True)
+        for v in violations(r, bars, B):
+            failures.append(f"{tag}: the kernel fails the {v} bar")
+        if not all(np.isfinite(k[f][k["status"] == SOLVED]).all()
+                   for f in ("x", "z", "s")):
+            failures.append(f"{tag}: non-finite x/z/s on SOLVED lanes")
+        if not (eig > -EIG_TOL).all():
+            failures.append(f"{tag}: a PSD slack leaves the cone")
+        if spec.has("genpow") and (dual_k != B or dual_p != B):
+            failures.append(f"{tag}: lanes off the Dual strategy")
+        for wname, change in wrong.items():
+            spec_change = {f: v for f, v in change.items()
+                           if f in ("psd_sweeps",)}
+            st_change = {f: v for f, v in change.items()
+                         if f not in spec_change}
+            wspec = dataclasses.replace(spec, st=spec.st.replace(**st_change),
+                                        **spec_change)
+            w = outputs(*_cuda.megakernel(*flats, wspec, B), spec)
+            rw = readings(w, p, P, q, A, b)
+            rejected = violations(rw, bars, B)
+            print(f"{tag}: wrong kernel ({wname}) vs plain: {describe(rw)};"
+                  f" rejected by: {', '.join(rejected) or 'none'}",
+                  flush=True)
+            if not rejected:
+                failures.append(f"{tag}: the bars pass the wrong kernel "
+                                f"({wname})")
+        return dict(ms=k_ms, plain_ms=p_ms, iters=k["iterations"],
+                    max_abs_err=max(r["dx"], r["dobj"]), spec=spec, B=B,
+                    flats=flats)
+
+    def family_main_path(phase, name, cones, n, big, sizes, kkt_tol,
+                         rescue_sizes):
+        """BatchSolver.solve on `big`'s first B lanes for each B: kernel-only
+        and wall certified solves/s, statuses, the launch count of this run,
+        and where one solve's time goes at the largest B; then the
+        condensed loop at the smallest B and the rescue behind the kernel
+        at `rescue_sizes`."""
+        solver = ctt.BatchSolver(cones, n)
+        spec = solver._mega_fn.spec
+        k_ms = {}
+        for B in sizes:
+            _, flats = megakernel.prepare(*(a[:B] for a in big), spec, dev)
+            k_ms[B], _ = events_ms(
+                lambda: _cuda.megakernel(*flats, spec, B), 3)
+            del flats
+        lines, outs = [], {}
+        _cuda.megakernel.launches = 0      # this path's run starts here
+        for B in sizes:
+            data = tuple(a[:B] for a in big)
+            solver.solve(*data)            # warm-up
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = solver.solve(*data)
+                walls.append(time.perf_counter() - t0)
+            wall = min(walls)
+            outs[B] = out
+            counts = np.bincount(out.status, minlength=11).tolist()
+            solved = counts[SOLVED]
+            lines.append(
+                f"[{phase}] {name} B={B}: {solved / wall:,.0f} certified "
+                f"solves/s wall (best of 3: {wall * 1e3:.2f} ms), "
+                f"{solved / (k_ms[B] / 1e3):,.0f} kernel-only "
+                f"({k_ms[B]:.3f} ms); SOLVED {solved}, ALMOST {counts[4]}, "
+                f"MAX_ITERATIONS {counts[7]}, statuses {counts}; mean iters "
+                f"{out.iterations.mean():.3f}; card {card}")
+        launches = _cuda.megakernel.launches   # ... and ends here
+        for line in lines:
+            print(line, flush=True)
+        print(f"[{phase}] megakernel launches on the {name} path: "
+              f"{launches}", flush=True)
+        if launches <= 0:
+            failures.append(f"[{phase}] BatchSolver.solve did not launch "
+                            f"the {name} kernel")
+        data = tuple(a[:max(sizes)] for a in big)
+        marks = [time.perf_counter()]
+        megakernel.prepare(*data, spec, "cpu")
+        marks.append(time.perf_counter())
+        B, flats = megakernel.prepare(*data, spec, dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        vals, ints = _cuda.megakernel(*flats, spec, B)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        eager, _ = megakernel.split_outputs(vals, ints, spec)
+        megakernel.unpack_eager(eager.cpu().numpy(), spec.n)
+        marks.append(time.perf_counter())
+        steps = np.diff(marks) * 1e3
+        print(f"[{phase}] {name} B={B} one solve, ms: host packing "
+              f"{steps[0]:.2f}; packing + copy to the card {steps[1]:.2f}; "
+              f"kernel {steps[2]:.2f}; copy back + unpack {steps[3]:.2f}; "
+              f"card {card}", flush=True)
+        del flats, vals, ints
+        B0 = min(sizes)
+        out = outs[B0]
+        P, q, A, b = (a[:B0] for a in big)
+        rp, rd, sz = true_kkt(P, q, A, b, out.x, out.z, out.s)
+        ok1 = out.status == SOLVED
+        kkt = max(rp[ok1].max(initial=0.0), rd[ok1].max(initial=0.0))
+        if kkt >= kkt_tol:
+            failures.append(f"[{phase}] {name} B={B0}: true KKT {kkt:.3e}")
+        # the condensed loop on the card, on the same batch
+        loop_bs = ctt.BatchSolver(cones, n,
+                                  ctt.Settings(kkt_backend="condensed"))
+        data = tuple(a[:B0] for a in big)
+        loop_bs.solve(*(a[:256] for a in data))
+        lw, lo = synced_wall(lambda: loop_bs.solve(*data))
+        lc = np.bincount(lo.status, minlength=11).tolist()
+        print(f"[{phase}] condensed loop {name} B={B0}: {lw * 1e3:.1f} ms "
+              f"wall, SOLVED {lc[SOLVED]} (the megakernel: {int(ok1.sum())})"
+              f", ALMOST {lc[4]}, MAX_ITERATIONS {lc[7]}, mean iters "
+              f"{lo.iterations.mean():.3f}, statuses {lc}; card {card}",
+              flush=True)
+        # the rescue cascade behind the megakernel
+        resc = ctt.BatchSolver(cones, n, rescue="same")
+        for B in rescue_sizes:
+            data = tuple(a[:B] for a in big)
+            resc.solve(*data)
+            w0, s0 = synced_wall(lambda: solver.solve(*data))
+            w1, s1 = synced_wall(lambda: resc.solve(*data))
+            before = int((s0.status == SOLVED).sum())
+            after = int((s1.status == SOLVED).sum())
+            kept = s0.status == SOLVED
+            print(f"[{phase}] {name} rescue B={B}: megakernel alone "
+                  f"{w0 * 1e3:.1f} ms wall, SOLVED {before}; with "
+                  f"rescue='same' {w1 * 1e3:.1f} ms wall, SOLVED {after} "
+                  f"({after - before} of {B - before} closed), statuses "
+                  f"{np.bincount(s1.status, minlength=11).tolist()}; card "
+                  f"{card}", flush=True)
+            if after < before or not np.array_equal(s1.x[kept],
+                                                    s0.x[kept]):
+                failures.append(f"[{phase}] {name} rescue B={B}: SOLVED "
+                                f"lanes lost or changed")
+        return launches
+
+    def family_bound(res):
+        """(bound ms, bound_by) of one batch's kernel run: its bytes over
+        HBM bandwidth against the FP64 operations of its iterations."""
+        fin = sum(t.numel() * 8 for t in res["flats"])
+        fout = res["B"] * (res["spec"].outd * 8 + 3 * 4)
+        flops = int(res["iters"].sum()) * flops_per_iteration(
+            res["spec"].n, res["spec"].m, res["spec"].segs, 0)
+        b_ms = (fin + fout) / HBM_RATE * 1e3
+        o_ms = flops / FP64_RATE * 1e3
+        print(f"[{res['phase']}] bound at {res['name']} B={res['B']}: "
+              f"{flops:.3e} FP64 ops -> {o_ms:.4f} ms, {fin + fout} bytes "
+              f"-> {b_ms:.4f} ms", flush=True)
+        return max(b_ms, o_ms), ("operations" if o_ms >= b_ms else "bytes")
+
+    psd3_cones = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)]
+    psd_big = bench_data.make_sdp_batch(max(FAMILY_THROUGHPUT), 3, 13)
+    psd = {}
+    for name, cones, data in (
+            ("psd3", psd3_cones, tuple(a[:FAMILY_B] for a in psd_big)),
+            ("psd2", [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(2)],
+             bench_data.make_sdp_batch(FAMILY_B, 2, 12)),
+            ("psd_zero", [ctt.ZeroConeT(1), ctt.NonnegativeConeT(5),
+                          ctt.PSDTriangleConeT(2)],
+             bench_data.make_sdp_zero_batch(FAMILY_B))):
+        wrong = dict(WRONG_PSD, **(WRONG_PSD3 if name == "psd3" else {}))
+        psd[name] = check_family(9, name, cones, 3, data, PSD_BARS[name],
+                                 wrong)
+    k1d_launches = family_main_path(
+        9, "psd3", psd3_cones, 3, psd_big, FAMILY_THROUGHPUT,
+        PSD_BARS["psd3"]["kkt"], (FAMILY_B, max(FAMILY_THROUGHPUT)))
+    k1d_bound = family_bound(dict(psd["psd3"], phase=9, name="psd3"))
+
+    gp_cones = [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)]
+    gp_big = bench_data.make_genpow_batch(max(FAMILY_THROUGHPUT))
+    gp = check_family(10, "genpow", gp_cones, 4,
+                      tuple(a[:FAMILY_B] for a in gp_big),
+                      GENPOW_BARS["genpow"], WRONG_GENPOW)
+    # the rescue at 4096 only: at 131072 the kernel leaves 26 lanes
+    # INSUFFICIENT_PROGRESS, which the loop stages run to their iteration
+    # limit, about 130 s on the card (PERF.md)
+    k1c_launches = family_main_path(10, "genpow", gp_cones, 4, gp_big,
+                                    FAMILY_THROUGHPUT, KKT_TOL, (FAMILY_B,))
+    k1c_bound = family_bound(dict(gp, phase=10, name="genpow"))
+
     if failures:
         fail("; ".join(failures))
     k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
@@ -968,6 +1290,32 @@ def main():
         "plain_ms": rn["plain_ms"],
         "bound_ms": max(ns_bytes_ms, ns_ops_ms),
         "bound_by": "operations" if ns_ops_ms >= ns_bytes_ms else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "megakernel_psd",
+        "route": "cuda",
+        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
+        "launches": k1d_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in psd.values()),
+        "ms": psd["psd3"]["ms"],
+        "plain_ms": psd["psd3"]["plain_ms"],
+        "bound_ms": k1d_bound[0],
+        "bound_by": k1d_bound[1],
+        # no PyTorch call computes the IPM
+        "library_ms": None,
+    }, {
+        "name": "megakernel_genpow",
+        "route": "cuda",
+        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
+        "launches": k1c_launches,
+        "max_abs_err": gp["max_abs_err"],
+        "ms": gp["ms"],
+        "plain_ms": gp["plain_ms"],
+        "bound_ms": k1c_bound[0],
+        "bound_by": k1c_bound[1],
+        # no PyTorch call computes the IPM
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -127,3 +127,71 @@ def make_kkts(B, n, m, seed=0):
     K[:, :n, n:] = np.swapaxes(A, 1, 2)
     K[:, n:, n:] = -H[:, :, None] * np.eye(m)
     return K, np.concatenate([np.ones(n), -np.ones(m)])
+
+
+def _svec(M):
+    """Scaled upper-triangle vectorization of the trailing (nd, nd) axes,
+    column by column, off-diagonals times sqrt(2)."""
+    nd = M.shape[-1]
+    out = []
+    for c in range(nd):
+        for r in range(c + 1):
+            out.append(M[..., r, c] * (1.0 if r == c else np.sqrt(2.0)))
+    return np.stack(out, axis=-1)
+
+
+def make_sdp_batch(B, nd, seed=0):
+    """The small-SDP batch of `tests/test_megakernel_psd.py` (`_sdp_batch`,
+    which `bench.py` solves at side 3, seed 13): min q'x + x'Px/2 s.t.
+    |x_i| <= 1 and B0 - sum x_i A_i psd.  n=3, cones [NN(6), PSD(nd)],
+    m = 6 + nd(nd+1)/2.  Its draws, in bulk."""
+    rng = np.random.default_rng(seed)
+    nx = 3
+    F = rng.standard_normal((B, nx, nx)) / np.sqrt(nx)
+    P = np.einsum("bij,bkj->bik", F, F) + 0.3 * np.eye(nx)
+    q = rng.standard_normal((B, nx))
+    Amats = rng.standard_normal((B, nx, nd, nd))
+    Amats = Amats + np.swapaxes(Amats, -1, -2)
+    B0 = rng.standard_normal((B, nd, nd))
+    B0 = B0 + np.swapaxes(B0, -1, -2)
+    w = np.linalg.eigvalsh(B0)[:, 0]
+    B0 = B0 + (np.abs(w) + 1.0)[:, None, None] * np.eye(nd)
+    A = np.concatenate([
+        np.broadcast_to(np.eye(nx), (B, nx, nx)),
+        -np.broadcast_to(np.eye(nx), (B, nx, nx)),
+        np.stack([_svec(Amats[:, i]) for i in range(nx)], axis=-1),
+    ], axis=1)
+    b = np.concatenate([np.ones((B, 2 * nx)), _svec(B0)], axis=1)
+    return P, q, A, b
+
+
+def make_sdp_zero_batch(B, nd=2, seed=77):
+    """The equality-constrained SDP of `tests/test_megakernel_psd.py`
+    (`test_psd_megakernel_with_zero_cone`): the SDP batch with its first
+    bound row replaced by sum(x) = 0.5.  Cones [Zero(1), NN(5), PSD(nd)]."""
+    P, q, A, b = make_sdp_batch(B, nd, seed)
+    A = np.concatenate([np.ones((B, 1, 3)), A[:, 1:]], axis=1)
+    b = np.concatenate([np.full((B, 1), 0.5), b[:, 1:]], axis=1)
+    return P, q, A, b
+
+
+def make_genpow_batch(B, seed=4):
+    """The generalized-power-cone batch of `tests/test_megakernel_nonsym.py`
+    (`test_genpow_matches_loop`): n=4, cones [NN(2), GenPow((0.3, 0.7), 2)],
+    m=6.  Its draws, in bulk."""
+    n = 4
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", F, F) + 0.5 * np.eye(n)
+    q = rng.standard_normal((B, n))
+    A = np.zeros((B, 6, n))
+    for r, c in ((0, 0), (1, 1), (2, 0), (3, 1), (4, 2), (5, 3)):
+        A[:, r, c] = 1.0
+    b = np.zeros((B, 6))
+    b[:, 0] = 3.0
+    b[:, 1] = 3.0
+    b[:, 2] = rng.uniform(2.0, 3.0, B)
+    b[:, 3] = rng.uniform(2.0, 3.0, B)
+    b[:, 4] = rng.uniform(-0.3, 0.3, B)
+    b[:, 5] = rng.uniform(-0.3, 0.3, B)
+    return P, q, A, b

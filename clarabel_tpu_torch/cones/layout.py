@@ -3,8 +3,7 @@
 A copy of the reference package's `ConeLayout` (numpy and hashlib only):
 the per-cone index `ranges`, the barrier `degree`, the structure-of-arrays
 `groups` of same-type cones, and the structure `key` that hashes the group
-index contents.  The PSD clique-size bucketing waits for the PSD slice of
-the port; a layout that would need it raises `NotImplementedError`.
+index contents, with the PSD clique-size bucketing of `_psd_buckets`.
 
 The gather/scatter helpers at the end move a group's entries between a
 full conic vector and its (count, width) array.  They work on a leading
@@ -139,15 +138,31 @@ class ConeLayout:
                 self.groups[f"soc{dim}"] = ConeGroup(
                     "soc", np.stack(soc_by_dim[dim])
                 )
+        # PSD clique-size bucketing: many distinct sides pad into a few
+        # bucket sides chosen by `_psd_buckets`; a side-k cone is the
+        # leading k x k block of the bucket matrix, whose svec positions
+        # are a plain prefix (column-major triu), and the pad block is
+        # pinned to the identity inside every factorization (cones/psd.py)
         if psd_bucketing is None:
             psd_bucketing = len(psd_by_n) > 4
         if psd_bucketing and psd_by_n:
-            raise NotImplementedError(
-                "PSD clique-size bucketing is not ported yet "
-                "(ROADMAP.md Queue 1 item 9, PSD cones)")
-        for n in sorted(psd_by_n):
-            self.groups[f"psd{n}"] = ConeGroup(
-                "psd", np.stack(psd_by_n[n]), psd_n=n)
+            for bside, sizes in _psd_buckets(psd_by_n).items():
+                entries = [(r, k) for k in sizes for r in psd_by_n[k]]
+                tb = bside * (bside + 1) // 2
+                idx = np.full((len(entries), tb), self.m, dtype=np.int32)
+                tdims = np.zeros(len(entries), dtype=np.int32)
+                for i, (r, k) in enumerate(entries):
+                    t_k = k * (k + 1) // 2
+                    idx[i, :t_k] = r
+                    tdims[i] = t_k
+                exact = bool(np.all(tdims == tb))
+                self.groups[f"psd{bside}b"] = ConeGroup(
+                    "psd", idx, psd_n=bside,
+                    true_dims=None if exact else tdims)
+        else:
+            for n in sorted(psd_by_n):
+                self.groups[f"psd{n}"] = ConeGroup(
+                    "psd", np.stack(psd_by_n[n]), psd_n=n)
         if exp_idx:
             self.groups["exp"] = ConeGroup("exp", np.stack(exp_idx))
         if pow_idx:
@@ -180,6 +195,40 @@ class ConeLayout:
             ),
             h.hexdigest(),
         )
+
+
+def _psd_buckets(psd_by_n, max_buckets: int = 4):
+    """Partition the distinct PSD sides into <= max_buckets contiguous
+    segments (bucket side = segment max) minimizing the total padded
+    O(side^3) factorization work, by a 1-D clustering DP.  Returns
+    {bucket_side: [sizes in the bucket, ascending]}."""
+    sizes = sorted(psd_by_n)
+    counts = [len(psd_by_n[k]) for k in sizes]
+    D = len(sizes)
+    B = min(max_buckets, D)
+    # seg[i][j]: cost of sizes[i..j] padded to sizes[j]
+    seg = [[float(sizes[j]) ** 3 * sum(counts[i:j + 1]) if j >= i else 0.0
+            for j in range(D)] for i in range(D)]
+    INF = float("inf")
+    # dp[b][j]: least cost of covering sizes[0..j] with b segments
+    dp = [[INF] * D for _ in range(B + 1)]
+    back = [[-1] * D for _ in range(B + 1)]
+    dp[1] = list(seg[0])
+    for b in range(2, B + 1):
+        for j in range(b - 1, D):
+            for i in range(b - 1, j + 1):
+                c = dp[b - 1][i - 1] + seg[i][j]
+                if c < dp[b][j]:
+                    dp[b][j] = c
+                    back[b][j] = i
+    best_b = min(range(1, B + 1), key=lambda b: dp[b][D - 1])
+    bounds = []
+    j, b = D - 1, best_b
+    while b >= 1:
+        i = 0 if b == 1 else back[b][j]
+        bounds.append((i, j))
+        j, b = i - 1, b - 1
+    return {sizes[j]: sizes[i:j + 1] for i, j in reversed(bounds)}
 
 
 def _on(g: ConeGroup, name: str, arr: np.ndarray, device) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Exponential and power cone operations, batched over a leading lane axis.
+"""Exponential, power and generalized power cone operations, batched over a
+leading lane axis.
 
-A port of the exp and pow parts of `clarabel_tpu/cones/nonsymmetric.py`:
-dual and primal-dual (BFGS-style) scalings, third-order corrections,
-Wright-omega and Newton-Raphson primal gradients, and the feasibility
-backtracking line searches.  A group of c cones is a (B, c, 3) tensor.
+A port of `clarabel_tpu/cones/nonsymmetric.py`: dual and primal-dual
+(BFGS-style) scalings, third-order corrections, Wright-omega and
+Newton-Raphson primal gradients, and the feasibility backtracking line
+searches.  A group of c cones is a (B, c, 3) tensor, or (B, c, d1 + d2)
+for generalized power cones, which have only the dual scaling (its Hessian
+kept as μ(D + pp' − qq' − rr')) and no third-order correction.
 
 The reference's data-dependent `lax.while_loop`s (the one-sided
 Newton-Raphson and the backtracking search) run under `jax.vmap`: the loop
@@ -11,11 +14,10 @@ goes on while any lane is active and a finished cone keeps its value.
 Here each is a Python loop over the whole batch that runs while any cone
 of any lane is active and masks the update per cone.
 
-Generalized power cones (ROADMAP.md Queue 1 item 8b) are not ported.
-
 Cone math provenance (the reference's reference):
 * exponential cone — src/cones/coneops_expcone.jl
 * power cone       — src/cones/coneops_powcone.jl
+* gen. power cone  — src/cones/coneops_genpowcone.jl
 * shared strategy  — src/cones/coneops_nonsymmetric_common.jl
 """
 
@@ -40,7 +42,8 @@ def _eps(dtype):
 
 
 def _alpha(g: ConeGroup, like):
-    """The group's pow exponents as a (c,) tensor like `like`."""
+    """The group's exponents as a tensor like `like`: (c,) for pow cones,
+    (c, d1) for generalized power cones."""
     return torch.as_tensor(g.alpha, dtype=like.dtype, device=like.device)
 
 
@@ -383,6 +386,117 @@ def _pow_higher_correction(H_dual, Zc, a, ds, v):
 
 
 # ---------------------------------------------------------------------------
+# generalized power cone internals (reference: coneops_genpowcone.jl:
+# 237-472); a is the (c, d1) exponent block, broadcast over the lane axis
+# ---------------------------------------------------------------------------
+
+def _genpow_phi_dual(U, a):
+    return torch.exp((2 * a * _logsafe(U / a)).sum(-1))
+
+
+def _genpow_is_primal_feasible(W, a, d1):
+    S1, S2 = W[..., :d1], W[..., d1:]
+    ok = (S1 > 0).all(dim=-1)
+    res = torch.exp((2 * a * _logsafe(S1)).sum(-1)) - (S2 * S2).sum(-1)
+    return ok & (res > 0)
+
+
+def _genpow_is_dual_feasible(W, a, d1):
+    Z1, Z2 = W[..., :d1], W[..., d1:]
+    ok = (Z1 > 0).all(dim=-1)
+    res = _genpow_phi_dual(Z1, a) - (Z2 * Z2).sum(-1)
+    return ok & (res > 0)
+
+
+def _genpow_barrier_dual(W, a, d1):
+    Z1, Z2 = W[..., :d1], W[..., d1:]
+    res = _genpow_phi_dual(Z1, a) - (Z2 * Z2).sum(-1)
+    return -_logsafe(res) - ((1.0 - a) * _logsafe(Z1)).sum(-1)
+
+
+def _genpow_grad_primal(W, a, d1, dtype):
+    """Newton-Raphson primal gradient.  reference: coneops_genpowcone.jl:
+    393-426, 437-472"""
+    P, R = W[..., :d1], W[..., d1:]
+    phi = torch.exp((2 * a * _logsafe(P)).sum(-1))
+    norm_r = torch.sqrt((R * R).sum(-1))
+    big = norm_r > _eps(dtype)
+    nr = torch.where(big, norm_r, 1.0)
+    psi_const = 1.0 / (a * a).sum(-1)       # ψ = 1/<α,α>
+
+    x0 = -1.0 / nr + (
+        psi_const * nr
+        + torch.sqrt((phi / (nr * nr) + psi_const * psi_const - 1.0) * phi)
+    ) / (phi - nr * nr)
+
+    def f0(x):
+        v = -_logsafe(2.0 * x / nr + x * x)
+        return v + (2 * a * (_logsafe(x[..., None] * nr[..., None]
+                                      + (1 + a) / a)
+                             - _logsafe(P))).sum(-1)
+
+    def f1(x):
+        v = -(2.0 * x + 2.0 / nr) / (x * x + 2.0 * x / nr)
+        return v + (2 * a * nr[..., None]
+                    / (nr[..., None] * x[..., None] + (1 + a) / a)).sum(-1)
+
+    g1 = _newton_raphson_onesided(x0, f0, f1, dtype)
+    gr = torch.where(big[..., None], g1[..., None] * R / nr[..., None], 0.0)
+    gp = torch.where(big[..., None],
+                     -(1.0 + a + a * (g1 * norm_r)[..., None]) / P,
+                     -(1.0 + a) / P)
+    return torch.cat([gp, gr], dim=-1)
+
+
+def _genpow_barrier_primal(W, a, d1, dtype):
+    g = _genpow_grad_primal(W, a, d1, dtype)
+    val = -_genpow_barrier_dual(-g, a, d1) - (d1 + 1.0)
+    return torch.where(_genpow_is_primal_feasible(W, a, d1), val, math.inf)
+
+
+def _genpow_dual_grad_H(W, a, d1):
+    """Gradient and the Hessian's (d1, d2, p, q, r) data, with the ok flag
+    ζ > 0.  reference: coneops_genpowcone.jl:337-389"""
+    U, V = W[..., :d1], W[..., d1:]
+    phi = _genpow_phi_dual(U, a)
+    norm2w = (V * V).sum(-1)
+    zeta = phi - norm2w
+    ok = zeta > 0
+    zeta_safe = torch.where(ok, zeta, 1.0)
+
+    tau = 2.0 * a / U
+    grad_head = -tau * (phi / zeta_safe)[..., None] - (1.0 - a) / U
+    grad_tail = 2.0 * V / zeta_safe[..., None]
+    grad = torch.cat([grad_head, grad_tail], dim=-1)
+
+    p0 = torch.sqrt(phi * (phi + norm2w) / 2.0)
+    p1 = -2.0 * phi / p0
+    q0 = torch.sqrt(zeta_safe * phi / 2.0)
+    r1 = 2.0 * torch.sqrt(zeta_safe / (phi + norm2w))
+
+    dd1 = tau * (phi / zeta_safe)[..., None] / U + (1.0 - a) / (U * U)
+    dd2 = 2.0 / zeta_safe
+
+    p = torch.cat([p0[..., None] * tau / zeta_safe[..., None],
+                   p1[..., None] * V / zeta_safe[..., None]], dim=-1)
+    q = tau * (q0 / zeta_safe)[..., None]
+    r = r1[..., None] * V / zeta_safe[..., None]
+    return grad, dd1, dd2, p, q, r, ok
+
+
+def _genpow_full(g: ConeGroup, state):
+    """The genpow Hessian data as full-width vectors: the diagonal D and
+    q, r padded with zeros to the cone's width, each (B, c, d1 + d2)."""
+    dd1, dd2 = state["d1"], state["d2"]
+    q, r = state["q"], state["r"]
+    zt = q.new_zeros(q.shape[:-1] + (g.dim2,))
+    zh = r.new_zeros(r.shape[:-1] + (g.dim1,))
+    dvec = torch.cat([dd1, dd2[..., None].expand(zt.shape)], dim=-1)
+    return dvec, state["p"], torch.cat([q, zt], dim=-1), \
+        torch.cat([zh, r], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # primal-dual (BFGS) scaling for 3-d cones
 # (reference: coneops_nonsymmetric_common.jl:50-164)
 # ---------------------------------------------------------------------------
@@ -440,6 +554,11 @@ def unit_initialization(g: ConeGroup, z, s):
     if g.kind == "exp":
         vals = torch.tensor(_EXP_UNIT, dtype=z.dtype, device=z.device)
         vals = vals.expand(B, g.count, 3)
+    elif g.kind == "genpow":
+        a = _alpha(g, z)
+        vals = torch.cat([torch.sqrt(1.0 + a),
+                          a.new_zeros((g.count, g.dim2))], dim=-1)
+        vals = vals.expand(B, g.count, g.width)
     else:
         a = _alpha(g, z)
         vals = torch.stack([torch.sqrt(1.0 + a), torch.sqrt(1.0 + (1.0 - a)),
@@ -453,6 +572,12 @@ def update_scaling(g: ConeGroup, s, z, mu, scaling_strategy):
     mu and scaling_strategy are (B,); returns (state, ok (B,))."""
     S, Z = _gather(s, g), _gather(z, g)
     dtype = S.dtype
+    if g.kind == "genpow":
+        # dual scaling only (the layout is pinned to Dual)
+        grad, dd1, dd2, p, q, r, okz = _genpow_dual_grad_H(
+            Z, _alpha(g, Z), g.dim1)
+        return ({"grad": grad, "d1": dd1, "d2": dd2, "p": p, "q": q,
+                 "r": r, "mu": mu}, okz.all(dim=1))
     if g.kind == "exp":
         grad, H_dual = _exp_dual_grad_H(Z)
         zt = _exp_grad_primal(S)
@@ -468,19 +593,64 @@ def update_scaling(g: ConeGroup, s, z, mu, scaling_strategy):
     return {"grad": grad, "H_dual": H_dual, "Hs": Hs, "z": Z}, ok
 
 
+def hs_blocks(g: ConeGroup, state):
+    """Dense per-cone Hs blocks (B, c, w, w): the stored 3×3 Hs, or the
+    genpow μ(D + pp' − qq' − rr') (reference: coneops_genpowcone.jl:
+    111-135, sparse form)."""
+    if g.kind != "genpow":
+        return state["Hs"]
+    dvec, p, q, r = _genpow_full(g, state)
+    outer = lambda u: u[..., :, None] * u[..., None, :]
+    return ((torch.diag_embed(dvec) + outer(p) - outer(q) - outer(r))
+            * state["mu"][:, None, None, None])
+
+
 def mul_Hs(g: ConeGroup, state, X):
-    """Hs x for the group's entries of X (B, m, k), (B, c, 3, k)."""
-    return torch.matmul(state["Hs"], _gather(X, g))
+    """Hs x for the group's entries of X (B, m, k), (B, c, w, k)."""
+    Xg = _gather(X, g)
+    if g.kind != "genpow":
+        return torch.matmul(state["Hs"], Xg)
+    d1 = g.dim1
+    p, q, r = state["p"][..., None], state["q"][..., None], \
+        state["r"][..., None]
+    coef_p = (p * Xg).sum(dim=2, keepdim=True)
+    coef_q = (q * Xg[:, :, :d1]).sum(dim=2, keepdim=True)
+    coef_r = (r * Xg[:, :, d1:]).sum(dim=2, keepdim=True)
+    head = state["d1"][..., None] * Xg[:, :, :d1] - coef_q * q
+    tail = state["d2"][..., None, None] * Xg[:, :, d1:] - coef_r * r
+    out = torch.cat([head, tail], dim=2) + coef_p * p
+    return out * state["mu"][:, None, None, None]
 
 
 def mul_Hs_inv(g: ConeGroup, state, X):
-    """Hs⁻¹ x by the 3×3 Cholesky of the stored Hs, (B, c, 3, k)."""
-    return chol3_solve(state["Hs"], _gather(X, g))
+    """Hs⁻¹ x, (B, c, w, k): a 3×3 Cholesky solve against the stored Hs,
+    or for genpow three Sherman–Morrison rank-1 updates on the diagonal
+    base of D + pp' − qq' − rr', divided by μ."""
+    Xg = _gather(X, g)
+    if g.kind != "genpow":
+        return chol3_solve(state["Hs"], Xg)
+    dvec, p, q, r = _genpow_full(g, state)
+    dvec = dvec[..., None]
+    apply_inv = lambda v: v / dvec
+    for u, sgn in ((p, 1.0), (q, -1.0), (r, -1.0)):
+        Au = apply_inv(u[..., None])[..., 0]
+        denom = 1.0 + sgn * (u * Au).sum(-1)
+
+        def apply_inv(v, prev=apply_inv, u=u, Au=Au, denom=denom, sgn=sgn):
+            Av = prev(v)
+            coef = (u[..., None] * Av).sum(dim=2)
+            return Av - sgn * Au[..., None] * (
+                coef[:, :, None, :] / denom[..., None, None])
+
+    return apply_inv(Xg) / state["mu"][:, None, None, None]
 
 
 def combined_ds_shift(g: ConeGroup, state, step_z, step_s, sigma_mu, shift):
-    """shift = σμ·g(z) − η with the third-order correction η."""
+    """shift = σμ·g(z) − η with the third-order correction η (exp, pow);
+    genpow has no correction."""
     ds, v = _gather(step_s, g), _gather(step_z, g)
+    if g.kind == "genpow":
+        return _scatter(shift, g, state["grad"] * sigma_mu[:, None, None])
     if g.kind == "exp":
         eta = _exp_higher_correction(state["H_dual"], state["z"], ds, v)
     else:
@@ -495,6 +665,9 @@ def _feasibility(g: ConeGroup, like):
     if g.kind == "exp":
         return _exp_is_dual_feasible, _exp_is_primal_feasible
     a = _alpha(g, like)
+    if g.kind == "genpow":
+        return (lambda W: _genpow_is_dual_feasible(W, a, g.dim1),
+                lambda W: _genpow_is_primal_feasible(W, a, g.dim1))
     return (lambda W: _pow_is_dual_feasible(W, a),
             lambda W: _pow_is_primal_feasible(W, a))
 
@@ -523,6 +696,11 @@ def compute_barrier(g: ConeGroup, z, s, dz, ds, alpha):
         bd = torch.where(_exp_is_dual_feasible(Z), _exp_barrier_dual(Z),
                          math.inf)
         bp = _exp_barrier_primal(S)
+    elif g.kind == "genpow":
+        a = _alpha(g, Z)
+        bd = torch.where(_genpow_is_dual_feasible(Z, a, g.dim1),
+                         _genpow_barrier_dual(Z, a, g.dim1), math.inf)
+        bp = _genpow_barrier_primal(S, a, g.dim1, Z.dtype)
     else:
         a = _alpha(g, Z)
         bd = torch.where(_pow_is_dual_feasible(Z, a),

@@ -1,23 +1,23 @@
 """Batched cone operations over a static ConeLayout.
 
-A port of the zero, nonnegative, second-order, exponential and power parts
-of `clarabel_tpu/cones/ops.py`: each cone family's operations are tensor
-ops over a group's (B, count, width) array, with the lane axis first.  Full
-conic vectors are (B, m); per-lane scalars are (B,).  The scaling state is
-a dict {group name: {field: tensor}}: nn groups hold w and λ as (B, k), SOC
-groups w and λ as (B, count, width) and η as (B, count), exp and pow groups
-the dual gradient, the dual Hessian, Hs (B, count, 3, 3) and z
-(`cones/nonsymmetric.py`).
-
-Generalized power cones (ROADMAP.md Queue 1 item 8b) and PSD cones (item
-9) raise `NotImplementedError`.
+A port of `clarabel_tpu/cones/ops.py`: each cone family's operations are
+tensor ops over a group's (B, count, width) array, with the lane axis
+first.  Full conic vectors are (B, m); per-lane scalars are (B,).  The
+scaling state is a dict {group name: {field: tensor}}: nn groups hold w
+and λ as (B, k), SOC groups w and λ as (B, count, width) and η as
+(B, count), PSD groups R, Rinv (B, count, n, n) and λ (B, count, n)
+(`cones/psd.py`), exp and pow groups the dual gradient, the dual Hessian,
+Hs (B, count, 3, 3) and z, genpow groups the dual gradient, μ and the
+Hessian data (d1, d2, p, q, r) (`cones/nonsymmetric.py`).  The low-rank
+genpow form of the reference's sparse backends is not ported.
 
 Cone math provenance (the reference's reference):
 * zero cone       — src/cones/coneops_zerocone.jl
 * nonnegative     — src/cones/coneops_nncone.jl
 * second order    — src/cones/coneops_socone.jl
+* PSD triangle    — src/cones/coneops_psdtrianglecone.jl
 * symmetric glue  — src/cones/coneops_symmetric_common.jl
-* exp, pow        — src/cones/coneops_{expcone,powcone}.jl,
+* exp, pow, genpow— src/cones/coneops_{expcone,powcone,genpowcone}.jl,
                     coneops_nonsymmetric_common.jl
 """
 
@@ -28,28 +28,13 @@ import torch
 from .layout import ConeLayout, ConeGroup, _gather, _scatter, _grow, \
     _srow_set, _on
 from . import nonsymmetric as nonsym_ops
+from . import psd as psd_ops
 
-# the 3-d nonsymmetric cones this slice computes
-NONSYM = ("exp", "pow")
+# the nonsymmetric cones
+NONSYM = ("exp", "pow", "genpow")
 
 # large-but-finite stand-in for floatmax in step length ratios
 _BIG = 1e30
-
-
-def _unsupported(g: ConeGroup):
-    if g.kind == "psd":
-        return NotImplementedError(
-            "PSD cones: ROADMAP.md Queue 1 item 9 (PSD cones)")
-    return NotImplementedError(
-        f"{g.kind} cones: ROADMAP.md Queue 1 item 8b (generalized power "
-        "cones)")
-
-
-def check_supported(layout: ConeLayout) -> None:
-    """Raise for any group this slice of the port does not compute."""
-    for g in layout.groups.values():
-        if g.kind not in ("zero", "nn", "soc") + NONSYM:
-            raise _unsupported(g)
 
 
 def _norm(v, dim=-1):
@@ -127,12 +112,12 @@ def set_identity_scaling(layout: ConeLayout, dtype, B: int, device) -> Dict:
             }
         elif g.kind == "zero":
             state[name] = {}
+        elif g.kind == "psd":
+            state[name] = psd_ops.identity_scaling(g, dtype, B, device)
         elif g.kind in NONSYM:
             raise RuntimeError(
                 "identity scaling is never used for nonsymmetric cones "
                 "(asymmetric problems use unit initialization)")
-        else:
-            raise _unsupported(g)
     return state
 
 
@@ -154,10 +139,10 @@ def unit_initialization(layout: ConeLayout, dtype, B: int, device
             z, s = z.clone(), s.clone()
             z[:, _soc_heads(g, device)] = 1.0
             s[:, _soc_heads(g, device)] = 1.0
+        elif g.kind == "psd":
+            z, s = psd_ops.unit_initialization(g, z, s)
         elif g.kind in NONSYM:
             z, s = nonsym_ops.unit_initialization(g, z, s)
-        elif g.kind != "zero":
-            raise _unsupported(g)
     return z, s
 
 
@@ -181,9 +166,10 @@ def margins(layout: ConeLayout, z, pd: str):
             a = Z[..., 0] - _norm(Z[..., 1:])
             alpha = torch.minimum(alpha, a.amin(dim=1))
             beta = beta + torch.clamp_min(a, 0.0).sum(dim=1)
-        elif g.kind not in ("zero",) + NONSYM:
-            # nonsymmetric cones never take this path
-            raise _unsupported(g)
+        elif g.kind == "psd":
+            a, b = psd_ops.margins(g, z)
+            alpha = torch.minimum(alpha, a)
+            beta = beta + b
     return alpha, beta
 
 
@@ -200,8 +186,8 @@ def scaled_unit_shift(layout: ConeLayout, z, alpha, pd: str):
         elif g.kind == "zero":
             if pd == "primal":
                 z = _srow_set(z, g, torch.zeros_like(_grow(z, g)))
-        elif g.kind not in NONSYM:
-            raise _unsupported(g)
+        elif g.kind == "psd":
+            z = psd_ops.scaled_unit_shift(g, z, alpha)
     return z
 
 
@@ -267,13 +253,15 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, scaling_strategy):
 
             ok = ok & okg.all(dim=1)
             new_state[name] = {"w": w, "lam": lam, "eta": eta}
+        elif g.kind == "psd":
+            st, okg = psd_ops.update_scaling(g, s, z)
+            ok = ok & okg
+            new_state[name] = st
         elif g.kind in NONSYM:
             st, okg = nonsym_ops.update_scaling(g, s, z, mu,
                                                 scaling_strategy)
             ok = ok & okg
             new_state[name] = st
-        else:
-            raise _unsupported(g)
     return new_state, ok
 
 
@@ -309,12 +297,10 @@ def hs_dense(layout: ConeLayout, state: Dict, like):
             blocks = blocks * (eta ** 2)[..., None, None]
             idx = _on(g, "idx", g.idx.astype("int64"), device)
             H[:, idx[:, :, None], idx[:, None, :]] = blocks.to(dtype)
-        elif g.kind in NONSYM:
+        elif g.kind in NONSYM + ("psd",):
             idx = _on(g, "idx", g.idx.astype("int64"), device)
             H[:, idx[:, :, None], idx[:, None, :]] = \
-                state[name]["Hs"].to(dtype)
-        else:
-            raise _unsupported(g)
+                _hs_blocks(g, state[name]).to(dtype)
     return H[:, :m, :m]
 
 
@@ -335,12 +321,18 @@ def hs_diag(layout: ConeLayout, state: Dict, like):
             jd = _soc_J(g.width, dtype, y.device)
             vals = (2.0 * w * w - jd) * (eta ** 2)[..., None]
             y = _scatter(y, g, vals)
-        elif g.kind in NONSYM:
-            y = _scatter(y, g, torch.diagonal(state[name]["Hs"], dim1=-2,
-                                              dim2=-1))
-        else:
-            raise _unsupported(g)
+        elif g.kind in NONSYM + ("psd",):
+            y = _scatter(y, g, torch.diagonal(_hs_blocks(g, state[name]),
+                                              dim1=-2, dim2=-1).to(dtype))
     return y
+
+
+def _hs_blocks(g: ConeGroup, st):
+    """Dense per-cone Hs blocks (B, count, width, width) of a PSD or
+    nonsymmetric group."""
+    if g.kind == "psd":
+        return psd_ops.hs_blocks(g, st)
+    return nonsym_ops.hs_blocks(g, st)
 
 
 def _as_columns(x):
@@ -367,18 +359,19 @@ def mul_Hs(layout: ConeLayout, state: Dict, x):
             out = out + c[:, :, None, :] * w
             out = out * (eta ** 2)[..., None, None]
             y = _scatter(y, g, out)
+        elif g.kind == "psd":
+            y = _scatter(y, g, psd_ops.mul_Hs(g, state[name], X))
         elif g.kind in NONSYM:
             y = _scatter(y, g, nonsym_ops.mul_Hs(g, state[name], X))
-        else:
-            raise _unsupported(g)
     return y[..., 0] if vec else y
 
 
 def mul_Hs_inv(layout: ConeLayout, state: Dict, x, eps_zero):
     """y = Hs⁻¹ x per cone group with closed-form inverses, for x (B, m)
     or (B, m, k); `eps_zero` (B,) regularizes the zero-cone block (whose
-    true Hs is 0).  SOC: Hs⁻¹ = η⁻²(2w̄w̄'−J), w̄ = Jw; exp/pow: a 3×3
-    solve against the stored Hs block."""
+    true Hs is 0).  SOC: Hs⁻¹ = η⁻²(2w̄w̄'−J), w̄ = Jw; PSD: svec(G X G),
+    G = RinvᵀRinv; exp/pow: a 3×3 solve against the stored Hs block;
+    genpow: three Sherman–Morrison updates of μ(D + pp' − qq' − rr')."""
     X, vec = _as_columns(x)
     y = torch.zeros_like(X)
     for name, g in layout.groups.items():
@@ -396,10 +389,10 @@ def mul_Hs_inv(layout: ConeLayout, state: Dict, x, eps_zero):
             out = out + ccoef[:, :, None, :] * wbar
             out = out / (eta ** 2)[..., None, None]
             y = _scatter(y, g, out)
+        elif g.kind == "psd":
+            y = _scatter(y, g, psd_ops.mul_Hs_inv(g, state[name], X))
         elif g.kind in NONSYM:
             y = _scatter(y, g, nonsym_ops.mul_Hs_inv(g, state[name], X))
-        else:
-            raise _unsupported(g)
     return y[..., 0] if vec else y
 
 
@@ -420,10 +413,10 @@ def affine_ds(layout: ConeLayout, state: Dict, s):
         elif g.kind == "soc":
             lam = state[name]["lam"]
             ds = _scatter(ds, g, _soc_circ(lam, lam))
+        elif g.kind == "psd":
+            ds = psd_ops.affine_ds(g, state[name], ds)
         elif g.kind in NONSYM:
             ds = _scatter(ds, g, _gather(s, g))
-        else:
-            raise _unsupported(g)
     return ds
 
 
@@ -451,11 +444,12 @@ def combined_ds_shift(layout: ConeLayout, state: Dict, step_z, step_s,
             out = torch.cat([out[..., :1] - sigma_mu[:, None, None],
                              out[..., 1:]], dim=-1)
             shift = _scatter(shift, g, out)
+        elif g.kind == "psd":
+            shift = psd_ops.combined_ds_shift(g, state[name], step_z, step_s,
+                                              sigma_mu, shift)
         elif g.kind in NONSYM:
             shift = nonsym_ops.combined_ds_shift(g, state[name], step_z,
                                                  step_s, sigma_mu, shift)
-        else:
-            raise _unsupported(g)
     return shift
 
 
@@ -485,10 +479,10 @@ def ds_from_dz_offset(layout: ConeLayout, state: Dict, ds, z):
                 + (w1ds1 / (1.0 + w[..., 0]))[..., None] * w[..., 1:])
             O = torch.cat([O0, O1], dim=-1) / lam[..., :1]
             out = _scatter(out, g, O)
+        elif g.kind == "psd":
+            out = psd_ops.ds_from_dz_offset(g, state[name], ds, out)
         elif g.kind in NONSYM:
             out = _scatter(out, g, _gather(ds, g))
-        else:
-            raise _unsupported(g)
     return out
 
 
@@ -507,8 +501,8 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max,
                 settings_ls):
     """Per lane, the largest step α ≤ alpha_max (B,) keeping (z+αdz, s+αds)
     in the cone.  Symmetric cones come first; with a nonsymmetric cone in
-    the layout the step is then capped at 1−√eps and each exp/pow group
-    backtracks from the running minimum.  reference:
+    the layout the step is then capped at 1−√eps and each nonsymmetric
+    group backtracks from the running minimum.  reference:
     coneops_compositecone.jl:205-243."""
     alpha = alpha_max
     for name, g in layout.groups.items():
@@ -522,8 +516,9 @@ def step_length(layout: ConeLayout, state, dz, ds, z, s, alpha_max,
             az = _soc_step_length_comp(_gather(z, g), _gather(dz, g))
             a_s = _soc_step_length_comp(_gather(s, g), _gather(ds, g))
             alpha = torch.minimum(alpha, torch.minimum(az, a_s))
-        elif g.kind not in NONSYM:
-            raise _unsupported(g)
+        elif g.kind == "psd":
+            alpha = torch.minimum(
+                alpha, psd_ops.step_length(g, state[name], dz, ds, z, s))
     if not layout.is_symmetric:
         eps = float(torch.finfo(z.dtype).eps)
         alpha = torch.clamp_max(alpha, 1.0 - eps ** 0.5)
@@ -596,11 +591,12 @@ def compute_barrier(layout: ConeLayout, state, z, s, dz, ds, alpha):
             per = torch.where((rs > 0) & (rz > 0), -_logsafe(rs * rz) / 2.0,
                               torch.inf)
             barrier = barrier + per.sum(dim=1)
+        elif g.kind == "psd":
+            barrier = barrier + psd_ops.compute_barrier(g, z, s, dz, ds,
+                                                        alpha)
         elif g.kind in NONSYM:
             barrier = barrier + nonsym_ops.compute_barrier(g, z, s, dz, ds,
                                                            alpha)
-        else:
-            raise _unsupported(g)
     return barrier
 
 
@@ -617,8 +613,6 @@ def rectify_equilibration(layout: ConeLayout, e):
     for name, g in layout.groups.items():
         if g.kind in ("zero", "nn"):
             continue
-        if g.kind not in ("soc",) + NONSYM:
-            raise _unsupported(g)
         eg = _gather(e, g)  # (B, count, width)
         if g.true_dims is not None:
             tdims = torch.as_tensor(g.true_dims, dtype=e.dtype,

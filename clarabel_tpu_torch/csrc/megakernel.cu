@@ -1,5 +1,6 @@
-// The batched conic IPM as one CUDA kernel, one instance per thread (K1a,
-// and K1b where the build sets MK_NONSYM=1).
+// The batched conic IPM as one CUDA kernel, one instance per thread (K1a;
+// K1b where the build sets MK_NONSYM=1; K1c where it sets MK_GENPOW=1;
+// K1d where it sets MK_PSD=1).
 //
 // Replaces: clarabel_tpu/ipm/megakernel.py `kernel` / `compute` (the Pallas
 // megakernel launched by `_pallas_fn`), restricted to zero, nonnegative and
@@ -24,6 +25,23 @@
 // the lanes of a warp diverge there; this first version does nothing
 // about that.
 //
+// K1c (MK_GENPOW=1, with MK_NONSYM=1, only where the layout has a
+// generalized power segment): the dual-only genpow scaling with Hs =
+// mu (D + pp' - qq' - rr') kept as per-row vectors, its inverse by three
+// Sherman-Morrison updates, no third-order correction, the genpow cones in
+// the joint feasibility backtrack, the primal barrier through a one-sided
+// Newton gradient (at most 50 trips), and every lane on Dual from the
+// start (reference l.1103-1239, 2181-2193, 2326-2431, 3119-3124).
+//
+// K1d (MK_PSD=1, only where the layout has a PSD segment; sides <= 3):
+// the NT scaling from clamped Cholesky factors of S and Z and a one-sided
+// Jacobi SVD of L2'L1, the step length from the least Jacobi eigenvalue of
+// lam^{-1/2} (W d) lam^{-1/2}, the barrier from a Cholesky logdet, and the
+// PSD margins of the initial point (reference l.652-830, 1418-1451,
+// 1579-1691, 2104-2150, 2255-2258, 2596-2681, 3125-3130).  Both Jacobi
+// iterations run in float64 until no pair rotates, at most 12 sweeps
+// (DEVIATIONS.md #12).  A lane's matrices are 3x3 arrays indexed with the
+// segment's side at run time.//
 // What bounds it on this card: FP64 operations.  A lane reads its P, q, A,
 // b once (at most (n(n+1)/2 + n + nm + m) * 8 bytes, about 0.9 KB at the
 // bench shape n=6, m=13, less when A is batch-constant) and writes
@@ -50,7 +68,7 @@
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -DMK_NONSYM=0 \
-//        -o mk.so megakernel.cu
+//        -DMK_PSD=0 -DMK_GENPOW=0 -o mk.so megakernel.cu
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +79,15 @@
 #endif
 #ifndef MK_NONSYM
 #define MK_NONSYM 0
+#endif
+#ifndef MK_PSD
+#define MK_PSD 0
+#endif
+#ifndef MK_GENPOW
+#define MK_GENPOW 0
+#endif
+#if MK_GENPOW && !MK_NONSYM
+#error "a generalized power segment is nonsymmetric: build with MK_NONSYM=1"
 #endif
 
 namespace {
@@ -88,7 +115,13 @@ enum Status {
   NUMERICAL_ERROR = 9, INSUFFICIENT_PROGRESS = 10
 };
 enum SegKind { SEG_ZERO = 0, SEG_NN = 1, SEG_SOC = 2, SEG_EXP = 3,
-               SEG_POW = 4 };
+               SEG_POW = 4, SEG_GENPOW = 5, SEG_PSD = 6 };
+#if MK_GENPOW
+constexpr int GPW = 16;   // the widest generalized power segment
+#endif
+#if MK_PSD
+constexpr double SR2 = 1.4142135623730951, ISR2 = 0.7071067811865476;
+#endif
 
 }  // namespace
 
@@ -107,6 +140,15 @@ struct MkParams {
   int seg_kind[S], seg_lo[S], seg_hi[S];
   int degree, p_nonzero, max_iter, eq_enable, eq_max_iter, refine_passes;
   int linesearch_max_iter;
+#if MK_GENPOW
+  double gp_alpha[S][GPW];  // a genpow segment's exponents (0 elsewhere)
+  int gp_d1[S];             // their count (0 for the other kinds)
+#endif
+#if MK_PSD
+  // the Jacobi sweeps of the SVD and of the eigenvalues stop once no pair
+  // rotates, at most this many
+  int psd_sweeps;
+#endif
 };
 }
 
@@ -148,6 +190,15 @@ struct Scale {
   double eta[S], eta2[S], etainv[S], etainv2[S];
 #if MK_NONSYM
   double ns_g[S][3], ns_Hd[S][6], ns_Hs[S][6], ns_F[S][6], ns_z[S][3];
+#endif
+#if MK_GENPOW
+  // genpow segments (K1c), per row: the dual gradient, the diagonal D,
+  // p, and q on the head rows or r on the tail rows; and mu
+  double gp_g[M], gp_dd[M], gp_p[M], gp_qr[M], gp_mu;
+#endif
+#if MK_PSD
+  // PSD segments (K1d): R, Rinv (3x3, row-major) and lam
+  double psd_R[S][9], psd_Ri[S][9], psd_lam[S][3];
 #endif
   bool ident;   // identity scaling (initial point)
 };
@@ -629,6 +680,456 @@ __device__ double nonsym_barrier(int kind, double a, const double* Z,
 }
 #endif  // MK_NONSYM
 
+#if MK_PSD
+// ---- PSD-triangle cones of side <= 3 (K1d; the plain version's helpers
+// in megakernel_ref.py, formula for formula).  A side-np matrix is a
+// row-major 3x3 array, M[i * 3 + j]; svec rows follow the column-stacked
+// upper triangle with the off-diagonals times sqrt(2). ----
+
+__device__ __forceinline__ int psd_side(int width) {
+  return width == 1 ? 1 : (width == 3 ? 2 : 3);
+}
+
+__device__ void psd_unpack(const double* v, int np, double* Mt) {
+  for (int j = 0; j < np; ++j)
+    for (int i = 0; i <= j; ++i) {
+      const double e = v[j * (j + 1) / 2 + i];
+      if (i == j) {
+        Mt[i * 3 + j] = e;
+      } else {
+        Mt[i * 3 + j] = e * ISR2;
+        Mt[j * 3 + i] = e * ISR2;
+      }
+    }
+}
+
+__device__ void psd_pack(const double* Mt, int np, double* v) {
+  for (int j = 0; j < np; ++j)
+    for (int i = 0; i <= j; ++i)
+      v[j * (j + 1) / 2 + i] = i == j ? Mt[i * 3 + j] : Mt[i * 3 + j] * SR2;
+}
+
+// C = A B (C must not alias A or B)
+__device__ void mat_mm(const double* A, const double* Bm, int np,
+                       double* C) {
+  for (int i = 0; i < np; ++i)
+    for (int j = 0; j < np; ++j) {
+      double acc = A[i * 3] * Bm[j];
+      for (int k = 1; k < np; ++k) acc = acc + A[i * 3 + k] * Bm[k * 3 + j];
+      C[i * 3 + j] = acc;
+    }
+}
+
+__device__ void mat_T(const double* A, int np, double* T) {
+  for (int i = 0; i < np; ++i)
+    for (int j = 0; j < np; ++j) T[i * 3 + j] = A[j * 3 + i];
+}
+
+// Y = X' A X (tr = false) or X A X' (tr = true)
+__device__ void mat_sandwich(const double* X, const double* A, int np,
+                             bool tr, double* Y) {
+  double Xt[9], T1[9];
+  mat_T(X, np, Xt);
+  if (tr) {
+    mat_mm(X, A, np, T1);
+    mat_mm(T1, Xt, np, Y);
+  } else {
+    mat_mm(Xt, A, np, T1);
+    mat_mm(T1, X, np, Y);
+  }
+}
+
+// lower Cholesky with clamped pivots (a pivot that is not positive
+// becomes 1; reference mat_chol, l.683)
+__device__ void mat_chol(const double* Mt, int np, double* L) {
+  for (int k = 0; k < 9; ++k) L[k] = 0.0;
+  for (int j = 0; j < np; ++j) {
+    double acc = Mt[j * 3 + j];
+    for (int k = 0; k < j; ++k) acc = acc - L[j * 3 + k] * L[j * 3 + k];
+    double d = sqrt(nmax(acc, 0.0));
+    d = d > 0 ? d : 1.0;
+    L[j * 3 + j] = d;
+    const double idj = 1.0 / d;
+    for (int i = j + 1; i < np; ++i) {
+      double a2 = Mt[i * 3 + j];
+      for (int k = 0; k < j; ++k) a2 = a2 - L[i * 3 + k] * L[j * 3 + k];
+      L[i * 3 + j] = a2 * idj;
+    }
+  }
+}
+
+// one-sided (Hestenes) Jacobi SVD, A = U diag(sig) V' (reference
+// jacobi_svd, l.707): a column pair rotates while |a_p . a_q| > eps64
+// |a_p| |a_q|; sweeps run until no pair rotates, at most `sweeps`
+__device__ void jacobi_svd(const double* A, int np, int sweeps, double* sig,
+                           double* U, double* V) {
+  for (int k = 0; k < 9; ++k) V[k] = 0.0;
+  if (np == 1) {
+    double s0 = fabs(A[0]);
+    sig[0] = s0 > 0 ? s0 : 1.0;
+    U[0] = A[0] >= 0 ? 1.0 : -1.0;
+    V[0] = 1.0;
+    return;
+  }
+  double Ac[9];
+  for (int k = 0; k < 9; ++k) Ac[k] = A[k];
+  for (int i = 0; i < np; ++i) V[i * 3 + i] = 1.0;
+  for (int sw = 0; sw < sweeps; ++sw) {
+    bool rotated = false;
+    for (int q = 1; q < np; ++q)
+      for (int p = 0; p < q; ++p) {
+        double al = Ac[p] * Ac[p], be = Ac[q] * Ac[q], ga = Ac[p] * Ac[q];
+        for (int i = 1; i < np; ++i) {
+          al = al + Ac[i * 3 + p] * Ac[i * 3 + p];
+          be = be + Ac[i * 3 + q] * Ac[i * 3 + q];
+          ga = ga + Ac[i * 3 + p] * Ac[i * 3 + q];
+        }
+        if (!(fabs(ga) > EPS64 * sqrt(al * be))) continue;
+        rotated = true;
+        const double zeta = (be - al) / (ga * 2.0);
+        const double sgn = zeta >= 0 ? 1.0 : -1.0;
+        const double t = sgn / (fabs(zeta) + sqrt(zeta * zeta + 1.0));
+        const double c = 1.0 / sqrt(t * t + 1.0);
+        const double s_ = t * c;
+        for (int i = 0; i < np; ++i) {
+          const double aip = Ac[i * 3 + p], aiq = Ac[i * 3 + q];
+          Ac[i * 3 + p] = c * aip - s_ * aiq;
+          Ac[i * 3 + q] = s_ * aip + c * aiq;
+          const double vip = V[i * 3 + p], viq = V[i * 3 + q];
+          V[i * 3 + p] = c * vip - s_ * viq;
+          V[i * 3 + q] = s_ * vip + c * viq;
+        }
+      }
+    if (!rotated) break;
+  }
+  for (int j = 0; j < np; ++j) {
+    double acc = Ac[j] * Ac[j];
+    for (int i = 1; i < np; ++i) acc = acc + Ac[i * 3 + j] * Ac[i * 3 + j];
+    const double sj = sqrt(acc);
+    const double sjc = sj > 0 ? sj : 1.0;
+    sig[j] = sjc;
+    for (int i = 0; i < np; ++i) U[i * 3 + j] = Ac[i * 3 + j] / sjc;
+  }
+}
+
+// all eigenvalues (in no order) of a symmetric matrix of side <= 3
+// (reference psd_eigvals32, l.767, in float64): side 2 in closed form,
+// side 3 by values-only cyclic Jacobi, a pair rotating while |a_pq| >
+// eps64 sqrt(|a_pp a_qq|), until no pair rotates, at most `sweeps`
+__device__ void psd_eigvals(const double* Mt, int np, int sweeps, double* e) {
+  if (np == 1) {
+    e[0] = Mt[0];
+    return;
+  }
+  if (np == 2) {
+    const double a = Mt[0], b = Mt[1], d = Mt[4];
+    const double mid = 0.5 * (a + d);
+    const double h = 0.5 * (a - d);
+    const double rad = sqrt(h * h + b * b);
+    e[0] = mid - rad;
+    e[1] = mid + rad;
+    return;
+  }
+  double A[9];
+  for (int k = 0; k < 9; ++k) A[k] = Mt[k];
+  const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
+  for (int sw = 0; sw < sweeps; ++sw) {
+    bool rotated = false;
+    for (int r0 = 0; r0 < 3; ++r0) {
+      const int p = P[r0], q = Q[r0];
+      const double apq = A[p * 3 + q];
+      const double app = A[p * 3 + p], aqq = A[q * 3 + q];
+      if (!(fabs(apq) > EPS64 * sqrt(fabs(app * aqq)))) continue;
+      rotated = true;
+      const double theta = (aqq - app) / (2.0 * apq);
+      const double sg = theta > 0 ? 1.0 : (theta < 0 ? -1.0 : 0.0);
+      double t = sg / (fabs(theta) + sqrt(theta * theta + 1.0));
+      t = theta == 0 ? 1.0 : t;
+      const double c = 1.0 / sqrt(t * t + 1.0);
+      const double s_ = t * c;
+      A[p * 3 + p] = c * c * app - 2.0 * c * s_ * apq + s_ * s_ * aqq;
+      A[q * 3 + q] = s_ * s_ * app + 2.0 * c * s_ * apq + c * c * aqq;
+      A[p * 3 + q] = 0.0;
+      A[q * 3 + p] = 0.0;
+      const int r = 3 - p - q;
+      const double arp = A[r * 3 + p], arq = A[r * 3 + q];
+      A[r * 3 + p] = c * arp - s_ * arq;
+      A[p * 3 + r] = A[r * 3 + p];
+      A[r * 3 + q] = s_ * arp + c * arq;
+      A[q * 3 + r] = A[r * 3 + q];
+    }
+    if (!rotated) break;
+  }
+  e[0] = A[0];
+  e[1] = A[4];
+  e[2] = A[8];
+}
+
+// logdet through the Cholesky factor; ok is false outside the positive
+// definite cone (reference psd_logdet32, l.814, in float64)
+__device__ double psd_logdet(const double* Mt, int np, bool& ok) {
+  double L[9], val = 0.0;
+  ok = true;
+  for (int j = 0; j < np; ++j) {
+    double acc = Mt[j * 3 + j];
+    for (int k = 0; k < j; ++k) acc = acc - L[j * 3 + k] * L[j * 3 + k];
+    ok = ok && acc > 0;
+    const double dj = sqrt(nmax(acc, 0.0));
+    const double djs = dj > 0 ? dj : 1.0;
+    val = val + 2.0 * log(djs);
+    for (int i = j + 1; i < np; ++i) {
+      double a2 = Mt[i * 3 + j];
+      for (int k = 0; k < j; ++k) a2 = a2 - L[i * 3 + k] * L[j * 3 + k];
+      L[i * 3 + j] = a2 / djs;
+    }
+    L[j * 3 + j] = djs;
+  }
+  return val;
+}
+
+// NT scaling of one segment: clamped, non-fatal chol of S and Z, the
+// Jacobi SVD of L2'L1 = U diag(lam) V', R = L1 V lam^{-1/2}, Rinv =
+// lam^{-1/2} U' L2' (reference l.1418-1451); returns whether R and Rinv
+// are finite
+__device__ bool psd_scaling(const double* sg, const double* zg, int np,
+                            int sweeps, double* R, double* Ri, double* lam) {
+  double Sm[9], Zm[9], L1[9], L2[9], L2t[9], Am[9], U[9], V[9];
+  psd_unpack(sg, np, Sm);
+  psd_unpack(zg, np, Zm);
+  mat_chol(Sm, np, L1);
+  mat_chol(Zm, np, L2);
+  mat_T(L2, np, L2t);
+  mat_mm(L2t, L1, np, Am);
+  jacobi_svd(Am, np, sweeps, lam, U, V);
+  double lis[3], L1V[9], Ut[9], UtL2t[9];
+  for (int j = 0; j < np; ++j) lis[j] = 1.0 / sqrt(lam[j]);
+  mat_mm(L1, V, np, L1V);
+  mat_T(U, np, Ut);
+  mat_mm(Ut, L2t, np, UtL2t);
+  bool fin = true;
+  for (int i = 0; i < np; ++i)
+    for (int j = 0; j < np; ++j) {
+      R[i * 3 + j] = L1V[i * 3 + j] * lis[j];
+      Ri[i * 3 + j] = UtL2t[i * 3 + j] * lis[i];
+      fin = fin && isfinite(R[i * 3 + j]) && isfinite(Ri[i * 3 + j]);
+    }
+  return fin;
+}
+
+// the largest step along d of one segment, from the least eigenvalue of
+// lam^{-1/2} (W d) lam^{-1/2}, W d = R' D R (tr = false) or R D R'
+// (reference l.2104-2150, in float64)
+__device__ double psd_step_comp(const double* dg, const double* Rx,
+                                const double* lam, int np, int sweeps,
+                                bool tr) {
+  double D[9], Mt[9], Ms[9], li[3], e[3];
+  for (int j = 0; j < np; ++j) li[j] = 1.0 / sqrt(nmax(lam[j], TINY32));
+  psd_unpack(dg, np, D);
+  mat_sandwich(Rx, D, np, tr, Mt);
+  for (int i = 0; i < np; ++i)
+    for (int j = 0; j < np; ++j)
+      Ms[i * 3 + j] = 0.5 * (Mt[i * 3 + j] + Mt[j * 3 + i]) * li[i] * li[j];
+  psd_eigvals(Ms, np, sweeps, e);
+  double gmin = e[0];
+  for (int j = 1; j < np; ++j) gmin = nmin(gmin, e[j]);
+  return gmin < 0 ? 1.0 / nmax(-gmin, 1e-30) : BIG;
+}
+#endif  // MK_PSD
+
+#if MK_GENPOW
+// ---- generalized power cones (K1c; the plain version's helpers in
+// megakernel_ref.py).  A segment of width w = d1 + d2 <= GPW; al holds
+// its d1 exponents. ----
+
+__device__ double gp_phi_dual(const double* U, const double* al, int d1) {
+  double acc = nslog(U[0] / al[0]) * (2.0 * al[0]);
+  for (int j = 1; j < d1; ++j) acc = acc + nslog(U[j] / al[j]) * (2.0 * al[j]);
+  return exp(acc);
+}
+
+__device__ bool gp_feas_dual(const double* W, const double* al, int d1,
+                             int w) {
+  bool ok = true;
+  for (int j = 0; j < d1; ++j) ok = ok && W[j] > 0;
+  double res = gp_phi_dual(W, al, d1);
+  for (int k = d1; k < w; ++k) res = res - W[k] * W[k];
+  return ok && res > 0;
+}
+
+__device__ bool gp_feas_primal(const double* W, const double* al, int d1,
+                               int w) {
+  bool ok = true;
+  double acc = 0.0;
+  for (int j = 0; j < d1; ++j) {
+    ok = ok && W[j] > 0;
+    const double t = nslog(W[j]) * (2.0 * al[j]);
+    acc = j == 0 ? t : acc + t;
+  }
+  double res = exp(acc);
+  for (int k = d1; k < w; ++k) res = res - W[k] * W[k];
+  return ok && res > 0;
+}
+
+// dual gradient and the rank-3 Hs data into the per-row arrays of sc
+// (q on the head rows, r on the tail rows); returns whether the dual
+// point is feasible and the data finite (reference genpow_state, l.1130)
+__device__ bool gp_state(const double* Z, const double* al, int d1, int w,
+                         int lo, Scale& sc) {
+  const double phi = gp_phi_dual(Z, al, d1);
+  double norm2w = 0.0;
+  for (int k = d1; k < w; ++k) norm2w = norm2w + Z[k] * Z[k];
+  const double zeta = phi - norm2w;
+  bool ok = zeta > 0;
+  for (int j = 0; j < d1; ++j) ok = ok && Z[j] > 0;
+  const double zs = zeta > 0 ? zeta : 1.0;
+  const double izeta = 1.0 / zs;
+  const double phiz = phi * izeta;
+  double p0 = sqrt(nmax(phi * (phi + norm2w) * 0.5, 0.0));
+  const double p0s = p0 > 0 ? p0 : 1.0;
+  const double p1 = -(phi * 2.0) / p0s;
+  const double q0 = sqrt(nmax(zs * phi * 0.5, 0.0));
+  const double r1 = sqrt(nmax((zs / (phi + norm2w)) * 4.0, 0.0));
+  for (int j = 0; j < d1; ++j) {
+    const double tau = (1.0 / Z[j]) * (2.0 * al[j]);
+    sc.gp_g[lo + j] = -tau * phiz - (1.0 - al[j]) / Z[j];
+    sc.gp_dd[lo + j] = tau * phiz / Z[j] + (1.0 - al[j]) / (Z[j] * Z[j]);
+    sc.gp_p[lo + j] = p0 * tau * izeta;
+    sc.gp_qr[lo + j] = tau * q0 * izeta;
+  }
+  for (int k = d1; k < w; ++k) {
+    sc.gp_g[lo + k] = Z[k] * (izeta * 2.0);
+    sc.gp_dd[lo + k] = izeta * 2.0;
+    sc.gp_p[lo + k] = p1 * Z[k] * izeta;
+    sc.gp_qr[lo + k] = r1 * Z[k] * izeta;
+  }
+  for (int j = 0; j < w; ++j)
+    ok = ok && isfinite(sc.gp_g[lo + j]) && isfinite(sc.gp_dd[lo + j]) &&
+         isfinite(sc.gp_p[lo + j]) && isfinite(sc.gp_qr[lo + j]);
+  return ok;
+}
+
+// mu (D v + p (p'v) - [q (q'v_head); 0] - [0; r (r'v_tail)])
+__device__ void gp_hs_apply(const Scale& sc, int lo, int d1, int w,
+                            const double* v, double* out) {
+  const double* dd = sc.gp_dd + lo;
+  const double* p = sc.gp_p + lo;
+  const double* qr = sc.gp_qr + lo;
+  double cp = p[0] * v[0], cq = qr[0] * v[0], cr = 0.0;
+  for (int j = 1; j < w; ++j) cp = cp + p[j] * v[j];
+  for (int j = 1; j < d1; ++j) cq = cq + qr[j] * v[j];
+  for (int k = d1; k < w; ++k) cr = k == d1 ? qr[k] * v[k] : cr + qr[k] * v[k];
+  for (int j = 0; j < w; ++j) {
+    double y = dd[j] * v[j] + p[j] * cp;
+    y = j < d1 ? y - qr[j] * cq : y - qr[j] * cr;
+    out[j] = y * sc.gp_mu;
+  }
+}
+
+// the k-th rank-1 vector of Hs/mu = D + pp' - qq' - rr' (k = 0, 1, 2:
+// p, [q; 0], [0; r]) at row j
+__device__ __forceinline__ double gp_u(const Scale& sc, int lo, int d1,
+                                       int k, int j) {
+  if (k == 0) return sc.gp_p[lo + j];
+  if (k == 1) return j < d1 ? sc.gp_qr[lo + j] : 0.0;
+  return j < d1 ? 0.0 : sc.gp_qr[lo + j];
+}
+
+// (mu H)^{-1} v by three Sherman-Morrison rank-1 updates on the diagonal
+// base (reference genpow_hinv_apply, l.1199): y0 = v / D, y_k = y_{k-1} -
+// A_k u_k (u_k' y_{k-1}) sgn_k / (1 + sgn_k u_k' A_k u_k), A_k u_k the
+// (k-1)-th inverse applied to u_k
+__device__ void gp_hinv_apply(const Scale& sc, int lo, int d1, int w,
+                              const double* v, double* out) {
+  const double sgn[3] = {1.0, -1.0, -1.0};
+  double idd[GPW], Au[3][GPW], idn[3], y[GPW];
+  for (int j = 0; j < w; ++j) idd[j] = 1.0 / sc.gp_dd[lo + j];
+  for (int k = 0; k <= 3; ++k) {
+    // the base inverse of u_k (of v for k = 3), then the k earlier updates
+    for (int j = 0; j < w; ++j)
+      y[j] = (k < 3 ? gp_u(sc, lo, d1, k, j) : v[j]) * idd[j];
+    for (int u = 0; u < k; ++u) {
+      double acc = gp_u(sc, lo, d1, u, 0) * y[0];
+      for (int j = 1; j < w; ++j) acc = acc + gp_u(sc, lo, d1, u, j) * y[j];
+      const double coef = acc * idn[u] * sgn[u];
+      for (int j = 0; j < w; ++j) y[j] = y[j] - Au[u][j] * coef;
+    }
+    if (k == 3) break;
+    double acc = gp_u(sc, lo, d1, k, 0) * y[0];
+    for (int j = 1; j < w; ++j) acc = acc + gp_u(sc, lo, d1, k, j) * y[j];
+    double denom = acc * sgn[k] + 1.0;
+    denom = denom != 0 ? denom : 1.0;
+    idn[k] = 1.0 / denom;
+    for (int j = 0; j < w; ++j) Au[k][j] = y[j];
+  }
+  const double imu = 1.0 / sc.gp_mu;
+  for (int j = 0; j < w; ++j) out[j] = y[j] * imu;
+}
+
+// f*(z) + f(s) of one segment, BIG where infeasible (reference
+// _genpow_barrier32, l.2326, in float64): the primal barrier through a
+// one-sided Newton gradient (at most NR_TRIPS steps) and the dual barrier
+// of -g
+__device__ double gp_barrier(const double* al, int d1, int w,
+                             const double* Z, const double* Sv) {
+  double n2z = 0.0;
+  for (int k = d1; k < w; ++k) n2z = n2z + Z[k] * Z[k];
+  const double resd = gp_phi_dual(Z, al, d1) - n2z;
+  double bd = -nslog(resd);
+  bool dfeas = resd > 0;
+  for (int j = 0; j < d1; ++j) {
+    bd = bd - (1.0 - al[j]) * nslog(Z[j]);
+    dfeas = dfeas && Z[j] > 0;
+  }
+  double lphi = 0.0, n2r = 0.0, psi_c = 0.0;
+  for (int j = 0; j < d1; ++j) {
+    lphi = lphi + 2.0 * al[j] * nslog(Sv[j]);
+    psi_c = psi_c + al[j] * al[j];
+  }
+  psi_c = 1.0 / psi_c;
+  for (int k = d1; k < w; ++k) n2r = n2r + Sv[k] * Sv[k];
+  const double phi = exp(lphi);
+  const double norm_r = sqrt(nmax(n2r, 0.0));
+  const bool big = norm_r > EPS64;
+  const double nr = big ? norm_r : 1.0;
+  const double den0 = fabs(phi - nr * nr) > 0 ? phi - nr * nr : 1.0;
+  double x = -1.0 / nr +
+             (psi_c * nr +
+              sqrt(nmax((phi / (nr * nr) + psi_c * psi_c - 1.0) * phi, 0.0))) /
+                 den0;
+  for (int it = 0; it < NR_TRIPS; ++it) {
+    double f0 = -nslog(2.0 * x / nr + x * x);
+    const double t1 = x * x, t2 = 2.0 * x / nr;
+    double f1 = -(2.0 * x + 2.0 / nr) / (t1 + t2 != 0 ? t1 + t2 : 1.0);
+    for (int j = 0; j < d1; ++j) {
+      const double a = al[j];
+      f0 = f0 + 2.0 * a * (nslog(x * nr + (1.0 + a) / a) - nslog(Sv[j]));
+      f1 = f1 + 2.0 * a * nr / (nr * x + (1.0 + a) / a);
+    }
+    const double dx = -f0 / (f1 != 0 ? f1 : 1.0);
+    const bool stop = dx < EPS64 ||
+                      fabs(dx / (x != 0 ? x : 1.0)) < SQRT_EPS64 ||
+                      fabs(f1) < EPS64;
+    if (stop) break;
+    x = x + dx;
+  }
+  // the primal barrier is -f*(-g) - (d1 + 1)
+  double ng[GPW], n2g = 0.0;
+  for (int j = 0; j < d1; ++j)
+    ng[j] = big ? (1.0 + al[j] + al[j] * x * norm_r) / Sv[j]
+                : (1.0 + al[j]) / Sv[j];
+  for (int k = d1; k < w; ++k) {
+    const double gr = big ? x * Sv[k] / nr : 0.0;
+    n2g = n2g + gr * gr;
+  }
+  double bdg = -nslog(gp_phi_dual(ng, al, d1) - n2g);
+  for (int j = 0; j < d1; ++j) bdg = bdg - (1.0 - al[j]) * nslog(ng[j]);
+  const double bp = -bdg - (d1 + 1.0);
+  bool pfeas = phi - n2r > 0;
+  for (int j = 0; j < d1; ++j) pfeas = pfeas && Sv[j] > 0;
+  return (dfeas ? bd : BIG) + (pfeas ? bp : BIG);
+}
+#endif  // MK_GENPOW
+
 // ---- cone scaling (reference make_scaling, l.1355-1510); mu and strat
 // choose the exp/pow Hs (Dual: mu H_dual; PrimalDual: the BFGS form) ----
 __device__ bool make_scaling(const Ctx& cx, const double* s,
@@ -640,6 +1141,24 @@ __device__ bool make_scaling(const Ctx& cx, const double* s,
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) continue;
+#if MK_PSD
+    if (kind == SEG_PSD) {
+      // a breakdown of the chol factors is not fatal; non-finite R or
+      // Rinv is (reference l.1418-1451)
+      ok = psd_scaling(s + lo, z + lo, psd_side(hi - lo), cx.p.psd_sweeps,
+                       sc.psd_R[g], sc.psd_Ri[g], sc.psd_lam[g]) && ok;
+      continue;
+    }
+#endif
+#if MK_GENPOW
+    if (kind == SEG_GENPOW) {
+      const int d1 = cx.p.gp_d1[g], w = hi - lo;
+      sc.gp_mu = mu;
+      const bool okg = gp_state(z + lo, cx.p.gp_alpha[g], d1, w, lo, sc);
+      ok = ok && okg && gp_feas_primal(s + lo, cx.p.gp_alpha[g], d1, w);
+      continue;
+    }
+#endif
 #if MK_NONSYM
     if (kind == SEG_EXP || kind == SEG_POW) {
       const double a = cx.p.seg_alpha[g];
@@ -743,6 +1262,31 @@ __device__ double eps_of(const Ctx& cx, const Scale* sc) {
       const double* h = sc->ns_Hs[g];   // h11, h22, h33
       maxdiag = nmax(nmax(nmax(maxdiag, fabs(h[0])), fabs(h[3])), fabs(h[5]));
 #endif
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      // mu (D + p^2 - q^2 or r^2)
+      for (int i = lo; i < hi; ++i) {
+        const double u = sc->gp_qr[i];
+        const double t = sc->gp_dd[i] + sc->gp_p[i] * sc->gp_p[i];
+        maxdiag = nmax(maxdiag, fabs((t - u * u) * sc->gp_mu));
+      }
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // skron(RR') diagonal: slot (i,i) -> A_ii^2, (i<j) -> A_ii A_jj +
+      // A_ij^2, A = RR'
+      const int np = psd_side(hi - lo);
+      double Rt[9], A[9];
+      mat_T(sc->psd_R[g], np, Rt);
+      mat_mm(sc->psd_R[g], Rt, np, A);
+      for (int j = 0; j < np; ++j)
+        for (int i = 0; i <= j; ++i) {
+          const double dg = i == j ? A[i * 3 + i] * A[i * 3 + i]
+                                   : A[i * 3 + i] * A[j * 3 + j] +
+                                         A[i * 3 + j] * A[i * 3 + j];
+          maxdiag = nmax(maxdiag, fabs(dg));
+        }
+#endif
     } else {
       const double eta2 = sc->eta2[g];
       for (int i = lo; i < hi; ++i) {
@@ -772,6 +1316,20 @@ __device__ void hinv_apply(const Ctx& cx, const Scale& sc, double eps,
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       chol3_solve_fac(sc.ns_F[g], v + lo, out + lo);
 #endif
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      gp_hinv_apply(sc, lo, cx.p.gp_d1[g], hi - lo, v + lo, out + lo);
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // svec(Rinv' (Rinv X Rinv') Rinv)
+      const int np = psd_side(hi - lo);
+      double X[9], T1[9], Y[9];
+      psd_unpack(v + lo, np, X);
+      mat_sandwich(sc.psd_Ri[g], X, np, true, T1);
+      mat_sandwich(sc.psd_Ri[g], T1, np, false, Y);
+      psd_pack(Y, np, out + lo);
+#endif
     } else {
       double cc = sc.w[lo] * v[lo];
       for (int i = lo + 1; i < hi; ++i) cc += (-sc.w[i]) * v[i];
@@ -798,6 +1356,20 @@ __device__ void hs_apply(const Ctx& cx, const Scale& sc, const double* v,
 #if MK_NONSYM
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       hmul3(sc.ns_Hs[g], v + lo, out + lo);
+#endif
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      gp_hs_apply(sc, lo, cx.p.gp_d1[g], hi - lo, v + lo, out + lo);
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // svec(R (R' X R) R')
+      const int np = psd_side(hi - lo);
+      double X[9], W[9], Y[9];
+      psd_unpack(v + lo, np, X);
+      mat_sandwich(sc.psd_R[g], X, np, false, W);
+      mat_sandwich(sc.psd_R[g], W, np, true, Y);
+      psd_pack(Y, np, out + lo);
 #endif
     } else {
       double c = 0.0;
@@ -965,6 +1537,18 @@ __device__ void shift_to_interior(const Ctx& cx, double* v, bool primal) {
       mm = nmin(mm, a);
       pm = pm + nmax(a, 0.0);
     }
+#if MK_PSD
+    if (kind == SEG_PSD) {
+      const int np = psd_side(hi - lo);
+      double Mt[9], e[3];
+      psd_unpack(v + lo, np, Mt);
+      psd_eigvals(Mt, np, cx.p.psd_sweeps, e);
+      for (int j = 0; j < np; ++j) {
+        mm = nmin(mm, e[j]);
+        pm = pm + nmax(e[j], 0.0);
+      }
+    }
+#endif
   }
   mm = isfinite(mm) ? mm : -1.0;
   pm = isfinite(pm) ? pm : 0.0;
@@ -981,6 +1565,13 @@ __device__ void shift_to_interior(const Ctx& cx, double* v, bool primal) {
         for (int i = lo; i < hi; ++i) v[i] = 0.0;
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) v[i] = v[i] + amt;
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      for (int j = 0; j < psd_side(hi - lo); ++j) {
+        const int k = lo + j * (j + 1) / 2 + j;
+        v[k] = v[k] + amt;
+      }
+#endif
     } else {
       v[lo] = v[lo] + amt;
     }
@@ -1025,6 +1616,19 @@ __device__ bool nonsym_feasible(const Ctx& cx, const double* z,
   bool ok = true;
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], kind = cx.p.seg_kind[g];
+#if MK_GENPOW
+    if (kind == SEG_GENPOW) {
+      const int w = cx.p.seg_hi[g] - lo, d1 = cx.p.gp_d1[g];
+      double Z[GPW], Sv[GPW];
+      for (int i = 0; i < w; ++i) {
+        Z[i] = z[lo + i] + a * dz[lo + i];
+        Sv[i] = s[lo + i] + a * ds[lo + i];
+      }
+      ok = ok && gp_feas_dual(Z, cx.p.gp_alpha[g], d1, w) &&
+           gp_feas_primal(Sv, cx.p.gp_alpha[g], d1, w);
+      continue;
+    }
+#endif
     if (kind != SEG_EXP && kind != SEG_POW) continue;
     double Z[3], Sv[3];
     for (int i = 0; i < 3; ++i) {
@@ -1041,9 +1645,18 @@ __device__ bool nonsym_feasible(const Ctx& cx, const double* z,
 }
 #endif
 
-// symmetric segments first; with exp/pow segments the step is then capped
-// and backtracked jointly over all of them (reference l.2091-2229)
-__device__ double step_length(const Ctx& cx, const double* dz,
+// the Scale argument that only PSD segments read
+#if MK_PSD
+#define PSD_SC_PARAM const Scale &sc,
+#define PSD_SC_ARG sc,
+#else
+#define PSD_SC_PARAM
+#define PSD_SC_ARG
+#endif
+
+// symmetric segments first; with nonsymmetric segments the step is then
+// capped and backtracked jointly over all of them (reference l.2091-2229)
+__device__ double step_length(const Ctx& cx, PSD_SC_PARAM const double* dz,
                               const double* ds, const double* z,
                               const double* s, double amax) {
   double alpha = amax;
@@ -1051,6 +1664,20 @@ __device__ double step_length(const Ctx& cx, const double* dz,
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO || kind == SEG_EXP || kind == SEG_POW) continue;
+#if MK_GENPOW
+    if (kind == SEG_GENPOW) continue;
+#endif
+#if MK_PSD
+    if (kind == SEG_PSD) {
+      const int np = psd_side(hi - lo);
+      alpha = nmin(alpha, psd_step_comp(dz + lo, sc.psd_R[g], sc.psd_lam[g],
+                                        np, cx.p.psd_sweeps, false));
+      alpha = nmin(alpha, psd_step_comp(ds + lo, sc.psd_Ri[g],
+                                        sc.psd_lam[g], np, cx.p.psd_sweeps,
+                                        true));
+      continue;
+    }
+#endif
     if (kind == SEG_NN) {
       double az = BIG, as = BIG;
       bool first = true;
@@ -1092,6 +1719,18 @@ __device__ void affine_ds(const Ctx& cx, const Scale& sc, const double* s,
       for (int i = lo; i < hi; ++i) out[i] = 0.0;
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       for (int i = lo; i < hi; ++i) out[i] = s[i];
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      for (int i = lo; i < hi; ++i) out[i] = s[i];
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // lam o lam: lam_j^2 on the svec diagonal slots
+      const int np = psd_side(hi - lo);
+      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int j = 0; j < np; ++j)
+        out[lo + j * (j + 1) / 2 + j] = sc.psd_lam[g][j] * sc.psd_lam[g][j];
+#endif
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = sc.lam[i] * sc.lam[i];
     } else {
@@ -1136,6 +1775,28 @@ __device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
       for (int i = 0; i < 3; ++i)
         out[lo + i] = sc.ns_g[g][i] * sigma_mu - eta[i];
 #endif
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      // sigma mu g(z); no third-order correction
+      for (int i = lo; i < hi; ++i) out[i] = sc.gp_g[i] * sigma_mu;
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // W^{-1} ds o W dz - sigma mu e, the circ the symmetrized product
+      const int np = psd_side(hi - lo);
+      double Dz[9], Ds[9], WDz[9], WiDs[9], Pm[9], Qm[9], C[9];
+      psd_unpack(dz + lo, np, Dz);
+      psd_unpack(ds + lo, np, Ds);
+      mat_sandwich(sc.psd_R[g], Dz, np, false, WDz);
+      mat_sandwich(sc.psd_Ri[g], Ds, np, true, WiDs);
+      mat_mm(WiDs, WDz, np, Pm);
+      mat_mm(WDz, WiDs, np, Qm);
+      for (int i = 0; i < np; ++i)
+        for (int j = 0; j < np; ++j)
+          C[i * 3 + j] = (Pm[i * 3 + j] + Qm[i * 3 + j]) * 0.5;
+      for (int i = 0; i < np; ++i) C[i * 3 + i] = C[i * 3 + i] - sigma_mu;
+      psd_pack(C, np, out + lo);
+#endif
     } else {
       const int len = hi - lo;
       double wdz[M], wids[M];
@@ -1160,6 +1821,23 @@ __device__ void ds_from_dz_offset(const Ctx& cx, const Scale& sc,
       for (int i = lo; i < hi; ++i) out[i] = 0.0;
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       for (int i = lo; i < hi; ++i) out[i] = dsv[i];
+#if MK_GENPOW
+    } else if (kind == SEG_GENPOW) {
+      for (int i = lo; i < hi; ++i) out[i] = dsv[i];
+#endif
+#if MK_PSD
+    } else if (kind == SEG_PSD) {
+      // W'(lam \ ds): (lam \ Z)_ij = 2 Z_ij / (lam_i + lam_j)
+      const int np = psd_side(hi - lo);
+      const double* lam = sc.psd_lam[g];
+      double Zm[9], X[9], Y[9];
+      psd_unpack(dsv + lo, np, Zm);
+      for (int i = 0; i < np; ++i)
+        for (int j = 0; j < np; ++j)
+          X[i * 3 + j] = Zm[i * 3 + j] * 2.0 * (1.0 / (lam[i] + lam[j]));
+      mat_sandwich(sc.psd_R[g], X, np, true, Y);
+      psd_pack(Y, np, out + lo);
+#endif
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = dsv[i] / z[i];
     } else {
@@ -1331,6 +2009,23 @@ __device__ double barrier_at(const Ctx& cx, const double* z, const double* s,
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       bar = bar + nonsym_barrier(kind, cx.p.seg_alpha[g], zs + lo, ss + lo);
     }
+#if MK_GENPOW
+    if (kind == SEG_GENPOW)
+      bar = bar + gp_barrier(cx.p.gp_alpha[g], cx.p.gp_d1[g], hi - lo,
+                             zs + lo, ss + lo);
+#endif
+#if MK_PSD
+    if (kind == SEG_PSD) {
+      const int np = psd_side(hi - lo);
+      double Zm[9], Sm[9];
+      bool okz, oks;
+      psd_unpack(zs + lo, np, Zm);
+      psd_unpack(ss + lo, np, Sm);
+      const double lz = psd_logdet(Zm, np, okz);
+      const double ls = psd_logdet(Sm, np, oks);
+      bar = bar + ((okz && oks) ? -(lz + ls) : BIG);
+    }
+#endif
   }
   return bar;
 }
@@ -1372,7 +2067,7 @@ __device__ void pc_step(const Ctx& cx, const double* x, const double* z,
   double dxa[N], dza[M], dsa[M], dtaua, dkappaa;
   tau_recovery(cx, sc, xs[1], zs[1], x2, z2, xi, s, res.rtau, tau * kappa,
                kappa, tinv, tau_den, dxa, dza, dsa, dtaua, dkappaa);
-  const double alpha_aff = step_length(cx, dza, dsa, z, s,
+  const double alpha_aff = step_length(cx, PSD_SC_ARG dza, dsa, z, s,
                                        max_step(tau, kappa, dtaua, dkappaa));
   const double oma = 1.0 - alpha_aff;
   const double sigma = oma * oma * oma;
@@ -1397,7 +2092,7 @@ __device__ void pc_step(const Ctx& cx, const double* x, const double* z,
                comb_kappa, kappa, tinv, tau_den, st.dx, st.dz, st.ds, st.dtau,
                st.dkappa);
   st.kkt_fail = !(ok_kkt && ok3);
-  st.alpha = step_length(cx, st.dz, st.ds, z, s,
+  st.alpha = step_length(cx, PSD_SC_ARG st.dz, st.ds, z, s,
                          max_step(tau, kappa, st.dtau, st.dkappa)) *
              cx.p.max_step_fraction;
   st.sigma = sigma;
@@ -1473,7 +2168,7 @@ __device__ void ruiz(const Ctx& cx, const double* Praw, const double* Araw,
     cf = cf * ctmp;
   }
   // cone rectification: one scalar (the mean) on each segment that is not
-  // elementwise (soc, exp, pow)
+  // elementwise (soc, psd, exp, pow, genpow)
   for (int g = 0; g < S; ++g) {
     if (cx.p.seg_kind[g] == SEG_ZERO || cx.p.seg_kind[g] == SEG_NN) continue;
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
@@ -1555,6 +2250,16 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
       z[lo] = sqrt(1.0 + cx.p.seg_alpha[g]);
       z[lo + 1] = sqrt(2.0 - cx.p.seg_alpha[g]);
     }
+#if MK_GENPOW
+    if (kind == SEG_GENPOW)
+      for (int j = 0; j < cx.p.gp_d1[g]; ++j)
+        z[lo + j] = sqrt(1.0 + cx.p.gp_alpha[g][j]);
+#endif
+#if MK_PSD
+    if (kind == SEG_PSD)
+      for (int j = 0; j < psd_side(hi - lo); ++j)
+        z[lo + j * (j + 1) / 2 + j] = 1.0;
+#endif
   }
   for (int k = 0; k < M; ++k) s[k] = z[k];
 #else
@@ -1589,6 +2294,10 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
   double prev_rp = BIG, prev_rd = BIG, prev_ga = BIG, prev_gr = BIG;
   double mu_f = BIG, alpha_f = 0.0, sigma_f = 1.0;
   int iters = 0, status = UNSOLVED, strat = PRIMAL_DUAL;
+#if MK_GENPOW
+  // a generalized power cone pins every lane to Dual (reference l.560-568)
+  strat = DUAL;
+#endif
   const double inv_deg1 = 1.0 / (p.degree + 1);
   const double sr = p.stall_ratio;
 
@@ -1738,15 +2447,21 @@ mk_kernel(In P, In q, In A, In b, long long B, MkParams prm,
 
 extern "C" {
 
-// Shape this library was built for: {n, m, segments, nonsymmetric, OUTD}.
+// Shape this library was built for: {n, m, segments, nonsymmetric, psd,
+// genpow, OUTD}.
 int mk_shape(int* out) {
   out[0] = N;
   out[1] = M;
   out[2] = S;
   out[3] = MK_NONSYM;
-  out[4] = OUTD;
+  out[4] = MK_PSD;
+  out[5] = MK_GENPOW;
+  out[6] = OUTD;
   return 0;
 }
+
+// sizeof(MkParams), for the ctypes mirror to check against.
+int mk_params_size(void) { return (int)sizeof(MkParams); }
 
 // Launch the whole batched solve on `stream`.  Input component k of lane l
 // is ptr[k * ld + l * ls].  vals is (OUTD, B) float64, ints (3, B) int32

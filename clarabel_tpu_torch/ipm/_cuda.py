@@ -1,10 +1,11 @@
-"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a and K1b).
+"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a-K1d).
 
 The kernel has compile-time sizes, so there is one library per problem
-shape (n, m, number of cone segments, and whether the layout has an
-exponential or power segment: only then is the K1b code compiled in),
-built at first use by `cuda_build.CudaLibrary` (nvcc for sm_90a, loaded
-with ctypes).
+shape: n, m, the number of cone segments, and three flags that compile a
+cone family's code in only where the layout has such a segment (a
+nonsymmetric segment: K1b; a generalized power segment: K1c; a PSD
+segment: K1d).  Each is built at first use by `cuda_build.CudaLibrary`
+(nvcc for sm_90a, loaded with ctypes).
 
 `megakernel(Ptri, q, A, b, spec, B)` checks its inputs, allocates the outputs
 with `torch.empty`, launches on the current stream and counts the launch.
@@ -19,17 +20,26 @@ import torch
 
 from ..cuda_build import CudaLibrary, nvcc_path  # noqa: F401 (re-exported)
 
-_SEG_CODES = {"zero": 0, "nn": 1, "soc": 2, "exp": 3, "pow": 4}
+_SEG_CODES = {"zero": 0, "nn": 1, "soc": 2, "exp": 3, "pow": 4,
+              "genpow": 5, "psd": 6}
+GPW = 16    # the widest generalized power segment (csrc GPW)
 
-Shape = Tuple[int, int, int, int]   # (n, m, segments, nonsymmetric 0/1)
+# (n, m, segments, nonsymmetric 0/1, psd 0/1, genpow 0/1)
+Shape = Tuple[int, int, int, int, int, int]
 
 
 @functools.lru_cache(maxsize=None)
-def _params_struct(nseg: int):
-    """The ctypes mirror of MkParams for `nseg` cone segments (one class
-    per count: ctypes checks a by-value argument's class)."""
+def _params_struct(nseg: int, psd: int, genpow: int):
+    """The ctypes mirror of MkParams for `nseg` cone segments, with the
+    genpow fields where the library has K1c and the PSD field where it has
+    K1d (one class per variant: ctypes checks a by-value argument's
+    class).  `bind` checks its size against the library's
+    sizeof(MkParams)."""
     seg = ctypes.c_int * nseg
     seg_d = ctypes.c_double * nseg
+    gp_fields = [("gp_alpha", ctypes.c_double * (nseg * GPW)),
+                 ("gp_d1", seg)] if genpow else []
+    psd_fields = [("psd_sweeps", ctypes.c_int)] if psd else []
 
     class MkParams(ctypes.Structure):
         _fields_ = [
@@ -58,14 +68,15 @@ def _params_struct(nseg: int):
             ("eq_max_iter", ctypes.c_int),
             ("refine_passes", ctypes.c_int),
             ("linesearch_max_iter", ctypes.c_int),
-        ]
+        ] + gp_fields + psd_fields
 
     return MkParams
 
 
 def _params(spec):
     st = spec.st
-    prm = _params_struct(len(spec.segs))()
+    prm = _params_struct(len(spec.segs), int(spec.has("psd")),
+                         int(spec.has("genpow")))()
     prm.eq_min_scaling = st.equilibrate_min_scaling
     prm.eq_max_scaling = st.equilibrate_max_scaling
     prm.static_reg_constant = st.static_regularization_constant
@@ -89,6 +100,13 @@ def _params(spec):
         prm.seg_lo[g] = lo
         prm.seg_hi[g] = hi
         prm.seg_alpha[g] = a
+        if kind == "genpow":
+            al = spec.gp_alphas[g]
+            prm.gp_d1[g] = len(al)
+            for j, v in enumerate(al):
+                prm.gp_alpha[g * GPW + j] = v
+    if spec.has("psd"):
+        prm.psd_sweeps = spec.psd_sweeps
     prm.degree = spec.degree
     prm.p_nonzero = int(spec.p_nonzero)
     prm.max_iter = st.max_iter
@@ -100,7 +118,8 @@ def _params(spec):
 
 
 def shape_of(spec) -> Shape:
-    return (spec.n, spec.m, len(spec.segs), int(spec.nonsym))
+    return (spec.n, spec.m, len(spec.segs), int(spec.nonsym),
+            int(spec.has("psd")), int(spec.has("genpow")))
 
 
 class Megakernel(CudaLibrary):
@@ -108,23 +127,31 @@ class Megakernel(CudaLibrary):
 
     def __init__(self):
         super().__init__("megakernel.cu",
-                         macros=("MK_N", "MK_M", "MK_S", "MK_NONSYM"),
-                         tags=("n", "m", "s", "ns"))
+                         macros=("MK_N", "MK_M", "MK_S", "MK_NONSYM",
+                                 "MK_PSD", "MK_GENPOW"),
+                         tags=("n", "m", "s", "ns", "psd", "gp"))
         self.launches = 0
 
     def bind(self, lib: ctypes.CDLL, shape: Shape) -> None:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        params = _params_struct(shape[2], shape[4], shape[5])
         lib.mk_solve.argtypes = [vp, ll, ll, vp, ll, ll, vp, ll, ll,
-                                 vp, ll, ll, ll,
-                                 _params_struct(shape[2]), vp, vp, vp]
+                                 vp, ll, ll, ll, params, vp, vp, vp]
         lib.mk_solve.restype = ctypes.c_int
         lib.mk_shape.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.mk_shape.restype = ctypes.c_int
-        got = (ctypes.c_int * 5)()
+        lib.mk_params_size.argtypes = []
+        lib.mk_params_size.restype = ctypes.c_int
+        got = (ctypes.c_int * 7)()
         lib.mk_shape(got)
-        if tuple(got[:4]) != shape:
+        if tuple(got[:6]) != shape:
             raise RuntimeError(f"{self.lib_path(shape)} was built for "
-                               f"{tuple(got[:4])}, not {shape}")
+                               f"{tuple(got[:6])}, not {shape}")
+        if lib.mk_params_size() != ctypes.sizeof(params):
+            raise RuntimeError(
+                f"MkParams is {lib.mk_params_size()} bytes in "
+                f"{self.lib_path(shape)}, {ctypes.sizeof(params)} in its "
+                "ctypes mirror")
 
     def __call__(self, Ptri, q, A, b, spec, B):
         """Launch the batched solve over B lanes; returns (vals (OUTD, B)

@@ -1,9 +1,9 @@
 """The homogeneous-embedding IPM loop solver, batched over a leading lane axis.
 
-A port of `clarabel_tpu/ipm/loop.py` for zero, nonnegative, second-order,
-exponential and power cones with the dense `ldl` and the `condensed` KKT
-backends.  The
-reference builds a single-instance function and batches it with
+A port of `clarabel_tpu/ipm/loop.py` for every cone family (zero,
+nonnegative, second-order, PSD triangle, exponential, power and
+generalized power) with the dense `ldl` and the `condensed` KKT backends.
+The reference builds a single-instance function and batches it with
 `jax.vmap`; `build_solve` here returns the batched function itself,
 solve(P (B,n,n), q (B,n), A (B,m,n), b (B,m)) -> dict of (B, ...) tensors,
 and computes on the inputs' device.
@@ -17,10 +17,12 @@ What `vmap` does to the reference's control flow is written out:
   are still factored; their values never reach a live lane, because every
   merge is a select and never a product with a mask.
 * Refinement is masked per lane (`kkt.refine`).
-* Layouts with an exponential or power cone take the asymmetric IPM: the
+* Layouts with a nonsymmetric cone take the asymmetric IPM: the
   unit-initialization start, and per lane the PrimalDual→Dual strategy
   machine with the barrier backtrack of Dual lanes (reference:
-  src/solver.jl:407-514).  Symmetric layouts never run those ops.
+  src/solver.jl:407-514).  A generalized power cone pins every lane to
+  Dual from the start, so no switch fires.  Symmetric layouts (PSD
+  included) never run those ops.
 
 Variable set: (x, z, s, τ, κ) with residuals
     rx = −Aᵀz − Px − qτ
@@ -211,7 +213,6 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     cost matrix.  The dense `ldl` backend (also what "auto" means here)
     and `condensed` are ported; the others raise."""
     m = layout.m
-    cone_ops.check_supported(layout)
     if kkt_backend is None:
         kkt_backend = settings.kkt_backend
     if kkt_backend == "megakernel":
@@ -243,6 +244,10 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         settings = settings.replace(dense_ldl_diag_order=safe)
     eps_T = float(np.finfo(settings.dtype).eps)
     is_symmetric = layout.is_symmetric
+    # generalized power cones have only the dual scaling
+    # (reference: coneops_genpowcone.jl:21, loop.py:213-215, 272)
+    scaling0 = (DUAL if any(g.kind == "genpow"
+                            for g in layout.groups.values()) else PRIMAL_DUAL)
 
     def shift_to_cone_interior(vec, pd):
         """reference: src/variables.jl:180-208"""
@@ -398,7 +403,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             prev_res_primal=full(_BIG), prev_res_dual=full(_BIG),
             prev_gap_abs=full(_BIG), prev_gap_rel=full(_BIG),
             mu=full(_BIG), alpha=full(0.0), sigma=full(1.0),
-            iters=ints(0), status=ints(UNSOLVED), scaling=ints(PRIMAL_DUAL),
+            iters=ints(0), status=ints(UNSOLVED), scaling=ints(scaling0),
         )
         return (P, q, A, b, equil, normq, normb, signs), carry0
 

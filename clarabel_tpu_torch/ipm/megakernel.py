@@ -1,5 +1,6 @@
 """Host side of the batched IPM megakernel (K1a: zero/nn/soc segments;
-K1b: exponential and power segments).
+K1b: exponential and power segments; K1c: generalized power segments; K1d:
+PSD-triangle segments of side at most 3).
 
 The reference (`clarabel_tpu/ipm/megakernel.py`) runs the whole batched
 IPM as one Pallas kernel per 1024-lane block.  The port runs it as one
@@ -22,8 +23,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..cones.api import (ExponentialConeT, NonnegativeConeT, PowerConeT,
-                         SecondOrderConeT, ZeroConeT)
+from ..cones.api import (ExponentialConeT, GenPowerConeT, NonnegativeConeT,
+                         PowerConeT, PSDTriangleConeT, SecondOrderConeT,
+                         ZeroConeT)
 from ..cones.layout import ConeLayout
 from ..settings import Settings
 from . import megakernel_ref
@@ -49,8 +51,8 @@ def _vmem_estimate_bytes(n: int, m: int) -> int:
 def eligible(layout: ConeLayout, settings: Settings, n: int) -> bool:
     """The reference's rule for the megakernel regime: small dense
     problems at float64, without verbose or mixed precision, with at least
-    one barrier cone.  Which of those layouts this slice's kernel covers
-    is `covered`."""
+    one barrier cone; PSD sides at most 3 and genpow widths at most 16,
+    both charged against the budget of nonsymmetric segments."""
     if settings.dtype != "float64":
         return False
     if settings.verbose or settings.mixed_precision:
@@ -91,20 +93,18 @@ def eligible(layout: ConeLayout, settings: Settings, n: int) -> bool:
 
 
 _KINDS = {ZeroConeT: "zero", NonnegativeConeT: "nn", SecondOrderConeT: "soc",
-          ExponentialConeT: "exp", PowerConeT: "pow"}
-
-
-def covered(layout: ConeLayout) -> bool:
-    """True when every segment is one the port's kernel computes: zero,
-    nonnegative, second-order (K1a), exponential and power cones (K1b)."""
-    return all(type(c) in _KINDS for c in layout.cones)
+          ExponentialConeT: "exp", PowerConeT: "pow", GenPowerConeT: "genpow",
+          PSDTriangleConeT: "psd"}
 
 
 @dataclasses.dataclass(frozen=True)
 class MegaSpec:
     """What the kernel is specialised to: the shape, the cone segments
     (kind, lo, hi), each segment's power-cone exponent (0 for the other
-    kinds) and the settings."""
+    kinds), each segment's generalized-power exponents (() for the other
+    kinds; the segment's dim2 is its width less their count), the cap on
+    the Jacobi sweeps of PSD segments and the settings.  A PSD segment's
+    side follows from its width."""
 
     n: int
     m: int
@@ -113,11 +113,19 @@ class MegaSpec:
     p_nonzero: bool
     st: Settings
     alphas: Tuple[float, ...]
+    gp_alphas: Tuple[Tuple[float, ...], ...]
+    # the most Jacobi sweeps of a PSD segment's SVD and eigenvalues; they
+    # stop earlier once no pair rotates (DEVIATIONS.md #12)
+    psd_sweeps: int = megakernel_ref.JACOBI_SWEEPS
+
+    def has(self, *kinds) -> bool:
+        return any(k in kinds for k, _, _ in self.segs)
 
     @property
     def nonsym(self) -> bool:
-        """The layout has an exponential or power segment (K1b)."""
-        return any(k in ("exp", "pow") for k, _, _ in self.segs)
+        """The layout has a nonsymmetric segment: exp, pow (K1b) or
+        genpow (K1c)."""
+        return self.has("exp", "pow", "genpow")
 
     @property
     def outd(self) -> int:
@@ -139,18 +147,16 @@ class MegaSpec:
 
 def make_spec(layout: ConeLayout, settings: Settings, n: int,
               p_nonzero: bool = True) -> MegaSpec:
-    if not covered(layout):
-        raise NotImplementedError(
-            "the megakernel covers zero, nonnegative, second-order, "
-            "exponential and power segments (generalized power: ROADMAP.md "
-            "Queue 1 item 8b, K1c; PSD: item 9, K1d)")
-    segs, alphas = [], []
+    segs, alphas, gp_alphas = [], [], []
     for cone, (lo, hi) in zip(layout.cones, layout.ranges):
         segs.append((_KINDS[type(cone)], lo, hi))
         alphas.append(float(cone.alpha) if isinstance(cone, PowerConeT)
                       else 0.0)
+        gp_alphas.append(tuple(float(a) for a in cone.alpha)
+                         if isinstance(cone, GenPowerConeT) else ())
     return MegaSpec(n, layout.m, tuple(segs), layout.degree,
-                    bool(p_nonzero), settings, tuple(alphas))
+                    bool(p_nonzero), settings, tuple(alphas),
+                    tuple(gp_alphas))
 
 
 REST_NAMES = ["obj_val_dual", "r_prim", "r_dual", "gap_abs", "gap_rel",

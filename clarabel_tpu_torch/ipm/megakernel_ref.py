@@ -1,16 +1,23 @@
-"""The plain PyTorch version of the batched IPM megakernel (K1a, K1b).
+"""The plain PyTorch version of the batched IPM megakernel (K1a-K1d).
 
 Computes what the reference's one-block function
 (`clarabel_tpu/ipm/megakernel.py` `compute`) computes for zero,
-nonnegative, second-order, exponential and power segments, formula for
-formula, over a (B, ·) batch: Ruiz equilibration with cone rectification,
-the symmetric initial point (or the unit initialization when the layout
-has an exp or pow segment), the Mehrotra predictor-corrector loop over the
-condensed KKT (Cholesky plus accept-masked refinement against the true
-operator), the termination machine, and finalization.  With exp or pow
-segments (K1b) the loop adds the dual and primal-dual 3×3 scalings, the
-third-order corrections, the joint feasibility backtrack, and per lane the
-PrimalDual→Dual strategy machine with the barrier backtrack of Dual lanes.
+nonnegative, second-order, PSD-triangle (side ≤ 3), exponential, power and
+generalized power segments, formula for formula, over a (B, ·) batch: Ruiz
+equilibration with cone rectification, the symmetric initial point (or the
+unit initialization when the layout has a nonsymmetric segment), the
+Mehrotra predictor-corrector loop over the condensed KKT (Cholesky plus
+accept-masked refinement against the true operator), the termination
+machine, and finalization.  With exp or pow segments (K1b) the loop adds
+the dual and primal-dual 3×3 scalings, the third-order corrections, the
+joint feasibility backtrack, and per lane the PrimalDual→Dual strategy
+machine with the barrier backtrack of Dual lanes.  Generalized power
+segments (K1c) have the dual scaling only, with Hs = μ(D + pp' − qq' − rr')
+inverted by three Sherman–Morrison updates, no third-order correction, and
+pin every lane to Dual from the start.  PSD segments (K1d) take the NT
+scaling from clamped Cholesky factors and a one-sided Jacobi SVD, their
+step lengths from Jacobi eigenvalues and their barrier from a Cholesky
+logdet.
 Every per-lane update is masked; the loops run while any lane is still
 active, so each lane's result is what a loop run for that lane alone
 gives.  This is what lets the CUDA kernel (`csrc/megakernel.cu`) run one
@@ -49,7 +56,7 @@ EPS64 = float(torch.finfo(F64).eps)
 
 # scaling strategies (reference src/types.jl:73-76)
 PRIMAL_DUAL, DUAL = 0, 1
-NONSYM = ("exp", "pow")
+NONSYM = ("exp", "pow")     # the 3-d nonsymmetric cones (K1b)
 # the nonsymmetric step cap (reference l.2169-2172: 1 - 2^-12, where the
 # Julia reference's 1 - sqrt(eps) rounds to 1 in f32; DEVIATIONS.md #11)
 STEP_CAP = 1.0 - 2.0 ** -12
@@ -143,6 +150,8 @@ class _Ops:
         self.n, self.m = spec.n, spec.m
         self.segs = spec.segs
         self.alphas = spec.alphas
+        self.gp_alphas = spec.gp_alphas
+        self.sweeps = spec.psd_sweeps
         self.nonsym = spec.nonsym
         self.Ps, self.As, self.qe, self.be = Ps, As, qe, be
         self.pn = spec.p_nonzero
@@ -173,10 +182,24 @@ class _Ops:
         form); `live` (B,) marks the lanes whose state is used."""
         ok = torch.ones_like(s[:, 0], dtype=torch.bool)
         state = []
-        for (kind, lo, hi), a in zip(self.segs, self.alphas):
+        for (kind, lo, hi), a, al in zip(self.segs, self.alphas,
+                                         self.gp_alphas):
             sg, zg = s[:, lo:hi], z[:, lo:hi]
             if kind == "zero":
                 state.append(None)
+            elif kind == "psd":
+                # a breakdown of the chol factors is not fatal; non-finite
+                # R or Rinv is (reference l.1418-1451)
+                stg, fin = _psd_scaling(sg, zg, psd_side(hi - lo),
+                                        self.sweeps)
+                ok = ok & fin
+                state.append(stg)
+            elif kind == "genpow":
+                d1 = len(al)
+                zc, sc_ = list(zg.unbind(1)), list(sg.unbind(1))
+                stg, okg = _gp_state(zc[:d1], zc[d1:], al, mu)
+                ok = ok & okg & _gp_feas_primal(sc_[:d1], sc_[d1:], al)
+                state.append(stg)
             elif kind in NONSYM:
                 S3, Z3 = list(sg.unbind(1)), list(zg.unbind(1))
                 g, Hd, zt, feas = _nonsym_grad_hess(kind, a, S3, Z3, live)
@@ -239,6 +262,17 @@ class _Ops:
         for stg, (kind, lo, hi) in zip(state, self.segs):
             if kind == "zero":
                 parts.append(torch.zeros_like(self.be[:, lo:hi]))
+            elif kind == "psd":
+                # skron(RR') diagonal: slot (i,i) -> A_ii^2, (i<j) ->
+                # A_ii A_jj + A_ij^2, A = RR'
+                np_ = stg["np"]
+                A = _mm(stg["R"], _mT(stg["R"]))
+                parts.append(torch.stack(
+                    [A[i][i] * A[i][i] if i == j
+                     else A[i][i] * A[j][j] + A[i][j] * A[i][j]
+                     for j in range(np_) for i in range(j + 1)], dim=1))
+            elif kind == "genpow":
+                parts.append(torch.stack(_gp_hs_diag(stg), dim=1))
             elif kind in NONSYM:
                 h = stg["Hs"]
                 parts.append(torch.stack([h[0], h[3], h[5]], dim=1))
@@ -273,6 +307,11 @@ class _Ops:
             elif kind == "nn":
                 w = state[i]["winv2"]
                 out[:, lo:hi] = vg * (w[:, :, None] if mat else w)
+            elif kind in ("psd", "genpow"):
+                f = _psd_hinv if kind == "psd" else _gp_hinv
+                out[:, lo:hi] = (torch.stack(
+                    [f(state[i], vg[:, :, c]) for c in range(vg.shape[2])],
+                    dim=2) if mat else f(state[i], vg))
             elif kind in NONSYM:
                 F = [f[:, None] for f in state[i]["F"]] if mat \
                     else state[i]["F"]
@@ -299,6 +338,15 @@ class _Ops:
                 out[:, lo:hi] = vg
             elif kind == "nn":
                 out[:, lo:hi] = vg * state[i]["w2"]
+            elif kind == "psd":
+                stg = state[i]
+                np_, R = stg["np"], stg["R"]
+                X = _psd_unpack(list(vg.unbind(1)), np_)
+                W = _mm(_mm(_mT(R), X), R)
+                out[:, lo:hi] = _psd_pack(_mm(_mm(R, W), _mT(R)), np_)
+            elif kind == "genpow":
+                out[:, lo:hi] = torch.stack(
+                    _gp_hs_apply(state[i], list(vg.unbind(1))), dim=1)
             elif kind in NONSYM:
                 out[:, lo:hi] = torch.stack(
                     _hmul3(state[i]["Hs"], list(vg.unbind(1))), dim=1)
@@ -410,6 +458,12 @@ class _Ops:
             if kind == "nn":
                 mm = torch.minimum(mm, vg.amin(dim=1))
                 pm = pm + vg.clamp_min(0.0).sum(dim=1)
+            elif kind == "psd":
+                for e in _psd_eigvals(_psd_unpack(list(vg.unbind(1)),
+                                                  psd_side(hi - lo)),
+                                      self.sweeps):
+                    mm = torch.minimum(mm, e)
+                    pm = pm + e.clamp_min(0.0)
             elif kind == "soc":
                 a = vg[:, 0] - _norm(vg[:, 1:])
                 mm = torch.minimum(mm, a)
@@ -428,20 +482,30 @@ class _Ops:
                     out[:, lo:hi] = 0.0
             elif kind == "nn":
                 out[:, lo:hi] = v[:, lo:hi] + amt[:, None]
+            elif kind == "psd":
+                for j in range(psd_side(hi - lo)):
+                    k = lo + j * (j + 1) // 2 + j
+                    out[:, k] = v[:, k] + amt
             else:
                 out[:, lo] = v[:, lo] + amt
         return out
 
     # ---- step length (reference step_length/soc_step_len) ----
-    def step_length(self, dz, ds, z, s, amax, live):
-        """Symmetric segments first; with exp/pow segments the step is
-        then capped and backtracked jointly over all of them (reference
+    def step_length(self, state, dz, ds, z, s, amax, live):
+        """Symmetric segments first; with nonsymmetric segments the step
+        is then capped and backtracked jointly over all of them (reference
         l.2091-2229) on the `live` lanes."""
         alpha = amax
-        for kind, lo, hi in self.segs:
-            if kind in ("zero",) + NONSYM:
+        for stg, (kind, lo, hi) in zip(state, self.segs):
+            if kind in ("zero", "genpow") + NONSYM:
                 continue
-            if kind == "nn":
+            if kind == "psd":
+                alpha = torch.minimum(alpha, _psd_step_comp(
+                    dz[:, lo:hi], stg["R"], stg["lam"], False, self.sweeps))
+                alpha = torch.minimum(alpha, _psd_step_comp(
+                    ds[:, lo:hi], stg["Rinv"], stg["lam"], True,
+                    self.sweeps))
+            elif kind == "nn":
                 for v, dv in ((z[:, lo:hi], dz[:, lo:hi]),
                               (s[:, lo:hi], ds[:, lo:hi])):
                     r = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0),
@@ -469,16 +533,21 @@ class _Ops:
         return alpha
 
     def nonsym_feasible(self, z, s, dz, ds, a):
-        """(z + a dz, s + a ds) strictly inside every exp/pow segment's
-        dual and primal cone, per lane."""
+        """(z + a dz, s + a ds) strictly inside every nonsymmetric
+        segment's dual and primal cone, per lane."""
         ok = torch.ones_like(a, dtype=torch.bool)
         a2 = a[:, None]
-        for (kind, lo, hi), al in zip(self.segs, self.alphas):
-            if kind not in NONSYM:
+        for (kind, lo, hi), al, gal in zip(self.segs, self.alphas,
+                                           self.gp_alphas):
+            if kind not in NONSYM + ("genpow",):
                 continue
             Z = list((z[:, lo:hi] + a2 * dz[:, lo:hi]).unbind(1))
             S = list((s[:, lo:hi] + a2 * ds[:, lo:hi]).unbind(1))
-            if kind == "exp":
+            if kind == "genpow":
+                d1 = len(gal)
+                ok = (ok & _gp_feas_dual(Z[:d1], Z[d1:], gal)
+                      & _gp_feas_primal(S[:d1], S[d1:], gal))
+            elif kind == "exp":
                 ok = ok & _exp_feas_dual(Z) & _exp_feas_primal(S)
             else:
                 ok = ok & _pow_feas_dual(Z, al) & _pow_feas_primal(S, al)
@@ -495,10 +564,19 @@ class _Ops:
             self.spec.degree + 1)
         bar = ((self.spec.degree + 1) * _nslog(mu_a) - _nslog(cur_tau)
                - _nslog(cur_kappa))
-        for (kind, lo, hi), al in zip(self.segs, self.alphas):
+        for (kind, lo, hi), al, gal in zip(self.segs, self.alphas,
+                                           self.gp_alphas):
             zg, sg = zs[:, lo:hi], ss[:, lo:hi]
             if kind == "nn":
                 bar = bar - _nslog(sg * zg).sum(-1)
+            elif kind == "psd":
+                np_ = psd_side(hi - lo)
+                lz, okz = _psd_logdet(_psd_unpack(list(zg.unbind(1)), np_))
+                ls, oks = _psd_logdet(_psd_unpack(list(sg.unbind(1)), np_))
+                bar = bar + torch.where(okz & oks, -(lz + ls), BIG)
+            elif kind == "genpow":
+                bar = bar + _gp_barrier(gal, list(zg.unbind(1)),
+                                        list(sg.unbind(1)))
             elif kind == "soc":
                 rs = sg[:, 0] * sg[:, 0] - (sg[:, 1:] * sg[:, 1:]).sum(-1)
                 rz = zg[:, 0] * zg[:, 0] - (zg[:, 1:] * zg[:, 1:]).sum(-1)
@@ -530,8 +608,11 @@ class _Ops:
     def affine_ds(self, state, s):
         out = torch.zeros_like(s)
         for stg, (kind, lo, hi) in zip(state, self.segs):
-            if kind in NONSYM:
+            if kind in NONSYM + ("genpow",):
                 out[:, lo:hi] = s[:, lo:hi]
+            elif kind == "psd":
+                for j, l in enumerate(stg["lam"]):
+                    out[:, lo + j * (j + 1) // 2 + j] = l * l
             elif kind == "nn":
                 out[:, lo:hi] = stg["lam"] * stg["lam"]
             elif kind == "soc":
@@ -544,7 +625,24 @@ class _Ops:
         out = torch.zeros_like(dz)
         for stg, (kind, lo, hi), al in zip(state, self.segs, self.alphas):
             dzg, dsg = dz[:, lo:hi], ds[:, lo:hi]
-            if kind in NONSYM:
+            if kind == "psd":
+                # W^{-1}Δs ∘ WΔz − σμe, the circ the symmetrized product
+                np_, R, Ri = stg["np"], stg["R"], stg["Rinv"]
+                Dz = _psd_unpack(list(dzg.unbind(1)), np_)
+                Ds = _psd_unpack(list(dsg.unbind(1)), np_)
+                WDz = _mm(_mm(_mT(R), Dz), R)
+                WiDs = _mm(_mm(Ri, Ds), _mT(Ri))
+                Pm, Qm = _mm(WiDs, WDz), _mm(WDz, WiDs)
+                C = [[(Pm[i][j] + Qm[i][j]) * 0.5 for j in range(np_)]
+                     for i in range(np_)]
+                for i in range(np_):
+                    C[i][i] = C[i][i] - sigma_mu
+                out[:, lo:hi] = _psd_pack(C, np_)
+            elif kind == "genpow":
+                # no third-order correction
+                out[:, lo:hi] = torch.stack(
+                    [gj * sigma_mu for gj in stg["g"]], dim=1)
+            elif kind in NONSYM:
                 ds3, v3 = list(dsg.unbind(1)), list(dzg.unbind(1))
                 if kind == "exp":
                     eta = _exp_higher_corr(stg["Hd"], stg["z"], ds3, v3)
@@ -568,8 +666,15 @@ class _Ops:
         out = torch.zeros_like(dsv)
         for stg, (kind, lo, hi) in zip(state, self.segs):
             dsg, zg = dsv[:, lo:hi], z[:, lo:hi]
-            if kind in NONSYM:
+            if kind in NONSYM + ("genpow",):
                 out[:, lo:hi] = dsg
+            elif kind == "psd":
+                # W'(λ \ Δs): (λ \ Z)_ij = 2 Z_ij / (λ_i + λ_j)
+                np_, R, lam = stg["np"], stg["R"], stg["lam"]
+                Zm = _psd_unpack(list(dsg.unbind(1)), np_)
+                X = [[Zm[i][j] * 2.0 * (1.0 / (lam[i] + lam[j]))
+                      for j in range(np_)] for i in range(np_)]
+                out[:, lo:hi] = _psd_pack(_mm(_mm(R, X), _mT(R)), np_)
             elif kind == "nn":
                 out[:, lo:hi] = dsg / zg
             elif kind == "soc":
@@ -1081,6 +1186,446 @@ def _nonsym_barrier(kind, a, Z, S):
     return torch.where(dfeas, bd, BIG) + torch.where(pfeas, bp, BIG)
 
 
+# ---- PSD-triangle cones of side <= 3 (K1d; reference l.652-830,
+# 1418-1451).  A side-np matrix is an np x np list of lists of (B,)
+# tensors; svec rows follow the column-stacked upper triangle with the
+# off-diagonals times sqrt(2). ----
+
+_SR2 = math.sqrt(2.0)
+_ISR2 = 1.0 / _SR2
+# the Jacobi sweeps stop once no pair of a lane rotates (every pair is
+# orthogonal, or off-diagonal, to float64 rounding), at most this many
+# (MegaSpec.psd_sweeps; DEVIATIONS.md #12)
+JACOBI_SWEEPS = 12
+
+
+def psd_side(width):
+    """The side of a PSD segment of `width` svec rows."""
+    return {1: 1, 3: 2, 6: 3}[width]
+
+
+def _psd_unpack(rows, np_):
+    """svec rows (a list of (B,) tensors) -> symmetric matrix entries."""
+    M = [[None] * np_ for _ in range(np_)]
+    for j in range(np_):
+        for i in range(j + 1):
+            e = rows[j * (j + 1) // 2 + i]
+            if i == j:
+                M[i][j] = e
+            else:
+                M[i][j] = M[j][i] = e * _ISR2
+    return M
+
+
+def _psd_pack(M, np_):
+    """Symmetric matrix entries -> (B, t) svec."""
+    return torch.stack([M[i][j] if i == j else M[i][j] * _SR2
+                        for j in range(np_) for i in range(j + 1)], dim=1)
+
+
+def _mm(A, B_):
+    n_ = len(A)
+    out = []
+    for i in range(n_):
+        row = []
+        for j in range(n_):
+            acc = A[i][0] * B_[0][j]
+            for k in range(1, n_):
+                acc = acc + A[i][k] * B_[k][j]
+            row.append(acc)
+        out.append(row)
+    return out
+
+
+def _mT(A):
+    return [list(r) for r in zip(*A)]
+
+
+def _mat_chol(M):
+    """Lower Cholesky with clamped pivots: a pivot that is not positive
+    becomes 1 (reference mat_chol, l.683); returns (L, ok)."""
+    np_ = len(M)
+    zero = torch.zeros_like(M[0][0])
+    L = [[zero] * np_ for _ in range(np_)]
+    ok = torch.ones_like(zero, dtype=torch.bool)
+    for j in range(np_):
+        acc = M[j][j]
+        for k in range(j):
+            acc = acc - L[j][k] * L[j][k]
+        ok = ok & (acc > 0)
+        d = torch.sqrt(acc.clamp_min(0.0))
+        d = torch.where(d > 0, d, 1.0)
+        L[j][j] = d
+        idj = 1.0 / d
+        for i in range(j + 1, np_):
+            acc = M[i][j]
+            for k in range(j):
+                acc = acc - L[i][k] * L[j][k]
+            L[i][j] = acc * idj
+    return L, ok
+
+
+def _jacobi_svd(A, sweeps):
+    """One-sided (Hestenes) Jacobi SVD, A = U diag(sigma) V' (reference
+    jacobi_svd, l.707): rotations orthogonalize the column pairs of A
+    itself, so accuracy follows kappa(A), not kappa(A)^2.  A pair rotates
+    while |a_p . a_q| > eps64 sqrt(|a_p|^2 |a_q|^2); sweeps run until no
+    pair of any lane rotates, at most `sweeps`."""
+    np_ = len(A)
+    one = torch.ones_like(A[0][0])
+    if np_ == 1:
+        s0 = A[0][0].abs()
+        s0 = torch.where(s0 > 0, s0, 1.0)
+        return [s0], [[torch.where(A[0][0] >= 0, one, -one)]], [[one]]
+    Ac = [list(r) for r in A]
+    zero = torch.zeros_like(one)
+    V = [[one if i == j else zero for j in range(np_)] for i in range(np_)]
+    pairs = [(p, q) for q in range(1, np_) for p in range(q)]
+    for _ in range(sweeps):
+        rotated = torch.zeros_like(one, dtype=torch.bool)
+        for p, q in pairs:
+            al = sum(Ac[i][p] * Ac[i][p] for i in range(np_))
+            be = sum(Ac[i][q] * Ac[i][q] for i in range(np_))
+            ga = sum(Ac[i][p] * Ac[i][q] for i in range(np_))
+            live = ga.abs() > EPS64 * torch.sqrt(al * be)
+            rotated = rotated | live
+            ga_s = torch.where(live, ga, 1.0)
+            zeta = (be - al) / (ga_s * 2.0)
+            sgn = torch.where(zeta >= 0, 1.0, -1.0)
+            t = sgn / (zeta.abs() + torch.sqrt(zeta * zeta + 1.0))
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s_ = t * c
+            c = torch.where(live, c, 1.0)
+            s_ = torch.where(live, s_, 0.0)
+            for i in range(np_):
+                aip, aiq = Ac[i][p], Ac[i][q]
+                Ac[i][p] = c * aip - s_ * aiq
+                Ac[i][q] = s_ * aip + c * aiq
+                vip, viq = V[i][p], V[i][q]
+                V[i][p] = c * vip - s_ * viq
+                V[i][q] = s_ * vip + c * viq
+        if not bool(rotated.any()):
+            break
+    sig, U = [], [[None] * np_ for _ in range(np_)]
+    for j in range(np_):
+        sj = torch.sqrt(sum(Ac[i][j] * Ac[i][j] for i in range(np_)))
+        sjc = torch.where(sj > 0, sj, 1.0)
+        sig.append(sjc)
+        for i in range(np_):
+            U[i][j] = Ac[i][j] / sjc
+    return sig, U, V
+
+
+def _psd_eigvals(M, sweeps):
+    """All eigenvalues (a list, in no order) of a symmetric matrix of side
+    <= 3 (reference psd_eigvals32, l.767, in float64): side 2 in closed
+    form, side 3 by values-only cyclic Jacobi, rotating a pair while
+    |a_pq| > eps64 sqrt(|a_pp a_qq|), until no pair of any lane rotates,
+    at most `sweeps`."""
+    np_ = len(M)
+    if np_ == 1:
+        return [M[0][0]]
+    if np_ == 2:
+        a, b, d = M[0][0], M[0][1], M[1][1]
+        mid = 0.5 * (a + d)
+        rad = torch.sqrt((0.5 * (a - d)) ** 2 + b * b)
+        return [mid - rad, mid + rad]
+    A = [list(r) for r in M]
+    zero = torch.zeros_like(A[0][0])
+    for _ in range(sweeps):
+        rotated = torch.zeros_like(zero, dtype=torch.bool)
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            apq = A[p][q]
+            live = apq.abs() > EPS64 * torch.sqrt((A[p][p] * A[q][q]).abs())
+            rotated = rotated | live
+            theta = (A[q][q] - A[p][p]) / (2.0 * torch.where(live, apq, 1.0))
+            t = torch.sign(theta) / (theta.abs()
+                                     + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(theta == 0, 1.0, t)
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s_ = t * c
+            c = torch.where(live, c, 1.0)
+            s_ = torch.where(live, s_, 0.0)
+            app, aqq = A[p][p], A[q][q]
+            A[p][p] = c * c * app - 2.0 * c * s_ * apq + s_ * s_ * aqq
+            A[q][q] = s_ * s_ * app + 2.0 * c * s_ * apq + c * c * aqq
+            A[p][q] = A[q][p] = torch.where(live, zero, apq)
+            r = 3 - p - q
+            arp, arq = A[r][p], A[r][q]
+            A[r][p] = A[p][r] = c * arp - s_ * arq
+            A[r][q] = A[q][r] = s_ * arp + c * arq
+        if not bool(rotated.any()):
+            break
+    return [A[0][0], A[1][1], A[2][2]]
+
+
+def _psd_logdet(M):
+    """(logdet, ok) of a symmetric matrix through its Cholesky factor; ok
+    is False outside the positive definite cone (reference psd_logdet32,
+    l.814, in float64)."""
+    np_ = len(M)
+    val = torch.zeros_like(M[0][0])
+    ok = torch.ones_like(val, dtype=torch.bool)
+    L = [[None] * np_ for _ in range(np_)]
+    for j in range(np_):
+        acc = M[j][j]
+        for k in range(j):
+            acc = acc - L[j][k] * L[j][k]
+        ok = ok & (acc > 0)
+        dj = torch.sqrt(acc.clamp_min(0.0))
+        djs = torch.where(dj > 0, dj, 1.0)
+        val = val + 2.0 * torch.log(djs)
+        for i in range(j + 1, np_):
+            acc = M[i][j]
+            for k in range(j):
+                acc = acc - L[i][k] * L[j][k]
+            L[i][j] = acc / djs
+        L[j][j] = djs
+    return val, ok
+
+
+def _psd_scaling(sg, zg, np_, sweeps):
+    """NT scaling of one segment: clamped, non-fatal chol of S and Z, the
+    one-sided Jacobi SVD of L2'L1 = U diag(lam) V', R = L1 V lam^{-1/2},
+    Rinv = lam^{-1/2} U' L2' (reference l.1418-1451).  Returns the state
+    and whether R and Rinv are finite."""
+    L1, _ = _mat_chol(_psd_unpack(list(sg.unbind(1)), np_))
+    L2, _ = _mat_chol(_psd_unpack(list(zg.unbind(1)), np_))
+    lam, U, V = _jacobi_svd(_mm(_mT(L2), L1), sweeps)
+    lis = [1.0 / torch.sqrt(l) for l in lam]
+    L1V = _mm(L1, V)
+    R = [[L1V[i][j] * lis[j] for j in range(np_)] for i in range(np_)]
+    UtL2t = _mm(_mT(U), _mT(L2))
+    Rinv = [[UtL2t[i][j] * lis[i] for j in range(np_)] for i in range(np_)]
+    fin = _all_finite([e for row in R + Rinv for e in row])
+    return {"R": R, "Rinv": Rinv, "lam": lam, "np": np_}, fin
+
+
+def _psd_step_comp(dg, Rx, lam, transpose, sweeps):
+    """The largest step along one direction of a PSD segment: from the
+    least eigenvalue of lam^{-1/2} (W d) lam^{-1/2} (reference
+    l.2104-2150, in float64)."""
+    np_ = len(Rx)
+    li = [1.0 / torch.sqrt(l.clamp_min(_TINY)) for l in lam]
+    D = _psd_unpack(list(dg.unbind(1)), np_)
+    Mt = (_mm(_mm(Rx, D), _mT(Rx)) if transpose
+          else _mm(_mm(_mT(Rx), D), Rx))
+    Ms = [[0.5 * (Mt[i][j] + Mt[j][i]) * li[i] * li[j] for j in range(np_)]
+          for i in range(np_)]
+    eigs = _psd_eigvals(Ms, sweeps)
+    gmin = eigs[0]
+    for e in eigs[1:]:
+        gmin = torch.minimum(gmin, e)
+    return torch.where(gmin < 0, 1.0 / torch.clamp_min(-gmin, 1e-30), BIG)
+
+
+# ---- generalized power cones (K1c; reference l.1103-1239, 2326-2431).
+# A segment's values are lists of (B,) tensors; al is the tuple of its
+# exponents, d1 = len(al). ----
+
+def _gp_phi_dual(U, al):
+    acc = None
+    for u, a in zip(U, al):
+        t = _nslog(u / a) * (2.0 * a)
+        acc = t if acc is None else acc + t
+    return torch.exp(acc)
+
+
+def _gp_feas_dual(U, V, al):
+    ok = torch.ones_like(U[0], dtype=torch.bool)
+    for u in U:
+        ok = ok & (u > 0)
+    res = _gp_phi_dual(U, al)
+    for v in V:
+        res = res - v * v
+    return ok & (res > 0)
+
+
+def _gp_feas_primal(S1, S2, al):
+    ok = torch.ones_like(S1[0], dtype=torch.bool)
+    acc = None
+    for s1, a in zip(S1, al):
+        ok = ok & (s1 > 0)
+        t = _nslog(s1) * (2.0 * a)
+        acc = t if acc is None else acc + t
+    res = torch.exp(acc)
+    for s2 in S2:
+        res = res - s2 * s2
+    return ok & (res > 0)
+
+
+def _gp_state(U, V, al, mu):
+    """Dual gradient and the rank-3 Hs data (D, p, q, r) with ok: the
+    dual point is feasible and the data finite (reference genpow_state,
+    l.1130; coneops_genpowcone.jl:337-389)."""
+    d1 = len(al)
+    phi = _gp_phi_dual(U, al)
+    norm2w = torch.zeros_like(phi)
+    for v in V:
+        norm2w = norm2w + v * v
+    zeta = phi - norm2w
+    feas = zeta > 0
+    for u in U:
+        feas = feas & (u > 0)
+    zs = torch.where(zeta > 0, zeta, 1.0)
+    izeta = 1.0 / zs
+    phiz = phi * izeta
+    tau = [(1.0 / U[j]) * (2.0 * al[j]) for j in range(d1)]
+    g = ([-tau[j] * phiz - (1.0 - al[j]) / U[j] for j in range(d1)]
+         + [v * (izeta * 2.0) for v in V])
+    dd = ([tau[j] * phiz / U[j] + (1.0 - al[j]) / (U[j] * U[j])
+           for j in range(d1)] + [izeta * 2.0 for _ in V])
+    p0 = torch.sqrt((phi * (phi + norm2w) * 0.5).clamp_min(0.0))
+    p0s = torch.where(p0 > 0, p0, 1.0)
+    p1 = -(phi * 2.0) / p0s
+    p = [p0 * tau[j] * izeta for j in range(d1)] + [p1 * v * izeta
+                                                    for v in V]
+    q0 = torch.sqrt((zs * phi * 0.5).clamp_min(0.0))
+    q = [tau[j] * q0 * izeta for j in range(d1)]
+    r1 = torch.sqrt(((zs / (phi + norm2w)) * 4.0).clamp_min(0.0))
+    r = [r1 * v * izeta for v in V]
+    fin = _all_finite(g + dd + p + q + r)
+    return {"g": g, "dd": dd, "p": p, "q": q, "r": r, "mu": mu,
+            "d1": d1}, feas & fin
+
+
+def _gp_hs_apply(stg, v):
+    """mu (D v + p (p'v) - [q (q'v_head); 0] - [0; r (r'v_tail)])."""
+    d1, dd, p, q, r = stg["d1"], stg["dd"], stg["p"], stg["q"], stg["r"]
+    w = len(dd)
+    cp = sum(p[j] * v[j] for j in range(w))
+    cq = sum(q[j] * v[j] for j in range(d1))
+    cr = sum(r[k] * v[d1 + k] for k in range(w - d1)) if w > d1 else None
+    out = []
+    for j in range(w):
+        y = dd[j] * v[j] + p[j] * cp
+        if j < d1:
+            y = y - q[j] * cq
+        else:
+            y = y - r[j - d1] * cr
+        out.append(y * stg["mu"])
+    return out
+
+
+def _gp_hinv_apply(stg, v):
+    """(mu H)^{-1} v by three Sherman-Morrison rank-1 updates on the
+    diagonal base (reference genpow_hinv_apply, l.1199): y0 = v / D,
+    y_k = y_{k-1} - A_k u_k (u_k' y_{k-1}) sgn_k / (1 + sgn_k u_k' A_k u_k)
+    with A_k u_k the (k-1)-th inverse applied to u_k."""
+    d1, dd = stg["d1"], stg["dd"]
+    w = len(dd)
+    zero = torch.zeros_like(dd[0])
+    idd = [1.0 / d for d in dd]
+    us = ((stg["p"], 1.0), (stg["q"] + [zero] * (w - d1), -1.0),
+          ([zero] * d1 + stg["r"], -1.0))
+    updates = []
+
+    def inv(x):
+        y = [x[j] * idd[j] for j in range(w)]
+        for u, Au, idn, sgn in updates:
+            coef = sum(u[j] * y[j] for j in range(w)) * idn * sgn
+            y = [y[j] - Au[j] * coef for j in range(w)]
+        return y
+
+    for u, sgn in us:
+        Au = inv(u)
+        denom = sum(u[j] * Au[j] for j in range(w)) * sgn + 1.0
+        denom = torch.where(denom != 0, denom, 1.0)
+        updates.append((u, Au, 1.0 / denom, sgn))
+    imu = 1.0 / stg["mu"]
+    return [y * imu for y in inv(v)]
+
+
+def _gp_hs_diag(stg):
+    d1 = stg["d1"]
+    out = []
+    for j in range(len(stg["dd"])):
+        t = stg["dd"][j] + stg["p"][j] * stg["p"][j]
+        u = stg["q"][j] if j < d1 else stg["r"][j - d1]
+        out.append((t - u * u) * stg["mu"])
+    return out
+
+
+def _gp_barrier(al, Z, S):
+    """f*(z) + f(s) of one segment, BIG where infeasible (reference
+    _genpow_barrier32, l.2326, in float64): the primal barrier through a
+    one-sided Newton gradient (at most NR_TRIPS steps) and the dual
+    barrier of -g."""
+    d1 = len(al)
+    z1, z2 = Z[:d1], Z[d1:]
+    s1, s2 = S[:d1], S[d1:]
+    zero = torch.zeros_like(Z[0])
+    resd = _gp_phi_dual(z1, al) - sum((v * v for v in z2), zero)
+    bd = -_nslog(resd)
+    dfeas = resd > 0
+    for zj, a in zip(z1, al):
+        bd = bd - (1.0 - a) * _nslog(zj)
+        dfeas = dfeas & (zj > 0)
+
+    lphi = sum((2.0 * a * _nslog(sj) for sj, a in zip(s1, al)), zero)
+    phi = torch.exp(lphi)
+    n2r = sum((v * v for v in s2), zero)
+    norm_r = torch.sqrt(n2r.clamp_min(0.0))
+    big = norm_r > EPS64
+    nr = torch.where(big, norm_r, 1.0)
+    psi_c = 1.0 / sum(a * a for a in al)
+    den0 = torch.where((phi - nr * nr).abs() > 0, phi - nr * nr, 1.0)
+    x = -1.0 / nr + (psi_c * nr + torch.sqrt(
+        ((phi / (nr * nr) + psi_c * psi_c - 1.0) * phi).clamp_min(0.0))
+    ) / den0
+
+    def f0(x):
+        v = -_nslog(2.0 * x / nr + x * x)
+        for sj, a in zip(s1, al):
+            v = v + 2.0 * a * (_nslog(x * nr + (1.0 + a) / a) - _nslog(sj))
+        return v
+
+    def f1(x):
+        t1, t2 = x * x, 2.0 * x / nr
+        v = -(2.0 * x + 2.0 / nr) / torch.where(t1 + t2 != 0, t1 + t2, 1.0)
+        for a in al:
+            v = v + 2.0 * a * nr / (nr * x + (1.0 + a) / a)
+        return v
+
+    done = torch.zeros_like(big)
+    for _ in range(NR_TRIPS):
+        if bool(done.all()):
+            break
+        d1_ = f1(x)
+        dx = -f0(x) / torch.where(d1_ != 0, d1_, 1.0)
+        stop = ((dx < EPS64)
+                | ((dx / torch.where(x != 0, x, 1.0)).abs()
+                   < math.sqrt(EPS64))
+                | (d1_.abs() < EPS64))
+        x = torch.where(done | stop, x, x + dx)
+        done = done | stop
+    gr = [torch.where(big, x * v / nr, 0.0) for v in s2]
+    gp = [torch.where(big, -(1.0 + a + a * x * norm_r) / sj,
+                      -(1.0 + a) / sj) for sj, a in zip(s1, al)]
+    # the primal barrier is -f*(-g) - (d1 + 1)
+    bdg = -_nslog(_gp_phi_dual([-g for g in gp], al)
+                  - sum((v * v for v in gr), zero))
+    for g, a in zip(gp, al):
+        bdg = bdg - (1.0 - a) * _nslog(-g)
+    bp = -bdg - (d1 + 1.0)
+    pfeas = phi - n2r > 0
+    for sj in s1:
+        pfeas = pfeas & (sj > 0)
+    return torch.where(dfeas, bd, BIG) + torch.where(pfeas, bp, BIG)
+
+
+def _psd_hinv(stg, vg):
+    """Hs^{-1} v = svec(Rinv' (Rinv X Rinv') Rinv) of one segment."""
+    np_, Ri = stg["np"], stg["Rinv"]
+    X = _psd_unpack(list(vg.unbind(1)), np_)
+    T1 = _mm(_mm(Ri, X), _mT(Ri))
+    return _psd_pack(_mm(_mm(_mT(Ri), T1), Ri), np_)
+
+
+def _gp_hinv(stg, vg):
+    return torch.stack(_gp_hinv_apply(stg, list(vg.unbind(1))), dim=1)
+
+
 def _check_convergence(info, bz, qx, tols):
     (tga, tgr, tfe, tia, tir, tkt, s_st, p_st, d_st) = tols
     is_solved = (((info["gap_abs"] < tga) | (info["gap_rel"] < tgr))
@@ -1164,7 +1709,10 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
     sigma_f = torch.ones_like(tau)
     iters = torch.zeros_like(tau, dtype=torch.int32)
     status = torch.full_like(iters, UNSOLVED)
-    strat = torch.full_like(iters, PRIMAL_DUAL)
+    # a generalized power cone pins every lane to Dual (reference
+    # l.560-568: allows_pd)
+    strat = torch.full_like(iters, DUAL if spec.has("genpow")
+                            else PRIMAL_DUAL)
     full_tols, reduced_tols = tolerances(st)
     inv_deg1 = 1.0 / (spec.degree + 1)
     sr = st.stall_detection_ratio
@@ -1296,9 +1844,16 @@ def unit_point(spec, B, device):
     """The unit initialization of every cone, (B, m) (reference
     l.3096-3137)."""
     z = torch.zeros((B, spec.m), dtype=F64, device=device)
-    for (kind, lo, hi), a in zip(spec.segs, spec.alphas):
+    for (kind, lo, hi), a, gal in zip(spec.segs, spec.alphas,
+                                      spec.gp_alphas):
         if kind == "nn":
             z[:, lo:hi] = 1.0
+        elif kind == "psd":
+            for j in range(psd_side(hi - lo)):
+                z[:, lo + j * (j + 1) // 2 + j] = 1.0
+        elif kind == "genpow":
+            for j, al in enumerate(gal):
+                z[:, lo + j] = math.sqrt(1.0 + al)
         elif kind == "soc":
             z[:, lo] = 1.0
         elif kind == "exp":
@@ -1314,8 +1869,8 @@ def unit_point(spec, B, device):
 def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, live):
     """One Mehrotra predictor-corrector step (reference pc_step,
     l.2839-2977).  alpha is already scaled by max_step_fraction and, on
-    the Dual lanes of a layout with exp/pow segments, backtracked to a
-    barrier below 1.  `live` marks the lanes whose step is used."""
+    the Dual lanes of a layout with nonsymmetric segments, backtracked to
+    a barrier below 1.  `live` marks the lanes whose step is used."""
     st = ops.st
     qe, be = ops.qe, ops.be
     state, ok_scale = ops.make_scaling(s, z, mu, strat, live)
@@ -1356,8 +1911,8 @@ def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, live):
 
     dxa, dza, dsa, dtaua, dkappaa = tau_recovery(x1a, z1a, s, res["rtau"],
                                                  tau * kappa)
-    alpha_aff = ops.step_length(dza, dsa, z, s, max_step(dtaua, dkappaa),
-                                live)
+    alpha_aff = ops.step_length(state, dza, dsa, z, s,
+                                max_step(dtaua, dkappaa), live)
     sigma = (1.0 - alpha_aff) ** 3
     m_corr = torch.where(iters1 > 1, 1.0, alpha_aff)
     sigma_mu = sigma * mu
@@ -1376,7 +1931,8 @@ def _pc_step(ops, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, live):
     dx, dz, dsv, dtau, dkappa = tau_recovery(x1c, z1c, ds_const, comb_tau,
                                              comb_kappa)
     kkt_fail = ~(ok_kkt & ok3)
-    alpha = ops.step_length(dz, dsv, z, s, max_step(dtau, dkappa), live)
+    alpha = ops.step_length(state, dz, dsv, z, s, max_step(dtau, dkappa),
+                            live)
     alpha = alpha * st.max_step_fraction
     if ops.nonsym:
         on_dual = strat == DUAL

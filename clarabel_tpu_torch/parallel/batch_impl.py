@@ -95,16 +95,8 @@ def _symmetrize_triu(P):
     return U + np.swapaxes(U, -1, -2) + diag[..., None, :] * eye
 
 
-def _slice_check(layout: ConeLayout, mesh, rescue) -> None:
+def _slice_check(mesh, rescue) -> None:
     """Raise NotImplementedError for whatever this slice does not port."""
-    names = {type(c).__name__ for c in layout.cones}
-    if "GenPowerConeT" in names:
-        raise NotImplementedError(
-            "generalized power cones: ROADMAP.md Queue 1 item 8b "
-            "(generalized power cones, kernel K1c)")
-    if "PSDTriangleConeT" in names:
-        raise NotImplementedError(
-            "PSD cones: ROADMAP.md Queue 1 item 9 (PSD cones, kernel K1d)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: ROADMAP.md Queue 1 item 13 (multi-device)")
@@ -152,7 +144,7 @@ class BatchSolver:
         self.layout = ConeLayout(self.cones)
         self.n = int(n)
         self.m = self.layout.m
-        _slice_check(self.layout, mesh, rescue)
+        _slice_check(mesh, rescue)
         self.device = resolve_device(device)
 
         backend = resolve_backend(self.layout, self.settings, self.n,

@@ -53,9 +53,31 @@ def test_empty_batch_raises_value_error():
 @pytest.mark.parametrize("cone", [
     ctt.GenPowerConeT((0.2, 0.3, 0.5), 2), ctt.PSDTriangleConeT(3),
     ctt.GenPowerConeT((0.4, 0.6), 1), ctt.PSDTriangleConeT(2)])
-def test_cones_outside_the_slice_raise(cone):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _solver([ctt.NonnegativeConeT(2), cone], 2)
+def test_cones_now_in_the_slice_solve(cone):
+    """Generalized power and PSD cones beside a nonnegative cone: x within
+    [-1, 1] (the nn rows) and a point of the cone at distance at most 0.1
+    of a center, on the megakernel's plain version and on the loop."""
+    from clarabel_tpu_torch.cones.api import nvars
+    k = nvars(cone)
+    rng = np.random.default_rng(k)
+    B, n = 8, k
+    if isinstance(cone, ctt.PSDTriangleConeT):
+        center = bench_data._svec(np.eye(cone.dim))
+    else:
+        center = np.concatenate([np.ones(len(cone.alpha)),
+                                 np.zeros(cone.dim2)])
+    P = np.broadcast_to(np.eye(n), (B, n, n)).copy()
+    q = rng.standard_normal((B, n))
+    A = np.concatenate([np.broadcast_to(np.eye(n), (B, n, n)),
+                        -np.broadcast_to(np.eye(n), (B, n, n)),
+                        -np.broadcast_to(np.eye(k), (B, k, k)) * 10.0], 1)
+    b = np.concatenate([np.ones((B, 2 * n)),
+                        np.broadcast_to(10.0 * center, (B, k))], 1)
+    cones = [ctt.NonnegativeConeT(2 * n), cone]
+    for st in (MEGA, ctt.Settings(kkt_backend="condensed")):
+        sol = _solver(cones, n, st).solve(P, q, A, b)
+        assert sol.all_solved, sol.status
+        assert np.isfinite(sol.x).all()
 
 
 @pytest.mark.parametrize("change", [
@@ -296,7 +318,7 @@ def test_outputs_stay_lazy_until_read():
 
 def test_kernel_source_and_params_cover_the_spec():
     spec = _solver([ctt.ZeroConeT(1)] + CONES)._mega_fn.spec
-    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3, 0)
+    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3, 0, 0, 0)
     prm = _cuda._params(spec)
     assert list(prm.seg_kind) == [0, 1, 2]
     assert list(prm.seg_hi) == [1, 1 + N, 2 + 2 * N]
@@ -342,7 +364,7 @@ def test_nonsym_kernel_matches_plain_version_on_the_card():
                        (ctt.PowerConeT(0.6), bench_data.make_pow_batch)):
         bs = ctt.BatchSolver([ctt.NonnegativeConeT(2), cone], 3)
         spec = bs._mega_fn.spec
-        assert _cuda.shape_of(spec) == (3, 5, 2, 1)
+        assert _cuda.shape_of(spec) == (3, 5, 2, 1, 0, 0)
         _, flats = megakernel.prepare(*make(256), spec, "cuda")
         before = _cuda.megakernel.launches
         kv, ki = _cuda.megakernel(*flats, spec, 256)
@@ -357,6 +379,44 @@ def test_nonsym_kernel_matches_plain_version_on_the_card():
                               atol=1e-4)
         assert torch.allclose(kv[obj][both], pv[obj][both], rtol=0,
                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["psd3", "psd2", "psd_zero", "genpow"])
+def test_psd_and_genpow_kernels_match_plain_version_on_the_card(name):
+    """K1d on the SDP batches, K1c on the genpow batch: the kernel against
+    its plain version on the card, and BatchSolver.solve launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    psd2 = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(2)]
+    cones, n, data = {
+        "psd3": ([ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)], 3,
+                 bench_data.make_sdp_batch(256, 3, 13)),
+        "psd2": (psd2, 3, bench_data.make_sdp_batch(256, 2, 12)),
+        "psd_zero": ([ctt.ZeroConeT(1), ctt.NonnegativeConeT(5),
+                      ctt.PSDTriangleConeT(2)], 3,
+                     bench_data.make_sdp_zero_batch(256)),
+        "genpow": ([ctt.NonnegativeConeT(2),
+                    ctt.GenPowerConeT((0.3, 0.7), 2)], 4,
+                   bench_data.make_genpow_batch(256)),
+    }[name]
+    bs = ctt.BatchSolver(cones, n)
+    spec = bs._mega_fn.spec
+    _, flats = megakernel.prepare(*data, spec, "cuda")
+    kv, ki = _cuda.megakernel(*flats, spec, 256)
+    torch.cuda.synchronize()
+    pv, pi = megakernel_ref.mega_solve_plain(*flats, spec, 256)
+    assert (ki[0] == SOLVED).sum() >= (pi[0] == SOLVED).sum() - 1
+    both = (ki[0] == SOLVED) & (pi[0] == SOLVED)
+    obj = n + 2 * spec.m
+    # x to 1e-4 (flat optima, as K1b), the objective to 1e-6
+    assert torch.allclose(kv[:n][:, both], pv[:n][:, both], rtol=0,
+                          atol=1e-4)
+    assert torch.allclose(kv[obj][both], pv[obj][both], rtol=0, atol=1e-6)
+    assert (ki[2] == pi[2]).all()
+    before = _cuda.megakernel.launches
+    assert bs.solve(*data).status.tolist() == ki[0].tolist()
+    assert _cuda.megakernel.launches == before + 1
 
 
 @pytest.mark.gpu

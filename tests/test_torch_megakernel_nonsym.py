@@ -104,14 +104,30 @@ def test_batch_solver_now_solves_exp_and_pow(cones, backend):
     assert np.isfinite(sol.x).all()
 
 
-@pytest.mark.parametrize("cone,item", [
-    (ctt.GenPowerConeT((0.4, 0.6), 1), "item 8b"),
-    (ctt.PSDTriangleConeT(2), "item 9")], ids=["genpow", "psd"])
-def test_genpow_and_psd_still_raise(cone, item):
-    for st in (MEGA, ctt.Settings()):
-        with pytest.raises(NotImplementedError, match=item):
-            ctt.BatchSolver([ctt.NonnegativeConeT(2), cone], 3, st,
-                            device="cpu")
+@pytest.mark.parametrize("cone", [
+    ctt.GenPowerConeT((0.4, 0.6), 1), ctt.PSDTriangleConeT(2)],
+    ids=["genpow", "psd"])
+def test_genpow_and_psd_now_solve(cone):
+    """Beside an exponential cone: the megakernel's plain version (the
+    nonsymmetric unit start with a PSD or genpow segment) and the loop
+    agree."""
+    P, q, A, b, _, n = _exp_batch(8)
+    w = 3
+    rng = np.random.default_rng(w)
+    # the extra cone's rows: a point within 0.1 of its center, times 10
+    center = (np.array([1.0, 0.0, 1.0]) if isinstance(cone, ctt.PSDTriangleConeT)
+              else np.array([1.0, 1.0, 0.0]))
+    A = np.concatenate([A, -10.0 * np.broadcast_to(np.eye(w), (8, w, w))
+                        + 0.1 * rng.standard_normal((8, w, n))], 1)
+    b = np.concatenate([b, np.broadcast_to(10.0 * center, (8, w))], 1)
+    cones = EXP + [cone]
+    sols = [ctt.BatchSolver(cones, n, st, device="cpu").solve(P, q, A, b)
+            for st in (MEGA, ctt.Settings(kkt_backend="condensed"))]
+    for sol in sols:
+        assert (sol.status == SOLVED).sum() >= 7, sol.status
+    both = (sols[0].status == SOLVED) & (sols[1].status == SOLVED)
+    np.testing.assert_allclose(sols[0].obj_val[both], sols[1].obj_val[both],
+                               rtol=0, atol=1e-6)
 
 
 def test_exp_rescue_closes_marginal_lanes():

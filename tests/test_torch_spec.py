@@ -113,6 +113,28 @@ def test_from_reference_carries_settings_and_cones():
                for c in cones)
 
 
+@pytest.mark.parametrize("case", ["psd2", "genpow"])
+def test_from_reference_solves_psd_and_genpow_layouts(case):
+    """The reference's settings dict and cone tuples of a PSD and of a
+    generalized power layout carry across, and the port's solve is the
+    JAX package's (its loop solve, committed in
+    tests/torch_fixtures/loop_psd_genpow.npz): same statuses, objectives
+    within 1e-6 (1 + |obj|)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_fixtures"))
+    import make_psd_genpow_fixtures as fx
+
+    cones, n, P, q, A, b = fx.case_inputs(case, fx.LOOP_B)
+    ref_st = ct.Settings(kkt_backend="condensed")
+    specs = [cone_to_tuple(c) for c in _ref_cones(cones)]
+    st, port_cones = from_reference(dataclasses.asdict(ref_st), specs)
+    out = ctt.BatchSolver(port_cones, n, st, device="cpu").solve(P, q, A, b)
+    f = np.load(os.path.join(ROOT, "tests", "torch_fixtures",
+                             "loop_psd_genpow.npz"))
+    np.testing.assert_array_equal(out.status, f[f"{case}_condensed_status"])
+    want = f[f"{case}_condensed_obj_val"]
+    assert (np.abs(out.obj_val - want) < 1e-6 * (1 + np.abs(want))).all()
+
+
 def test_infinity_and_version():
     assert ctt.get_infinity() == 1e20
     ctt.set_infinity(1e10)
@@ -138,6 +160,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     mods = _port_modules()
     assert "clarabel_tpu_torch.linalg.batched_ldl" in mods
     assert "clarabel_tpu_torch.ipm.loop" in mods
+    assert "clarabel_tpu_torch.cones.psd" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
