@@ -4,8 +4,9 @@
 Builds the CUDA kernels from the sources beside this script, in parallel:
 the batched IPM megakernel (clarabel_tpu_torch/csrc/megakernel.cu) as K1a
 (zero/nn/SOC layouts), as K1b (exponential and power cones), as K1d (PSD
-cones of side at most 3) and as K1c (generalized power cones), and the
-float32 LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
+cones of side at most 3), as K1c (generalized power cones) and as K1e
+(its float32 first phase, on the bench and psd3 shapes), and the float32
+LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
 Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
 
@@ -31,7 +32,14 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   side-3 batch at B = 4096, 65536 and 131072, the condensed loop on the
   card and the rescue behind the megakernel;
 * [10] K1c: the same on the generalized-power-cone batch, every lane on the
-  Dual strategy.
+  Dual strategy;
+* [11] K1e: the megakernel with its float32 first phase
+  (`Settings.megakernel_two_phase`) against its plain version on the
+  bench, infeasible, lp and psd3 batches, wrong kernels its bars must
+  reject, `BatchSolver.solve` with the first phase on bench and psd3 at
+  B = 4096, 65536 and 131072, the single and the two phases side by side
+  at 1e-8 and 1e-5 tolerances, the rescue behind it, and the zero-cone and
+  exponential layouts, where two-phase changes nothing.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -164,6 +172,33 @@ WRONG_GENPOW = {
     "step fraction 0.95": {"max_step_fraction": 0.95},
     "gap tolerances 1e-7": {"tol_gap_abs": 1e-7, "tol_gap_rel": 1e-7},
 }
+
+# [11] K1e, the float32 first phase (`Settings.megakernel_two_phase`), on
+# the bench, infeasible, lp and psd3 batches at B = 4096.  The first phase
+# rounds to float32 and nvcc contracts its a*b+c to FMA where PyTorch does
+# not, so what rounding alone moves is read with q moved by 1e-7
+# (relative), not 1e-15.  Bars as BARS, plus the phase-1 iterations per
+# lane: equal on a share p1_equal of the lanes and within p1_max on all.
+# Set between the kernel's and the plain version's readings under that
+# jitter and the wrong kernels' (PERF.md).  Wrong kernels: no first phase
+# (switch_mu 1e30: every lane hands off at once), a first phase to its cap
+# or its stall (switch_mu 1e-9), no refinement in either phase.
+TWO_PHASE_B = 4096
+TWO_PHASE_THROUGHPUT = (4096, 65536, 131072)
+TWO_PHASE_BARS = {
+    "bench": dict(x=1e-4, within1=0.99, it_max=4, p1_equal=0.99, p1_max=1),
+    "infeasible": dict(x=1e-4, within1=0.99, it_max=5, p1_equal=0.99,
+                       p1_max=1),
+    "lp": dict(x=3e-4, within1=0.95, it_max=15, p1_equal=0.99, p1_max=2),
+    "psd3": dict(x=5e-5, within1=0.99, it_max=4, p1_equal=0.99, p1_max=1,
+                 kkt=5e-7),
+}
+WRONG_TWO_PHASE = {
+    "no first phase": {"megakernel_switch_mu": 1e30},
+    "first phase to its cap": {"megakernel_switch_mu": 1e-9},
+    "no refinement": {"iterative_refinement_enable": False},
+}
+RELAXED = {"tol_gap_abs": 1e-5, "tol_gap_rel": 1e-5, "tol_feas": 1e-5}
 
 
 def fail(msg):
@@ -548,6 +583,305 @@ def rescue_phase(card, failures):
             failures.append(f"[7] lp B={B}: true KKT {kkt:.3e}")
 
 
+def two_phase_phase(card, failures, big, psd_big, qp_data, exp_data):
+    """[11] K1e: the two-phase megakernel against its plain version on
+    four batches at TWO_PHASE_B, with the wrong kernels; BatchSolver.solve
+    with megakernel_two_phase=True on bench and psd3 at every B of
+    TWO_PHASE_THROUGHPUT (the main path of K1e, whose launches it counts);
+    the single and the two phases side by side at 1e-8 and 1e-5
+    tolerances; the rescue behind the two-phase kernel; and the layouts
+    where two-phase is a no-op (qp_eq, exp).  `big` and `psd_big` are the
+    bench and psd3 batches at the largest B.  Returns the kernels-line
+    numbers of K1e."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+    from clarabel_tpu_torch.ipm import _cuda, megakernel, megakernel_ref
+
+    SOLVED = 1
+    dev = torch.device("cuda")
+    two = ctt.Settings(megakernel_two_phase=True)
+    nn_soc = [ctt.NonnegativeConeT(BENCH_N),
+              ctt.SecondOrderConeT(BENCH_N + 1)]
+    psd3 = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)]
+    B0 = TWO_PHASE_B
+    cases = {
+        "bench": (nn_soc, BENCH_N, True, tuple(a[:B0] for a in big)),
+        "infeasible": (nn_soc, BENCH_N, True,
+                       bench_data.make_infeasible_batch(B0, BENCH_N, 2)),
+        "lp": (nn_soc, BENCH_N, False,
+               bench_data.make_lp_batch(B0, BENCH_N, 3)),
+        "psd3": (psd3, 3, True, tuple(a[:B0] for a in psd_big)),
+    }
+
+    def p1_readings(k, p):
+        d = np.abs(k["p1_iterations"] - p["p1_iterations"])
+        return dict(p1_equal=float((d == 0).mean()), p1_max=int(d.max()),
+                    p1_mean=float(k["p1_iterations"].mean()))
+
+    def p1_violations(r, bars):
+        return (["phase-1 iterations"] if r["p1_equal"] < bars["p1_equal"]
+                or r["p1_max"] > bars["p1_max"] else [])
+
+    def p1_describe(r):
+        return (f"phase-1 iters equal on {r['p1_equal']:.4f}, max diff "
+                f"{r['p1_max']}, mean {r['p1_mean']:.3f}")
+
+    res = {}
+    for name, (cones, n, pn, data) in cases.items():
+        P, q, A, b = data
+        if P is None:
+            P = np.zeros((q.shape[0], n, n))
+        solver = ctt.BatchSolver(cones, n, two, p_nonzero=pn)
+        spec = solver._mega_fn.spec
+        bars = TWO_PHASE_BARS[name]
+        B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        k_ms, (kv, ki) = events_ms(
+            lambda: _cuda.megakernel(*flats, spec, B), 3)
+        p_ms, (pv, pi) = events_ms(
+            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
+        k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
+        qj = q * (1 + 1e-7 * np.random.default_rng(7).standard_normal(
+            q.shape))
+        _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
+        pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
+                     spec)
+        tag = f"[11] {name} B={B}"
+        r = dict(readings(k, p, P, q, A, b), **p1_readings(k, p))
+        rj = dict(readings(pj, p, P, qj, A, b), **p1_readings(pj, p))
+        print(f"{tag}: two-phase kernel {k_ms:.3f} ms, plain {p_ms:.1f} "
+              f"ms; statuses kernel "
+              f"{np.bincount(k['status'], minlength=11).tolist()}, plain "
+              f"{np.bincount(p['status'], minlength=11).tolist()}; mean "
+              f"iters {k['iterations'].mean():.3f}; card {card}",
+              flush=True)
+        print(f"{tag}: kernel vs plain: {describe(r)}; {p1_describe(r)}",
+              flush=True)
+        print(f"{tag}: plain(q*(1+1e-7*xi)) vs plain: {describe(rj)}; "
+              f"{p1_describe(rj)}", flush=True)
+        print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
+              f"{bars['within1']} and within {bars['it_max']} on all, "
+              f"phase-1 iters equal on {bars['p1_equal']} and within "
+              f"{bars['p1_max']} on all, objective {OBJ_TOL:.0e}, true KKT "
+              f"{bars.get('kkt', KKT_TOL):.0e}, |s'z| {SZ_TOL:.0e}, SOLVED "
+              f"at least plain less 0.1 % of B", flush=True)
+        for v in violations(r, bars, B) + p1_violations(r, bars):
+            failures.append(f"{tag}: the kernel fails the {v} bar")
+        if not all(np.isfinite(k[f]).all() for f in ("x", "z", "s")):
+            failures.append(f"{tag}: non-finite x/z/s from the kernel")
+        if name != "infeasible" and not (k["p1_iterations"] > 0).all():
+            failures.append(f"{tag}: lanes without a float32 step")
+        if name == "infeasible":
+            lanes = bench_data.infeasible_lanes(B)
+            if not np.isin(k["status"][lanes], [2, 5]).all():
+                failures.append(f"{tag}: infeasible lanes not detected")
+        for wname, change in WRONG_TWO_PHASE.items():
+            wspec = megakernel.make_spec(solver.layout, two.replace(**change),
+                                         n, pn)
+            w = outputs(*_cuda.megakernel(*flats, wspec, B), spec)
+            rw = dict(readings(w, p, P, q, A, b), **p1_readings(w, p))
+            rejected = violations(rw, bars, B) + p1_violations(rw, bars)
+            print(f"{tag}: wrong kernel ({wname}) vs plain: {describe(rw)}; "
+                  f"{p1_describe(rw)}; rejected by: "
+                  f"{', '.join(rejected) or 'none'}", flush=True)
+            if not rejected:
+                failures.append(f"{tag}: the bars pass the wrong kernel "
+                                f"({wname})")
+        res[name] = dict(ms=k_ms, plain_ms=p_ms, spec=spec, B=B,
+                         max_abs_err=max(r["dx"], r["dobj"]),
+                         iters=k["iterations"], p1=k["p1_iterations"],
+                         in_bytes=sum(t.numel() * 8 for t in flats))
+        del flats, flats_j
+
+    # the main path: BatchSolver.solve with the first phase on
+    batches = {"bench": (nn_soc, BENCH_N, big), "psd3": (psd3, 3, psd_big)}
+    walls, outs = {}, {}
+
+    def best_wall(solver, data):
+        solver.solve(*data)                # warm-up
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = solver.solve(*data)
+            wall = time.perf_counter() - t0
+            best = wall if best is None else min(best, wall)
+        return best, out
+
+    torch.cuda.synchronize()
+    _cuda.megakernel.launches = 0           # K1e's main path starts here
+    _cuda.megakernel.two_phase_launches = 0
+    for name, (cones, n, data) in batches.items():
+        solver = ctt.BatchSolver(cones, n, two)
+        for B in TWO_PHASE_THROUGHPUT:
+            walls[name, B, 1e-8, True], outs[name, B, 1e-8, True] = \
+                best_wall(solver, tuple(a[:B] for a in data))
+    launches = _cuda.megakernel.two_phase_launches    # ... and ends here
+    print(f"[11] K1e launches on the two-phase path: {launches} (all "
+          f"megakernel launches: {_cuda.megakernel.launches})", flush=True)
+    if launches <= 0:
+        failures.append("[11] BatchSolver.solve did not launch K1e")
+
+    # the single and the two phases side by side, at 1e-8 and 1e-5
+    for name, (cones, n, data) in batches.items():
+        for tol in (1e-8, 1e-5):
+            for tp in (False, True):
+                st = ctt.Settings(megakernel_two_phase=tp,
+                                  **(RELAXED if tol == 1e-5 else {}))
+                solver = ctt.BatchSolver(cones, n, st)
+                spec = solver._mega_fn.spec
+                for B in (min(TWO_PHASE_THROUGHPUT),
+                          max(TWO_PHASE_THROUGHPUT)):
+                    sub = tuple(a[:B] for a in data)
+                    _, flats = megakernel.prepare(*sub, spec, dev)
+                    k_ms, (kv, ki) = events_ms(
+                        lambda: _cuda.megakernel(*flats, spec, B), 3)
+                    del flats
+                    if (name, B, tol, tp) not in walls:
+                        walls[name, B, tol, tp], outs[name, B, tol, tp] = \
+                            best_wall(solver, sub)
+                    wall, out = walls[name, B, tol, tp], outs[name, B, tol,
+                                                             tp]
+                    counts = np.bincount(out.status, minlength=11).tolist()
+                    p1 = ki[3].cpu().numpy()
+                    print(f"[11] {name} B={B} tol={tol:.0e} two_phase="
+                          f"{tp}: kernel {k_ms:.3f} ms; "
+                          f"{counts[SOLVED] / (k_ms / 1e3):,.0f} certified "
+                          f"solves/s kernel-only, "
+                          f"{counts[SOLVED] / wall:,.0f} wall (best of 3: "
+                          f"{wall * 1e3:.2f} ms); SOLVED {counts[SOLVED]}, "
+                          f"ALMOST {counts[4]}, statuses {counts}; iters "
+                          f"mean {out.iterations.mean():.3f} max "
+                          f"{out.iterations.max()}; phase-1 iters mean "
+                          f"{p1.mean():.3f}; card {card}", flush=True)
+        out = outs[name, min(TWO_PHASE_THROUGHPUT), 1e-8, True]
+        P, q, A, b = (a[:min(TWO_PHASE_THROUGHPUT)] for a in data)
+        rp, rd, _ = true_kkt(P, q, A, b, out.x, out.z, out.s)
+        ok1 = out.status == SOLVED
+        kkt = max(rp[ok1].max(initial=0.0), rd[ok1].max(initial=0.0))
+        if kkt >= TWO_PHASE_BARS[name].get("kkt", KKT_TOL):
+            failures.append(f"[11] {name}: true KKT {kkt:.3e} on the "
+                            f"two-phase path")
+
+    # the rescue behind the two-phase kernel
+    data = tuple(a[:B0] for a in big)
+    alone = ctt.BatchSolver(nn_soc, BENCH_N, two)
+    resc = ctt.BatchSolver(nn_soc, BENCH_N, two, rescue="same")
+    resc.solve(*data)
+    w0, s0 = synced_wall(lambda: alone.solve(*data))
+    w1, s1 = synced_wall(lambda: resc.solve(*data))
+    before = int((s0.status == SOLVED).sum())
+    after = int((s1.status == SOLVED).sum())
+    kept = s0.status == SOLVED
+    print(f"[11] bench rescue B={B0}: two-phase megakernel alone "
+          f"{w0 * 1e3:.1f} ms wall, SOLVED {before}; with rescue='same' "
+          f"{w1 * 1e3:.1f} ms wall, SOLVED {after} ({after - before} of "
+          f"{B0 - before} closed), statuses "
+          f"{np.bincount(s1.status, minlength=11).tolist()}; card {card}",
+          flush=True)
+    if after < before or not np.array_equal(s1.x[kept], s0.x[kept]):
+        failures.append("[11] bench rescue: SOLVED lanes lost or changed")
+
+    # where the reference turns the first phase off: the same library and
+    # the same bits as the single phase
+    for name, cones, n, data in (
+            ("qp_eq", [ctt.ZeroConeT(1), ctt.NonnegativeConeT(BENCH_N + 1)],
+             BENCH_N, qp_data),
+            ("exp", [ctt.NonnegativeConeT(2), ctt.ExponentialConeT()],
+             NONSYM_N, exp_data)):
+        one = ctt.BatchSolver(cones, n).solve(*data)
+        bs2 = ctt.BatchSolver(cones, n, two)
+        before2, before_all = (_cuda.megakernel.two_phase_launches,
+                               _cuda.megakernel.launches)
+        got = bs2.solve(*data)
+        same = all(np.array_equal(getattr(got, f), getattr(one, f))
+                   for f in ("x", "z", "s", "status", "iterations"))
+        k1e = _cuda.megakernel.two_phase_launches - before2
+        print(f"[11] {name} with megakernel_two_phase=True: library "
+              f"{_cuda.shape_of(bs2._mega_fn.spec)}, K1e launches {k1e}, "
+              f"megakernel launches {_cuda.megakernel.launches - before_all}"
+              f"; the single phase's bits: {same}", flush=True)
+        if not same or k1e or bs2._mega_fn.spec.two_phase:
+            failures.append(f"[11] {name}: two-phase is not a no-op")
+
+    # K1e's bound at bench B: float32 operations of the first phase's
+    # iterations (one refinement pass) at the FP32 rate and float64
+    # operations of the rest at the FP64 rate, against the bytes
+    r = res["bench"]
+    spec = r["spec"]
+    p1_iters = int(r["p1"].sum())
+    p2_iters = int(r["iters"].sum()) - p1_iters
+    f32_ops = p1_iters * flops_per_iteration(spec.n, spec.m, spec.segs, 1)
+    f64_ops = p2_iters * flops_per_iteration(spec.n, spec.m, spec.segs, 0)
+    ops_ms = (f32_ops / FP32_RATE + f64_ops / FP64_RATE) * 1e3
+    nbytes = r["in_bytes"] + r["B"] * (spec.outd * 8 + 4 * 4)
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    print(f"[11] K1e bound at bench B={r['B']}: {f32_ops:.3e} FP32 ops "
+          f"({p1_iters} phase-1 iterations) and {f64_ops:.3e} FP64 ops "
+          f"({p2_iters} phase-2 iterations) -> {ops_ms:.4f} ms, {nbytes} "
+          f"bytes -> {bytes_ms:.4f} ms", flush=True)
+    return dict(launches=launches,
+                max_abs_err=max(v["max_abs_err"] for v in res.values()),
+                ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def outputs(vals, ints, spec):
+    """The kernel's (or its plain version's) outputs as host arrays, by
+    name."""
+    from clarabel_tpu_torch.ipm import megakernel
+
+    eager, rest = megakernel.split_outputs(vals, ints, spec)
+    o = megakernel.unpack_eager(eager.cpu().numpy(), spec.n)
+    o.update(megakernel.unpack_rest(rest.cpu().numpy(), spec.m))
+    return o
+
+
+def readings(k, p, P, q, A, b):
+    """What output k reads against the plain version's output p."""
+    SOLVED = 1
+    ks, ps = k["status"] == SOLVED, p["status"] == SOLVED
+    both = ks & ps
+    dx = np.abs(k["x"] - p["x"]).max(axis=1)[both]
+    dobj = np.abs(k["obj_val"] - p["obj_val"])[both]
+    dit = np.abs(k["iterations"] - p["iterations"])[both]
+    rp, rd, sz = true_kkt(P, q, A, b, k["x"], k["z"], k["s"])
+    return dict(
+        solved=int(ks.sum()), plain_solved=int(ps.sum()),
+        both=int(both.sum()), dx=dx.max(initial=0.0),
+        dx_lanes=int((dx > 1e-6).sum()), dobj=dobj.max(initial=0.0),
+        equal=(dit == 0).mean() if dit.size else 1.0,
+        within1=(dit <= 1).mean() if dit.size else 1.0,
+        it_max=int(dit.max(initial=0)),
+        kkt=max(rp[ks].max(initial=0.0), rd[ks].max(initial=0.0)),
+        sz=sz[ks].max(initial=0.0))
+
+
+def violations(r, bars, B):
+    """The bars that readings r fail."""
+    out = []
+    if r["solved"] < r["plain_solved"] - 0.001 * B:
+        out.append("SOLVED count")
+    if r["dobj"] > OBJ_TOL:
+        out.append("objective")
+    if r["dx"] > bars["x"]:
+        out.append("x")
+    if r["within1"] < bars["within1"] or r["it_max"] > bars["it_max"]:
+        out.append("iterations")
+    if r["kkt"] >= bars.get("kkt", KKT_TOL) or r["sz"] >= SZ_TOL:
+        out.append("true KKT")
+    return out
+
+
+def describe(r):
+    return (f"SOLVED {r['solved']} (plain {r['plain_solved']}); on the "
+            f"{r['both']} lanes both solve: max|dx| {r['dx']:.3e} "
+            f"({r['dx_lanes']} lanes > 1e-6), max|dobj| {r['dobj']:.3e}, "
+            f"iters equal on {r['equal']:.4f}, within 1 on "
+            f"{r['within1']:.4f}, max diff {r['it_max']}; true KKT "
+            f"{r['kkt']:.3e}, |s'z| {r['sz']:.3e}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "clarabel_tpu_torch")):
         fail("clarabel_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -609,14 +943,20 @@ def main():
     k1c_shape = _cuda.shape_of(ctt.BatchSolver(
         [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)],
         4)._mega_fn.spec)
+    two = ctt.Settings(megakernel_two_phase=True)
+    k1e_shapes = [_cuda.shape_of(ctt.BatchSolver(c, n, two)._mega_fn.spec)
+                  for c, n in ((nn_soc, BENCH_N),
+                               ([ctt.NonnegativeConeT(6),
+                                 ctt.PSDTriangleConeT(3)], 3))]
     t0 = time.perf_counter()
     cuda_build.build_together(
-        (_cuda.megakernel, shapes + [k1b_shape] + k1d_shapes + [k1c_shape]),
+        (_cuda.megakernel, shapes + [k1b_shape] + k1d_shapes + [k1c_shape]
+         + k1e_shapes),
         (batched_ldl.kernel, [()]))
     print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
-          f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape} and K2 "
-          f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
-          f"parallel)", flush=True)
+          f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e for "
+          f"{k1e_shapes} and K2 in {time.perf_counter() - t0:.1f} s (one "
+          f"nvcc each, in parallel)", flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
             for line in log.splitlines():
@@ -624,53 +964,6 @@ def main():
                     print(f"[1] ptxas {lib.stem} {variant}: {line.strip()}")
 
     # ---- phases 2-3: kernel vs plain version on the card ----
-    def outputs(vals, ints, spec):
-        eager, rest = megakernel.split_outputs(vals, ints, spec)
-        o = megakernel.unpack_eager(eager.cpu().numpy(), spec.n)
-        o.update(megakernel.unpack_rest(rest.cpu().numpy(), spec.m))
-        return o
-
-    def readings(k, p, P, q, A, b):
-        """What output k reads against the plain version's output p."""
-        ks, ps = k["status"] == SOLVED, p["status"] == SOLVED
-        both = ks & ps
-        dx = np.abs(k["x"] - p["x"]).max(axis=1)[both]
-        dobj = np.abs(k["obj_val"] - p["obj_val"])[both]
-        dit = np.abs(k["iterations"] - p["iterations"])[both]
-        rp, rd, sz = true_kkt(P, q, A, b, k["x"], k["z"], k["s"])
-        return dict(
-            solved=int(ks.sum()), plain_solved=int(ps.sum()),
-            both=int(both.sum()), dx=dx.max(initial=0.0),
-            dx_lanes=int((dx > 1e-6).sum()), dobj=dobj.max(initial=0.0),
-            equal=(dit == 0).mean() if dit.size else 1.0,
-            within1=(dit <= 1).mean() if dit.size else 1.0,
-            it_max=int(dit.max(initial=0)),
-            kkt=max(rp[ks].max(initial=0.0), rd[ks].max(initial=0.0)),
-            sz=sz[ks].max(initial=0.0))
-
-    def violations(r, bars, B):
-        """The bars that readings r fail."""
-        out = []
-        if r["solved"] < r["plain_solved"] - 0.001 * B:
-            out.append("SOLVED count")
-        if r["dobj"] > OBJ_TOL:
-            out.append("objective")
-        if r["dx"] > bars["x"]:
-            out.append("x")
-        if r["within1"] < bars["within1"] or r["it_max"] > bars["it_max"]:
-            out.append("iterations")
-        if r["kkt"] >= bars.get("kkt", KKT_TOL) or r["sz"] >= SZ_TOL:
-            out.append("true KKT")
-        return out
-
-    def describe(r):
-        return (f"SOLVED {r['solved']} (plain {r['plain_solved']}); on the "
-                f"{r['both']} lanes both solve: max|dx| {r['dx']:.3e} "
-                f"({r['dx_lanes']} lanes > 1e-6), max|dobj| {r['dobj']:.3e}, "
-                f"iters equal on {r['equal']:.4f}, within 1 on "
-                f"{r['within1']:.4f}, max diff {r['it_max']}; true KKT "
-                f"{r['kkt']:.3e}, |s'z| {r['sz']:.3e}")
-
     failures = []
 
     def check(name):
@@ -1250,6 +1543,10 @@ def main():
                                     FAMILY_THROUGHPUT, KKT_TOL, (FAMILY_B,))
     k1c_bound = family_bound(dict(gp, phase=10, name="genpow"))
 
+    # ---- phase 11: K1e (the float32 first phase) ----
+    k1e = two_phase_phase(card, failures, big, psd_big, cases["qp_eq"][2],
+                          exp_data)
+
     if failures:
         fail("; ".join(failures))
     k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
@@ -1315,6 +1612,19 @@ def main():
         "plain_ms": gp["plain_ms"],
         "bound_ms": k1c_bound[0],
         "bound_by": k1c_bound[1],
+        # no PyTorch call computes the IPM
+        "library_ms": None,
+    }, {
+        "name": "megakernel_two_phase",
+        "route": "cuda",
+        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
+        "launches": k1e["launches"],
+        "max_abs_err": k1e["max_abs_err"],
+        "ms": k1e["ms"],
+        "plain_ms": k1e["plain_ms"],
+        "bound_ms": k1e["bound_ms"],
+        "bound_by": k1e["bound_by"],
         # no PyTorch call computes the IPM
         "library_ms": None,
     }]

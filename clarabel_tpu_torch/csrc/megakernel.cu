@@ -1,6 +1,6 @@
 // The batched conic IPM as one CUDA kernel, one instance per thread (K1a;
 // K1b where the build sets MK_NONSYM=1; K1c where it sets MK_GENPOW=1;
-// K1d where it sets MK_PSD=1).
+// K1d where it sets MK_PSD=1; K1e where it sets MK_TWO_PHASE=1).
 //
 // Replaces: clarabel_tpu/ipm/megakernel.py `kernel` / `compute` (the Pallas
 // megakernel launched by `_pallas_fn`), restricted to zero, nonnegative and
@@ -41,7 +41,25 @@
 // 1579-1691, 2104-2150, 2255-2258, 2596-2681, 3125-3130).  Both Jacobi
 // iterations run in float64 until no pair rotates, at most 12 sweeps
 // (DEVIATIONS.md #12).  A lane's matrices are 3x3 arrays indexed with the
-// segment's side at run time.//
+// segment's side at run time.
+//
+// K1e (MK_TWO_PHASE=1, only where the spec runs the float32 first phase:
+// nn, SOC and PSD layouts with Settings.megakernel_two_phase): before the
+// float64 loop each lane runs plain-float32 predictor-corrector steps over
+// a float32 copy of its scaled data until it hands off (`phase1`,
+// reference loop_cond1/loop_body1, l.3212-3281), with one refinement pass
+// at float32 tolerances and the Jacobi sweeps stopped at float32 rounding.
+// The code both phases share (scaling, condensed KKT and Cholesky, refined
+// solves, tau recovery, step lengths, residuals, info) is written once as
+// templates over the scalar type R, rather than a header included twice in
+// two namespaces: the structs and functions then stay in this one file,
+// double remains the only instance in a library without MK_TWO_PHASE (so
+// K1a-K1d compile to the code they had), and a caller names its precision
+// by the types it passes.  Literals enter as R(...) and math goes through
+// overloads that pick sqrtf and fabsf for float, so the float instance
+// never promotes to FP64.  `phase1` is not inlined: its float32 working set
+// is a frame of its own.
+//
 // What bounds it on this card: FP64 operations.  A lane reads its P, q, A,
 // b once (at most (n(n+1)/2 + n + nm + m) * 8 bytes, about 0.9 KB at the
 // bench shape n=6, m=13, less when A is batch-constant) and writes
@@ -68,7 +86,7 @@
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -DMK_NONSYM=0 \
-//        -DMK_PSD=0 -DMK_GENPOW=0 -o mk.so megakernel.cu
+//        -DMK_PSD=0 -DMK_GENPOW=0 -DMK_TWO_PHASE=0 -o mk.so megakernel.cu
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,6 +106,12 @@
 #endif
 #if MK_GENPOW && !MK_NONSYM
 #error "a generalized power segment is nonsymmetric: build with MK_NONSYM=1"
+#endif
+#ifndef MK_TWO_PHASE
+#define MK_TWO_PHASE 0
+#endif
+#if MK_TWO_PHASE && MK_NONSYM
+#error "the float32 first phase runs on nn, SOC and PSD layouts only"
 #endif
 
 namespace {
@@ -122,6 +146,14 @@ constexpr int GPW = 16;   // the widest generalized power segment
 #if MK_PSD
 constexpr double SR2 = 1.4142135623730951, ISR2 = 0.7071067811865476;
 #endif
+#if MK_TWO_PHASE
+// the float32 first phase's hand-off rules (reference l.79-82; the mu
+// switch and the iteration cap come in MkParams) and its refinement
+// tolerances (reference l.1842-1849)
+constexpr float P1_MIN_STEP = 0.01f, P1_STALL_RATIO = 0.9f;
+constexpr int P1_STALL_FROM_ITER = 5;
+constexpr double P1_REFINE_ABSTOL = 1e-7, P1_REFINE_RELTOL = 3e-7;
+#endif
 
 }  // namespace
 
@@ -149,6 +181,13 @@ struct MkParams {
   // rotates, at most this many
   int psd_sweeps;
 #endif
+#if MK_TWO_PHASE
+  // the float32 first phase: a lane hands off to the float64 loop once its
+  // mu falls below p1_switch_mu or after p1_cap iterations; its refined
+  // solves take at most p1_refine_passes passes
+  double p1_switch_mu;
+  int p1_cap, p1_refine_passes;
+#endif
 };
 }
 
@@ -162,6 +201,22 @@ template <typename T> __device__ __forceinline__ T nmax(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
+// The code that the float32 first phase (K1e) shares with the float64
+// loop is written once over the scalar type R: a template parameter of
+// the structs and device functions below.  R = double is the only
+// instance in a library built without MK_TWO_PHASE, so K1a-K1d compile
+// as before; R = float adds the first phase's instance.  Literals enter
+// as R(...) so that the float instance computes in float32 throughout,
+// and these overloads call the float math functions there.
+__device__ __forceinline__ double msqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float msqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double mabs(double x) { return fabs(x); }
+__device__ __forceinline__ float mabs(float x) { return fabsf(x); }
+// the unit roundoff that stops a Jacobi sweep (DEVIATIONS.md #12)
+template <typename R> struct Eps;
+template <> struct Eps<double> { static constexpr double v = EPS64; };
+template <> struct Eps<float> { static constexpr float v = 1.1920928955078125e-07f; };
+
 struct In {
   const double* p;
   long long ld;   // component stride
@@ -173,98 +228,108 @@ __device__ __forceinline__ double at(const In& a, int k, long long lane) {
 }
 
 // The scaled problem of one lane.
-struct Prob {
-  double P[N * N];    // [i * N + j]
-  double A[M * N];    // [k * N + j]
-  double q[N], b[M];
-  double d[N], e[M], dinv[N], einv[M];
-  double cinv, normq, normb, pdiag;
+template <typename R> struct ProbT {
+  R P[N * N];    // [i * N + j]
+  R A[M * N];    // [k * N + j]
+  R q[N], b[M];
+  R d[N], e[M], dinv[N], einv[M];
+  R cinv, normq, normb, pdiag;
 };
 
 // Scaling state.  nn rows: w2 in w, 1/w2 in winv2; soc rows: w.  exp/pow
 // segments (K1b): the dual gradient g, the dual Hessian Hd, Hs and its 3x3
 // factor F (6 entries each: h11 h12 h13 h22 h23 h33; F: l21 l31 l32 and
 // the inverse pivots), and z.
-struct Scale {
-  double w[M], winv2[M], lam[M];
-  double eta[S], eta2[S], etainv[S], etainv2[S];
+template <typename R> struct ScaleT {
+  R w[M], winv2[M], lam[M];
+  R eta[S], eta2[S], etainv[S], etainv2[S];
 #if MK_NONSYM
-  double ns_g[S][3], ns_Hd[S][6], ns_Hs[S][6], ns_F[S][6], ns_z[S][3];
+  R ns_g[S][3], ns_Hd[S][6], ns_Hs[S][6], ns_F[S][6], ns_z[S][3];
 #endif
 #if MK_GENPOW
   // genpow segments (K1c), per row: the dual gradient, the diagonal D,
   // p, and q on the head rows or r on the tail rows; and mu
-  double gp_g[M], gp_dd[M], gp_p[M], gp_qr[M], gp_mu;
+  R gp_g[M], gp_dd[M], gp_p[M], gp_qr[M], gp_mu;
 #endif
 #if MK_PSD
   // PSD segments (K1d): R, Rinv (3x3, row-major) and lam
-  double psd_R[S][9], psd_Ri[S][9], psd_lam[S][3];
+  R psd_R[S][9], psd_Ri[S][9], psd_lam[S][3];
 #endif
   bool ident;   // identity scaling (initial point)
 };
 
-struct Kkt {
-  const Scale* sc;
-  double L[N * N], Linv[N], eps;
+template <typename R> struct KktT {
+  const ScaleT<R>* sc;
+  R L[N * N], Linv[N], eps;
 };
 
-struct Res {
-  double rx[N], rz[M], rx_inf[N], rz_inf[M], Px[N];
-  double rtau, qx, bz, sz, xPx;
+template <typename R> struct ResT {
+  R rx[N], rz[M], rx_inf[N], rz_inf[M], Px[N];
+  R rtau, qx, bz, sz, xPx;
 };
 
-struct Info {
-  double cost_primal, cost_dual, res_primal, res_dual, res_primal_inf,
+template <typename R> struct InfoT {
+  R cost_primal, cost_dual, res_primal, res_dual, res_primal_inf,
       res_dual_inf, gap_abs, gap_rel, ktratio;
 };
 
-struct Ctx {
+template <typename R> struct CtxT {
   MkParams p;
-  Prob pr;
+  ProbT<R> pr;
 };
 
-template <int D> __device__ __forceinline__ double dotn(const double* a,
-                                                        const double* b) {
-  double acc = 0.0;
+using Prob = ProbT<double>;
+using Scale = ScaleT<double>;
+using Kkt = KktT<double>;
+using Res = ResT<double>;
+using Info = InfoT<double>;
+using Ctx = CtxT<double>;
+
+template <int D, typename R> __device__ __forceinline__ R dotn(const R* a,
+                                                               const R* b) {
+  R acc = R(0);
   for (int i = 0; i < D; ++i) acc += a[i] * b[i];
   return acc;
 }
 
-__device__ double vnorm(const double* v, int len) {
-  double acc = 0.0;
+template <typename R> __device__ R vnorm(const R* v, int len) {
+  R acc = R(0);
   for (int i = 0; i < len; ++i) acc += v[i] * v[i];
-  return sqrt(acc);
+  return msqrt(acc);
 }
 
-__device__ void Ax(const Prob& pr, const double* x, double* out) {
+template <typename R>
+__device__ void Ax(const ProbT<R>& pr, const R* x, R* out) {
   for (int k = 0; k < M; ++k) {
-    double acc = 0.0;
+    R acc = R(0);
     for (int j = 0; j < N; ++j) acc += pr.A[k * N + j] * x[j];
     out[k] = acc;
   }
 }
 
-__device__ void Aty(const Prob& pr, const double* y, double* out) {
+template <typename R>
+__device__ void Aty(const ProbT<R>& pr, const R* y, R* out) {
   for (int j = 0; j < N; ++j) {
-    double acc = 0.0;
+    R acc = R(0);
     for (int k = 0; k < M; ++k) acc += pr.A[k * N + j] * y[k];
     out[j] = acc;
   }
 }
 
-__device__ void Pxv(const Ctx& cx, const double* x, double* out) {
+template <typename R>
+__device__ void Pxv(const CtxT<R>& cx, const R* x, R* out) {
   for (int i = 0; i < N; ++i) {
-    double acc = 0.0;
+    R acc = R(0);
     if (cx.p.p_nonzero)
       for (int j = 0; j < N; ++j) acc += cx.pr.P[i * N + j] * x[j];
     out[i] = acc;
   }
 }
 
-__device__ double soc_res_sqrt(const double* X, int len) {
-  const double x1n = vnorm(X + 1, len - 1);
-  const double res = (X[0] - x1n) * (X[0] + x1n);
-  return res > 0 ? sqrt(nmax(res, 0.0)) : 0.0;
+template <typename R> __device__ R soc_res_sqrt(const R* X, int len) {
+  const R x1n = vnorm(X + 1, len - 1);
+  const R res = (X[0] - x1n) * (X[0] + x1n);
+  return res > 0 ? msqrt(nmax(res, R(0))) : R(0);
 }
 
 #if MK_NONSYM
@@ -690,45 +755,48 @@ __device__ __forceinline__ int psd_side(int width) {
   return width == 1 ? 1 : (width == 3 ? 2 : 3);
 }
 
-__device__ void psd_unpack(const double* v, int np, double* Mt) {
+template <typename R>
+__device__ void psd_unpack(const R* v, int np, R* Mt) {
   for (int j = 0; j < np; ++j)
     for (int i = 0; i <= j; ++i) {
-      const double e = v[j * (j + 1) / 2 + i];
+      const R e = v[j * (j + 1) / 2 + i];
       if (i == j) {
         Mt[i * 3 + j] = e;
       } else {
-        Mt[i * 3 + j] = e * ISR2;
-        Mt[j * 3 + i] = e * ISR2;
+        Mt[i * 3 + j] = e * R(ISR2);
+        Mt[j * 3 + i] = e * R(ISR2);
       }
     }
 }
 
-__device__ void psd_pack(const double* Mt, int np, double* v) {
+template <typename R>
+__device__ void psd_pack(const R* Mt, int np, R* v) {
   for (int j = 0; j < np; ++j)
     for (int i = 0; i <= j; ++i)
-      v[j * (j + 1) / 2 + i] = i == j ? Mt[i * 3 + j] : Mt[i * 3 + j] * SR2;
+      v[j * (j + 1) / 2 + i] = i == j ? Mt[i * 3 + j] : Mt[i * 3 + j] * R(SR2);
 }
 
 // C = A B (C must not alias A or B)
-__device__ void mat_mm(const double* A, const double* Bm, int np,
-                       double* C) {
+template <typename R>
+__device__ void mat_mm(const R* A, const R* Bm, int np, R* C) {
   for (int i = 0; i < np; ++i)
     for (int j = 0; j < np; ++j) {
-      double acc = A[i * 3] * Bm[j];
+      R acc = A[i * 3] * Bm[j];
       for (int k = 1; k < np; ++k) acc = acc + A[i * 3 + k] * Bm[k * 3 + j];
       C[i * 3 + j] = acc;
     }
 }
 
-__device__ void mat_T(const double* A, int np, double* T) {
+template <typename R>
+__device__ void mat_T(const R* A, int np, R* T) {
   for (int i = 0; i < np; ++i)
     for (int j = 0; j < np; ++j) T[i * 3 + j] = A[j * 3 + i];
 }
 
 // Y = X' A X (tr = false) or X A X' (tr = true)
-__device__ void mat_sandwich(const double* X, const double* A, int np,
-                             bool tr, double* Y) {
-  double Xt[9], T1[9];
+template <typename R>
+__device__ void mat_sandwich(const R* X, const R* A, int np, bool tr, R* Y) {
+  R Xt[9], T1[9];
   mat_T(X, np, Xt);
   if (tr) {
     mat_mm(X, A, np, T1);
@@ -741,17 +809,18 @@ __device__ void mat_sandwich(const double* X, const double* A, int np,
 
 // lower Cholesky with clamped pivots (a pivot that is not positive
 // becomes 1; reference mat_chol, l.683)
-__device__ void mat_chol(const double* Mt, int np, double* L) {
-  for (int k = 0; k < 9; ++k) L[k] = 0.0;
+template <typename R>
+__device__ void mat_chol(const R* Mt, int np, R* L) {
+  for (int k = 0; k < 9; ++k) L[k] = R(0);
   for (int j = 0; j < np; ++j) {
-    double acc = Mt[j * 3 + j];
+    R acc = Mt[j * 3 + j];
     for (int k = 0; k < j; ++k) acc = acc - L[j * 3 + k] * L[j * 3 + k];
-    double d = sqrt(nmax(acc, 0.0));
-    d = d > 0 ? d : 1.0;
+    R d = msqrt(nmax(acc, R(0)));
+    d = d > 0 ? d : R(1);
     L[j * 3 + j] = d;
-    const double idj = 1.0 / d;
+    const R idj = R(1) / d;
     for (int i = j + 1; i < np; ++i) {
-      double a2 = Mt[i * 3 + j];
+      R a2 = Mt[i * 3 + j];
       for (int k = 0; k < j; ++k) a2 = a2 - L[i * 3 + k] * L[j * 3 + k];
       L[i * 3 + j] = a2 * idj;
     }
@@ -759,43 +828,45 @@ __device__ void mat_chol(const double* Mt, int np, double* L) {
 }
 
 // one-sided (Hestenes) Jacobi SVD, A = U diag(sig) V' (reference
-// jacobi_svd, l.707): a column pair rotates while |a_p . a_q| > eps64
-// |a_p| |a_q|; sweeps run until no pair rotates, at most `sweeps`
-__device__ void jacobi_svd(const double* A, int np, int sweeps, double* sig,
-                           double* U, double* V) {
-  for (int k = 0; k < 9; ++k) V[k] = 0.0;
+// jacobi_svd, l.707): a column pair rotates while |a_p . a_q| > eps
+// |a_p| |a_q|, eps the unit roundoff of R; sweeps run until no pair
+// rotates, at most `sweeps`
+template <typename R>
+__device__ void jacobi_svd(const R* A, int np, int sweeps, R* sig, R* U,
+                           R* V) {
+  for (int k = 0; k < 9; ++k) V[k] = R(0);
   if (np == 1) {
-    double s0 = fabs(A[0]);
-    sig[0] = s0 > 0 ? s0 : 1.0;
-    U[0] = A[0] >= 0 ? 1.0 : -1.0;
-    V[0] = 1.0;
+    R s0 = mabs(A[0]);
+    sig[0] = s0 > 0 ? s0 : R(1);
+    U[0] = A[0] >= 0 ? R(1) : R(-1);
+    V[0] = R(1);
     return;
   }
-  double Ac[9];
+  R Ac[9];
   for (int k = 0; k < 9; ++k) Ac[k] = A[k];
-  for (int i = 0; i < np; ++i) V[i * 3 + i] = 1.0;
+  for (int i = 0; i < np; ++i) V[i * 3 + i] = R(1);
   for (int sw = 0; sw < sweeps; ++sw) {
     bool rotated = false;
     for (int q = 1; q < np; ++q)
       for (int p = 0; p < q; ++p) {
-        double al = Ac[p] * Ac[p], be = Ac[q] * Ac[q], ga = Ac[p] * Ac[q];
+        R al = Ac[p] * Ac[p], be = Ac[q] * Ac[q], ga = Ac[p] * Ac[q];
         for (int i = 1; i < np; ++i) {
           al = al + Ac[i * 3 + p] * Ac[i * 3 + p];
           be = be + Ac[i * 3 + q] * Ac[i * 3 + q];
           ga = ga + Ac[i * 3 + p] * Ac[i * 3 + q];
         }
-        if (!(fabs(ga) > EPS64 * sqrt(al * be))) continue;
+        if (!(mabs(ga) > Eps<R>::v * msqrt(al * be))) continue;
         rotated = true;
-        const double zeta = (be - al) / (ga * 2.0);
-        const double sgn = zeta >= 0 ? 1.0 : -1.0;
-        const double t = sgn / (fabs(zeta) + sqrt(zeta * zeta + 1.0));
-        const double c = 1.0 / sqrt(t * t + 1.0);
-        const double s_ = t * c;
+        const R zeta = (be - al) / (ga * R(2));
+        const R sgn = zeta >= 0 ? R(1) : R(-1);
+        const R t = sgn / (mabs(zeta) + msqrt(zeta * zeta + R(1)));
+        const R c = R(1) / msqrt(t * t + R(1));
+        const R s_ = t * c;
         for (int i = 0; i < np; ++i) {
-          const double aip = Ac[i * 3 + p], aiq = Ac[i * 3 + q];
+          const R aip = Ac[i * 3 + p], aiq = Ac[i * 3 + q];
           Ac[i * 3 + p] = c * aip - s_ * aiq;
           Ac[i * 3 + q] = s_ * aip + c * aiq;
-          const double vip = V[i * 3 + p], viq = V[i * 3 + q];
+          const R vip = V[i * 3 + p], viq = V[i * 3 + q];
           V[i * 3 + p] = c * vip - s_ * viq;
           V[i * 3 + q] = s_ * vip + c * viq;
         }
@@ -803,56 +874,57 @@ __device__ void jacobi_svd(const double* A, int np, int sweeps, double* sig,
     if (!rotated) break;
   }
   for (int j = 0; j < np; ++j) {
-    double acc = Ac[j] * Ac[j];
+    R acc = Ac[j] * Ac[j];
     for (int i = 1; i < np; ++i) acc = acc + Ac[i * 3 + j] * Ac[i * 3 + j];
-    const double sj = sqrt(acc);
-    const double sjc = sj > 0 ? sj : 1.0;
+    const R sj = msqrt(acc);
+    const R sjc = sj > 0 ? sj : R(1);
     sig[j] = sjc;
     for (int i = 0; i < np; ++i) U[i * 3 + j] = Ac[i * 3 + j] / sjc;
   }
 }
 
 // all eigenvalues (in no order) of a symmetric matrix of side <= 3
-// (reference psd_eigvals32, l.767, in float64): side 2 in closed form,
-// side 3 by values-only cyclic Jacobi, a pair rotating while |a_pq| >
-// eps64 sqrt(|a_pp a_qq|), until no pair rotates, at most `sweeps`
-__device__ void psd_eigvals(const double* Mt, int np, int sweeps, double* e) {
+// (reference psd_eigvals32, l.767, in R): side 2 in closed form, side 3 by
+// values-only cyclic Jacobi, a pair rotating while |a_pq| > eps
+// sqrt(|a_pp a_qq|), until no pair rotates, at most `sweeps`
+template <typename R>
+__device__ void psd_eigvals(const R* Mt, int np, int sweeps, R* e) {
   if (np == 1) {
     e[0] = Mt[0];
     return;
   }
   if (np == 2) {
-    const double a = Mt[0], b = Mt[1], d = Mt[4];
-    const double mid = 0.5 * (a + d);
-    const double h = 0.5 * (a - d);
-    const double rad = sqrt(h * h + b * b);
+    const R a = Mt[0], b = Mt[1], d = Mt[4];
+    const R mid = R(0.5) * (a + d);
+    const R h = R(0.5) * (a - d);
+    const R rad = msqrt(h * h + b * b);
     e[0] = mid - rad;
     e[1] = mid + rad;
     return;
   }
-  double A[9];
+  R A[9];
   for (int k = 0; k < 9; ++k) A[k] = Mt[k];
   const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
   for (int sw = 0; sw < sweeps; ++sw) {
     bool rotated = false;
     for (int r0 = 0; r0 < 3; ++r0) {
       const int p = P[r0], q = Q[r0];
-      const double apq = A[p * 3 + q];
-      const double app = A[p * 3 + p], aqq = A[q * 3 + q];
-      if (!(fabs(apq) > EPS64 * sqrt(fabs(app * aqq)))) continue;
+      const R apq = A[p * 3 + q];
+      const R app = A[p * 3 + p], aqq = A[q * 3 + q];
+      if (!(mabs(apq) > Eps<R>::v * msqrt(mabs(app * aqq)))) continue;
       rotated = true;
-      const double theta = (aqq - app) / (2.0 * apq);
-      const double sg = theta > 0 ? 1.0 : (theta < 0 ? -1.0 : 0.0);
-      double t = sg / (fabs(theta) + sqrt(theta * theta + 1.0));
-      t = theta == 0 ? 1.0 : t;
-      const double c = 1.0 / sqrt(t * t + 1.0);
-      const double s_ = t * c;
-      A[p * 3 + p] = c * c * app - 2.0 * c * s_ * apq + s_ * s_ * aqq;
-      A[q * 3 + q] = s_ * s_ * app + 2.0 * c * s_ * apq + c * c * aqq;
-      A[p * 3 + q] = 0.0;
-      A[q * 3 + p] = 0.0;
+      const R theta = (aqq - app) / (R(2) * apq);
+      const R sg = theta > 0 ? R(1) : (theta < 0 ? R(-1) : R(0));
+      R t = sg / (mabs(theta) + msqrt(theta * theta + R(1)));
+      t = theta == 0 ? R(1) : t;
+      const R c = R(1) / msqrt(t * t + R(1));
+      const R s_ = t * c;
+      A[p * 3 + p] = c * c * app - R(2) * c * s_ * apq + s_ * s_ * aqq;
+      A[q * 3 + q] = s_ * s_ * app + R(2) * c * s_ * apq + c * c * aqq;
+      A[p * 3 + q] = R(0);
+      A[q * 3 + p] = R(0);
       const int r = 3 - p - q;
-      const double arp = A[r * 3 + p], arq = A[r * 3 + q];
+      const R arp = A[r * 3 + p], arq = A[r * 3 + q];
       A[r * 3 + p] = c * arp - s_ * arq;
       A[p * 3 + r] = A[r * 3 + p];
       A[r * 3 + q] = s_ * arp + c * arq;
@@ -891,9 +963,10 @@ __device__ double psd_logdet(const double* Mt, int np, bool& ok) {
 // Jacobi SVD of L2'L1 = U diag(lam) V', R = L1 V lam^{-1/2}, Rinv =
 // lam^{-1/2} U' L2' (reference l.1418-1451); returns whether R and Rinv
 // are finite
-__device__ bool psd_scaling(const double* sg, const double* zg, int np,
-                            int sweeps, double* R, double* Ri, double* lam) {
-  double Sm[9], Zm[9], L1[9], L2[9], L2t[9], Am[9], U[9], V[9];
+template <typename R>
+__device__ bool psd_scaling(const R* sg, const R* zg, int np, int sweeps,
+                            R* Rm, R* Ri, R* lam) {
+  R Sm[9], Zm[9], L1[9], L2[9], L2t[9], Am[9], U[9], V[9];
   psd_unpack(sg, np, Sm);
   psd_unpack(zg, np, Zm);
   mat_chol(Sm, np, L1);
@@ -901,38 +974,38 @@ __device__ bool psd_scaling(const double* sg, const double* zg, int np,
   mat_T(L2, np, L2t);
   mat_mm(L2t, L1, np, Am);
   jacobi_svd(Am, np, sweeps, lam, U, V);
-  double lis[3], L1V[9], Ut[9], UtL2t[9];
-  for (int j = 0; j < np; ++j) lis[j] = 1.0 / sqrt(lam[j]);
+  R lis[3], L1V[9], Ut[9], UtL2t[9];
+  for (int j = 0; j < np; ++j) lis[j] = R(1) / msqrt(lam[j]);
   mat_mm(L1, V, np, L1V);
   mat_T(U, np, Ut);
   mat_mm(Ut, L2t, np, UtL2t);
   bool fin = true;
   for (int i = 0; i < np; ++i)
     for (int j = 0; j < np; ++j) {
-      R[i * 3 + j] = L1V[i * 3 + j] * lis[j];
+      Rm[i * 3 + j] = L1V[i * 3 + j] * lis[j];
       Ri[i * 3 + j] = UtL2t[i * 3 + j] * lis[i];
-      fin = fin && isfinite(R[i * 3 + j]) && isfinite(Ri[i * 3 + j]);
+      fin = fin && isfinite(Rm[i * 3 + j]) && isfinite(Ri[i * 3 + j]);
     }
   return fin;
 }
 
 // the largest step along d of one segment, from the least eigenvalue of
 // lam^{-1/2} (W d) lam^{-1/2}, W d = R' D R (tr = false) or R D R'
-// (reference l.2104-2150, in float64)
-__device__ double psd_step_comp(const double* dg, const double* Rx,
-                                const double* lam, int np, int sweeps,
-                                bool tr) {
-  double D[9], Mt[9], Ms[9], li[3], e[3];
-  for (int j = 0; j < np; ++j) li[j] = 1.0 / sqrt(nmax(lam[j], TINY32));
+// (reference l.2104-2150, in R)
+template <typename R>
+__device__ R psd_step_comp(const R* dg, const R* Rx, const R* lam, int np,
+                           int sweeps, bool tr) {
+  R D[9], Mt[9], Ms[9], li[3], e[3];
+  for (int j = 0; j < np; ++j) li[j] = R(1) / msqrt(nmax(lam[j], R(TINY32)));
   psd_unpack(dg, np, D);
   mat_sandwich(Rx, D, np, tr, Mt);
   for (int i = 0; i < np; ++i)
     for (int j = 0; j < np; ++j)
-      Ms[i * 3 + j] = 0.5 * (Mt[i * 3 + j] + Mt[j * 3 + i]) * li[i] * li[j];
+      Ms[i * 3 + j] = R(0.5) * (Mt[i * 3 + j] + Mt[j * 3 + i]) * li[i] * li[j];
   psd_eigvals(Ms, np, sweeps, e);
-  double gmin = e[0];
+  R gmin = e[0];
   for (int j = 1; j < np; ++j) gmin = nmin(gmin, e[j]);
-  return gmin < 0 ? 1.0 / nmax(-gmin, 1e-30) : BIG;
+  return gmin < 0 ? R(1) / nmax(-gmin, R(1e-30)) : R(BIG);
 }
 #endif  // MK_PSD
 
@@ -1132,9 +1205,9 @@ __device__ double gp_barrier(const double* al, int d1, int w,
 
 // ---- cone scaling (reference make_scaling, l.1355-1510); mu and strat
 // choose the exp/pow Hs (Dual: mu H_dual; PrimalDual: the BFGS form) ----
-__device__ bool make_scaling(const Ctx& cx, const double* s,
-                             const double* z, double mu, int strat,
-                             Scale& sc) {
+template <typename R>
+__device__ bool make_scaling(const CtxT<R>& cx, const R* s, const R* z,
+                             R mu, int strat, ScaleT<R>& sc) {
   bool ok = true;
   sc.ident = false;
   for (int g = 0; g < S; ++g) {
@@ -1191,75 +1264,76 @@ __device__ bool make_scaling(const Ctx& cx, const double* s,
 #endif
     if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) {
-        double prod = s[i] * z[i];
+        R prod = s[i] * z[i];
         ok = ok && (prod > 0);
-        prod = nmax(prod, 0.0);
-        const double zsafe = z[i] != 0 ? z[i] : 1.0;
-        const double ratio = z[i] != 0 ? s[i] / zsafe : 0.0;
-        const double w = sqrt(nmax(ratio, 0.0));
-        const double w2 = w * w;
+        prod = nmax(prod, R(0));
+        const R zsafe = z[i] != 0 ? z[i] : R(1);
+        const R ratio = z[i] != 0 ? s[i] / zsafe : R(0);
+        const R w = msqrt(nmax(ratio, R(0)));
+        const R w2 = w * w;
         sc.w[i] = w2;
-        sc.winv2[i] = 1.0 / w2;
-        sc.lam[i] = sqrt(prod);
+        sc.winv2[i] = R(1) / w2;
+        sc.lam[i] = msqrt(prod);
       }
       continue;
     }
     const int len = hi - lo;
-    const double* sg = s + lo;
-    const double* zg = z + lo;
-    double* w = sc.w + lo;
-    double* lam = sc.lam + lo;
-    const double zscale = soc_res_sqrt(zg, len);
-    const double sscale = soc_res_sqrt(sg, len);
+    const R* sg = s + lo;
+    const R* zg = z + lo;
+    R* w = sc.w + lo;
+    R* lam = sc.lam + lo;
+    const R zscale = soc_res_sqrt(zg, len);
+    const R sscale = soc_res_sqrt(sg, len);
     bool okg = (zscale > 0) && (sscale > 0);
-    const double zs = zscale > 0 ? zscale : 1.0;
-    const double ss = sscale > 0 ? sscale : 1.0;
-    const double zsinv = 1.0 / zs, ssinv = 1.0 / ss;
-    const double eta = sqrt(ss * zsinv);
+    const R zs = zscale > 0 ? zscale : R(1);
+    const R ss = sscale > 0 ? sscale : R(1);
+    const R zsinv = R(1) / zs, ssinv = R(1) / ss;
+    const R eta = msqrt(ss * zsinv);
     w[0] = sg[0] * ssinv + zg[0] * zsinv;
     for (int i = 1; i < len; ++i) w[i] = sg[i] * ssinv - zg[i] * zsinv;
-    const double wscale = soc_res_sqrt(w, len);
+    const R wscale = soc_res_sqrt(w, len);
     okg = okg && (wscale > 0);
-    const double ws = wscale > 0 ? wscale : 1.0;
-    const double wsinv = 1.0 / ws;
+    const R ws = wscale > 0 ? wscale : R(1);
+    const R wsinv = R(1) / ws;
     for (int i = 0; i < len; ++i) w[i] = w[i] * wsinv;
-    double w1sq = 0.0;
+    R w1sq = R(0);
     for (int i = 1; i < len; ++i) w1sq += w[i] * w[i];
-    w[0] = sqrt(w1sq + 1.0);
-    const double gamma = ws * 0.5;
-    const double den = 1.0 / (sg[0] * ssinv + zg[0] * zsinv + gamma * 2.0);
-    const double cs = (gamma + zg[0] * zsinv) * ssinv;
-    const double cz = (gamma + sg[0] * ssinv) * zsinv;
-    const double lscale = sqrt(ss * zs);
+    w[0] = msqrt(w1sq + R(1));
+    const R gamma = ws * R(0.5);
+    const R den = R(1) / (sg[0] * ssinv + zg[0] * zsinv + gamma * R(2));
+    const R cs = (gamma + zg[0] * zsinv) * ssinv;
+    const R cz = (gamma + sg[0] * ssinv) * zsinv;
+    const R lscale = msqrt(ss * zs);
     lam[0] = gamma * lscale;
     for (int i = 1; i < len; ++i)
       lam[i] = ((cs * sg[i] + cz * zg[i]) * den) * lscale;
     sc.eta[g] = eta;
     sc.eta2[g] = eta * eta;
-    sc.etainv[g] = 1.0 / eta;
-    sc.etainv2[g] = 1.0 / (eta * eta);
+    sc.etainv[g] = R(1) / eta;
+    sc.etainv2[g] = R(1) / (eta * eta);
     ok = ok && okg;
   }
   return ok;
 }
 
 // static regularization at this scaling (reference hs_diag_hi + eps_of)
-__device__ double eps_of(const Ctx& cx, const Scale* sc) {
-  double maxdiag = cx.pr.pdiag;
+template <typename R>
+__device__ R eps_of(const CtxT<R>& cx, const ScaleT<R>* sc) {
+  R maxdiag = cx.pr.pdiag;
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (sc == nullptr) {   // unit diagonal (initial point)
-      if (hi > lo) maxdiag = nmax(maxdiag, 1.0);
+      if (hi > lo) maxdiag = nmax(maxdiag, R(1));
       continue;
     }
     if (kind == SEG_ZERO) {
-      if (hi > lo) maxdiag = nmax(maxdiag, 0.0);
+      if (hi > lo) maxdiag = nmax(maxdiag, R(0));
     } else if (kind == SEG_NN) {
-      for (int i = lo; i < hi; ++i) maxdiag = nmax(maxdiag, fabs(sc->w[i]));
+      for (int i = lo; i < hi; ++i) maxdiag = nmax(maxdiag, mabs(sc->w[i]));
 #if MK_NONSYM
     } else if (kind == SEG_EXP || kind == SEG_POW) {
-      const double* h = sc->ns_Hs[g];   // h11, h22, h33
+      const R* h = sc->ns_Hs[g];   // h11, h22, h33
       maxdiag = nmax(nmax(nmax(maxdiag, fabs(h[0])), fabs(h[3])), fabs(h[5]));
 #endif
 #if MK_GENPOW
@@ -1276,37 +1350,39 @@ __device__ double eps_of(const Ctx& cx, const Scale* sc) {
       // skron(RR') diagonal: slot (i,i) -> A_ii^2, (i<j) -> A_ii A_jj +
       // A_ij^2, A = RR'
       const int np = psd_side(hi - lo);
-      double Rt[9], A[9];
+      R Rt[9], A[9];
       mat_T(sc->psd_R[g], np, Rt);
       mat_mm(sc->psd_R[g], Rt, np, A);
       for (int j = 0; j < np; ++j)
         for (int i = 0; i <= j; ++i) {
-          const double dg = i == j ? A[i * 3 + i] * A[i * 3 + i]
-                                   : A[i * 3 + i] * A[j * 3 + j] +
-                                         A[i * 3 + j] * A[i * 3 + j];
-          maxdiag = nmax(maxdiag, fabs(dg));
+          const R dg = i == j ? A[i * 3 + i] * A[i * 3 + i]
+                              : A[i * 3 + i] * A[j * 3 + j] +
+                                    A[i * 3 + j] * A[i * 3 + j];
+          maxdiag = nmax(maxdiag, mabs(dg));
         }
 #endif
     } else {
-      const double eta2 = sc->eta2[g];
+      const R eta2 = sc->eta2[g];
       for (int i = lo; i < hi; ++i) {
-        const double w2 = 2.0 * sc->w[i] * sc->w[i];
-        const double dg = (i == lo ? w2 - 1.0 : w2 + 1.0) * eta2;
-        maxdiag = nmax(maxdiag, fabs(dg));
+        const R w2 = R(2) * sc->w[i] * sc->w[i];
+        const R dg = (i == lo ? w2 - R(1) : w2 + R(1)) * eta2;
+        maxdiag = nmax(maxdiag, mabs(dg));
       }
     }
   }
-  return cx.p.static_reg_constant + cx.p.static_reg_proportional * maxdiag;
+  return R(cx.p.static_reg_constant) +
+         R(cx.p.static_reg_proportional) * maxdiag;
 }
 
 // Hs^{-1} v with 1/eps on zero-cone rows (reference hinv_apply)
-__device__ void hinv_apply(const Ctx& cx, const Scale& sc, double eps,
-                           const double* v, double* out) {
+template <typename R>
+__device__ void hinv_apply(const CtxT<R>& cx, const ScaleT<R>& sc, R eps,
+                           const R* v, R* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
-      const double r = 1.0 / eps;
+      const R r = R(1) / eps;
       for (int i = lo; i < hi; ++i) out[i] = v[i] * r;
     } else if (sc.ident) {
       for (int i = lo; i < hi; ++i) out[i] = v[i];
@@ -1324,17 +1400,17 @@ __device__ void hinv_apply(const Ctx& cx, const Scale& sc, double eps,
     } else if (kind == SEG_PSD) {
       // svec(Rinv' (Rinv X Rinv') Rinv)
       const int np = psd_side(hi - lo);
-      double X[9], T1[9], Y[9];
+      R X[9], T1[9], Y[9];
       psd_unpack(v + lo, np, X);
       mat_sandwich(sc.psd_Ri[g], X, np, true, T1);
       mat_sandwich(sc.psd_Ri[g], T1, np, false, Y);
       psd_pack(Y, np, out + lo);
 #endif
     } else {
-      double cc = sc.w[lo] * v[lo];
+      R cc = sc.w[lo] * v[lo];
       for (int i = lo + 1; i < hi; ++i) cc += (-sc.w[i]) * v[i];
-      cc = cc * 2.0;
-      const double e2 = sc.etainv2[g];
+      cc = cc * R(2);
+      const R e2 = sc.etainv2[g];
       out[lo] = (-v[lo] + cc * sc.w[lo]) * e2;
       for (int i = lo + 1; i < hi; ++i) out[i] = (v[i] + cc * (-sc.w[i])) * e2;
     }
@@ -1342,13 +1418,14 @@ __device__ void hinv_apply(const Ctx& cx, const Scale& sc, double eps,
 }
 
 // Hs v; the zero-cone block of the true operator is 0 (reference hs_apply)
-__device__ void hs_apply(const Ctx& cx, const Scale& sc, const double* v,
-                         double* out) {
+template <typename R>
+__device__ void hs_apply(const CtxT<R>& cx, const ScaleT<R>& sc, const R* v,
+                         R* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
-      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int i = lo; i < hi; ++i) out[i] = R(0);
     } else if (sc.ident) {
       for (int i = lo; i < hi; ++i) out[i] = v[i];
     } else if (kind == SEG_NN) {
@@ -1365,17 +1442,17 @@ __device__ void hs_apply(const Ctx& cx, const Scale& sc, const double* v,
     } else if (kind == SEG_PSD) {
       // svec(R (R' X R) R')
       const int np = psd_side(hi - lo);
-      double X[9], W[9], Y[9];
+      R X[9], W[9], Y[9];
       psd_unpack(v + lo, np, X);
       mat_sandwich(sc.psd_R[g], X, np, false, W);
       mat_sandwich(sc.psd_R[g], W, np, true, Y);
       psd_pack(Y, np, out + lo);
 #endif
     } else {
-      double c = 0.0;
+      R c = R(0);
       for (int i = lo; i < hi; ++i) c += sc.w[i] * v[i];
-      c = c * 2.0;
-      const double e2 = sc.eta2[g];
+      c = c * R(2);
+      const R e2 = sc.eta2[g];
       out[lo] = (-v[lo] + c * sc.w[lo]) * e2;
       for (int i = lo + 1; i < hi; ++i) out[i] = (v[i] + c * sc.w[i]) * e2;
     }
@@ -1383,16 +1460,17 @@ __device__ void hs_apply(const Ctx& cx, const Scale& sc, const double* v,
 }
 
 // ---- condensed KKT: S = A' Hinv A + P + eps I, Cholesky in place ----
-__device__ bool build_kkt(const Ctx& cx, const Scale& sc, double eps,
-                          Kkt& kk) {
+template <typename R>
+__device__ bool build_kkt(const CtxT<R>& cx, const ScaleT<R>& sc, R eps,
+                          KktT<R>& kk) {
   kk.sc = &sc;
   kk.eps = eps;
-  double col[M], hcol[M];
+  R col[M], hcol[M];
   for (int j = 0; j < N; ++j) {
     for (int k = 0; k < M; ++k) col[k] = cx.pr.A[k * N + j];
     hinv_apply(cx, sc, eps, col, hcol);
     for (int i = j; i < N; ++i) {
-      double acc = 0.0;
+      R acc = R(0);
       for (int k = 0; k < M; ++k) acc += cx.pr.A[k * N + i] * hcol[k];
       if (cx.p.p_nonzero) acc = acc + cx.pr.P[i * N + j];
       kk.L[i * N + j] = acc;
@@ -1401,16 +1479,16 @@ __device__ bool build_kkt(const Ctx& cx, const Scale& sc, double eps,
   }
   bool ok = true;
   for (int j = 0; j < N; ++j) {
-    double ssq = 0.0;
+    R ssq = R(0);
     for (int k = 0; k < j; ++k) ssq += kk.L[j * N + k] * kk.L[j * N + k];
-    const double acc = kk.L[j * N + j] - ssq;
+    const R acc = kk.L[j * N + j] - ssq;
     ok = ok && (acc > 0);
-    double Ljj = sqrt(nmax(acc, 0.0));
-    Ljj = Ljj > 0 ? Ljj : 1.0;
+    R Ljj = msqrt(nmax(acc, R(0)));
+    Ljj = Ljj > 0 ? Ljj : R(1);
     kk.L[j * N + j] = Ljj;
-    kk.Linv[j] = 1.0 / Ljj;
+    kk.Linv[j] = R(1) / Ljj;
     for (int i = j + 1; i < N; ++i) {
-      double sp = 0.0;
+      R sp = R(0);
       for (int k = 0; k < j; ++k) sp += kk.L[i * N + k] * kk.L[j * N + k];
       kk.L[i * N + j] = (kk.L[i * N + j] - sp) * kk.Linv[j];
     }
@@ -1418,23 +1496,25 @@ __device__ bool build_kkt(const Ctx& cx, const Scale& sc, double eps,
   return ok;
 }
 
-__device__ void chol_solve(const Kkt& kk, const double* w, double* x) {
-  double y[N];
+template <typename R>
+__device__ void chol_solve(const KktT<R>& kk, const R* w, R* x) {
+  R y[N];
   for (int j = 0; j < N; ++j) {
-    double sp = 0.0;
+    R sp = R(0);
     for (int k = 0; k < j; ++k) sp += kk.L[j * N + k] * y[k];
     y[j] = (w[j] - sp) * kk.Linv[j];
   }
   for (int i = N - 1; i >= 0; --i) {
-    double sp = 0.0;
+    R sp = R(0);
     for (int k = i + 1; k < N; ++k) sp += kk.L[k * N + i] * x[k];
     x[i] = (y[i] - sp) * kk.Linv[i];
   }
 }
 
-__device__ void apply_once(const Ctx& cx, const Kkt& kk, const double* bx,
-                           const double* bz, double* xs, double* zs) {
-  double hb[M], w[N], t[M];
+template <typename R>
+__device__ void apply_once(const CtxT<R>& cx, const KktT<R>& kk, const R* bx,
+                           const R* bz, R* xs, R* zs) {
+  R hb[M], w[N], t[M];
   hinv_apply(cx, *kk.sc, kk.eps, bz, hb);
   Aty(cx.pr, hb, w);
   for (int j = 0; j < N; ++j) w[j] = bx[j] + w[j];
@@ -1445,10 +1525,11 @@ __device__ void apply_once(const Ctx& cx, const Kkt& kk, const double* bx,
 }
 
 // (bx, bz) - K (xs, zs) of the true augmented operator
-__device__ void kkt_resid(const Ctx& cx, const Kkt& kk, const double* bx,
-                          const double* bz, const double* xs,
-                          const double* zs, double* ex, double* ez) {
-  double t[N], u[N], v[M], h[M];
+template <typename R>
+__device__ void kkt_resid(const CtxT<R>& cx, const KktT<R>& kk, const R* bx,
+                          const R* bz, const R* xs, const R* zs, R* ex,
+                          R* ez) {
+  R t[N], u[N], v[M], h[M];
   Aty(cx.pr, zs, t);
   Pxv(cx, xs, u);
   for (int j = 0; j < N; ++j) ex[j] = bx[j] - (t[j] + u[j]);
@@ -1457,15 +1538,15 @@ __device__ void kkt_resid(const Ctx& cx, const Kkt& kk, const double* bx,
   for (int k = 0; k < M; ++k) ez[k] = bz[k] - (v[k] - h[k]);
 }
 
-template <int K> __device__ double pair_max(const double (*a)[N],
-                                            const double (*b)[M]) {
-  double mx = 0.0;
+template <int K, typename R>
+__device__ R pair_max(const R (*a)[N], const R (*b)[M]) {
+  R mx = R(0);
   bool first = true;
   for (int r = 0; r < K; ++r) {
-    double v = fabs(a[r][0]);
-    for (int j = 1; j < N; ++j) v = nmax(v, fabs(a[r][j]));
-    double u = fabs(b[r][0]);
-    for (int k = 1; k < M; ++k) u = nmax(u, fabs(b[r][k]));
+    R v = mabs(a[r][0]);
+    for (int j = 1; j < N; ++j) v = nmax(v, mabs(a[r][j]));
+    R u = mabs(b[r][0]);
+    for (int k = 1; k < M; ++k) u = nmax(u, mabs(b[r][k]));
     v = nmax(v, u);
     mx = first ? v : nmax(mx, v);
     first = false;
@@ -1475,38 +1556,38 @@ template <int K> __device__ double pair_max(const double (*a)[N],
 
 // Accept-masked refinement against the true operator (reference
 // refined_solve, l.1861-1988); joint norms over the K right-hand sides.
-template <int K>
-__device__ bool refined_solve(const Ctx& cx, const Kkt& kk,
-                              const double (*bx)[N], const double (*bz)[M],
-                              double (*xs)[N], double (*zs)[M]) {
+template <int K, typename R>
+__device__ bool refined_solve(const CtxT<R>& cx, const KktT<R>& kk,
+                              const R (*bx)[N], const R (*bz)[M],
+                              R (*xs)[N], R (*zs)[M]) {
   for (int r = 0; r < K; ++r) apply_once(cx, kk, bx[r], bz[r], xs[r], zs[r]);
   const int passes = cx.p.refine_passes;
   if (passes <= 0) return isfinite(pair_max<K>(xs, zs));
-  const double normb = pair_max<K>(bx, bz);
-  double ex[K][N], ez[K][M];
+  const R normb = pair_max<K>(bx, bz);
+  R ex[K][N], ez[K][M];
   for (int r = 0; r < K; ++r)
     kkt_resid(cx, kk, bx[r], bz[r], xs[r], zs[r], ex[r], ez[r]);
-  double norme = pair_max<K>(ex, ez);
+  R norme = pair_max<K>(ex, ez);
   bool ok = isfinite(norme);
   bool done = false;
-  const double tol = cx.p.refine_abstol + cx.p.refine_reltol * normb;
+  const R tol = R(cx.p.refine_abstol) + R(cx.p.refine_reltol) * normb;
   for (int p = 0; p < passes; ++p) {
     const bool active = !done && ok && (norme > tol);
     if (!active) break;   // an inactive lane stays inactive
-    double nx[K][N], nz[K][M], nex[K][N], nez[K][M];
+    R nx[K][N], nz[K][M], nex[K][N], nez[K][M];
     for (int r = 0; r < K; ++r) {
-      double dx[N], dz[M];
+      R dx[N], dz[M];
       apply_once(cx, kk, ex[r], ez[r], dx, dz);
       for (int j = 0; j < N; ++j) nx[r][j] = xs[r][j] + dx[j];
       for (int k = 0; k < M; ++k) nz[r][k] = zs[r][k] + dz[k];
     }
     for (int r = 0; r < K; ++r)
       kkt_resid(cx, kk, bx[r], bz[r], nx[r], nz[r], nex[r], nez[r]);
-    const double nn = pair_max<K>(nex, nez);
+    const R nn = pair_max<K>(nex, nez);
     const bool okn = isfinite(nn);
-    const double ratio = norme / (nn != 0 ? nn : TINY32);
-    const bool stop = ratio < cx.p.refine_stop_ratio;
-    const bool accept = okn && (!stop || ratio > 1.0);
+    const R ratio = norme / (nn != 0 ? nn : R(TINY32));
+    const bool stop = ratio < R(cx.p.refine_stop_ratio);
+    const bool accept = okn && (!stop || ratio > R(1));
     done = stop || !okn;
     ok = ok && okn;
     if (accept) {
@@ -1579,30 +1660,31 @@ __device__ void shift_to_interior(const Ctx& cx, double* v, bool primal) {
 }
 
 // ---- step length (reference step_length / soc_step_len) ----
-__device__ double soc_step_len(const double* X, const double* Y, int len) {
-  const double x0 = X[0], y0 = Y[0];
-  const double a0 = (x0 >= 0 && y0 < 0) ? -x0 / (y0 < 0 ? y0 : -1.0) : BIG;
-  double yy = 0.0, xy = 0.0, xx = 0.0;
+template <typename R>
+__device__ R soc_step_len(const R* X, const R* Y, int len) {
+  const R x0 = X[0], y0 = Y[0];
+  const R a0 = (x0 >= 0 && y0 < 0) ? -x0 / (y0 < 0 ? y0 : R(-1)) : R(BIG);
+  R yy = R(0), xy = R(0), xx = R(0);
   for (int i = 1; i < len; ++i) {
     yy += Y[i] * Y[i];
     xy += X[i] * Y[i];
     xx += X[i] * X[i];
   }
-  const double a = Y[0] * Y[0] - yy;
-  const double b = (X[0] * Y[0] - xy) * 2.0;
-  const double c = nmax(X[0] * X[0] - xx, 0.0);
-  const double d = b * b - a * c * 4.0;
-  const double sqrt_d = sqrt(nmax(d, 0.0));
-  const double t = b >= 0 ? -b - sqrt_d : -b + sqrt_d;
-  double r1 = t != 0 ? (2.0 * c) / t : BIG;
-  double r2 = a != 0 ? t / (2.0 * a) : BIG;
-  r1 = r1 < 0 ? BIG : r1;
-  r2 = r2 < 0 ? BIG : r2;
-  const double root = nmin(r1, r2);
-  double alpha;
-  if ((a > 0 && b > 0) || d < 0) alpha = BIG;
-  else if (a == 0) alpha = BIG;
-  else if (c == 0) alpha = a >= 0 ? BIG : 0.0;
+  const R a = Y[0] * Y[0] - yy;
+  const R b = (X[0] * Y[0] - xy) * R(2);
+  const R c = nmax(X[0] * X[0] - xx, R(0));
+  const R d = b * b - a * c * R(4);
+  const R sqrt_d = msqrt(nmax(d, R(0)));
+  const R t = b >= 0 ? -b - sqrt_d : -b + sqrt_d;
+  R r1 = t != 0 ? (R(2) * c) / t : R(BIG);
+  R r2 = a != 0 ? t / (R(2) * a) : R(BIG);
+  r1 = r1 < 0 ? R(BIG) : r1;
+  r2 = r2 < 0 ? R(BIG) : r2;
+  const R root = nmin(r1, r2);
+  R alpha;
+  if ((a > 0 && b > 0) || d < 0) alpha = R(BIG);
+  else if (a == 0) alpha = R(BIG);
+  else if (c == 0) alpha = a >= 0 ? R(BIG) : R(0);
   else alpha = root;
   return nmin(alpha, a0);
 }
@@ -1647,7 +1729,7 @@ __device__ bool nonsym_feasible(const Ctx& cx, const double* z,
 
 // the Scale argument that only PSD segments read
 #if MK_PSD
-#define PSD_SC_PARAM const Scale &sc,
+#define PSD_SC_PARAM const ScaleT<R> &sc,
 #define PSD_SC_ARG sc,
 #else
 #define PSD_SC_PARAM
@@ -1656,10 +1738,10 @@ __device__ bool nonsym_feasible(const Ctx& cx, const double* z,
 
 // symmetric segments first; with nonsymmetric segments the step is then
 // capped and backtracked jointly over all of them (reference l.2091-2229)
-__device__ double step_length(const Ctx& cx, PSD_SC_PARAM const double* dz,
-                              const double* ds, const double* z,
-                              const double* s, double amax) {
-  double alpha = amax;
+template <typename R>
+__device__ R step_length(const CtxT<R>& cx, PSD_SC_PARAM const R* dz,
+                         const R* ds, const R* z, const R* s, R amax) {
+  R alpha = amax;
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
@@ -1679,11 +1761,11 @@ __device__ double step_length(const Ctx& cx, PSD_SC_PARAM const double* dz,
     }
 #endif
     if (kind == SEG_NN) {
-      double az = BIG, as = BIG;
+      R az = R(BIG), as = R(BIG);
       bool first = true;
       for (int i = lo; i < hi; ++i) {
-        const double rz = dz[i] < 0 ? -z[i] / dz[i] : BIG;
-        const double rs = ds[i] < 0 ? -s[i] / ds[i] : BIG;
+        const R rz = dz[i] < 0 ? -z[i] / dz[i] : R(BIG);
+        const R rs = ds[i] < 0 ? -s[i] / ds[i] : R(BIG);
         az = first ? rz : nmin(az, rz);
         as = first ? rs : nmin(as, rs);
         first = false;
@@ -1710,13 +1792,14 @@ __device__ double step_length(const Ctx& cx, PSD_SC_PARAM const double* dz,
 }
 
 // ---- predictor-corrector pieces ----
-__device__ void affine_ds(const Ctx& cx, const Scale& sc, const double* s,
-                          double* out) {
+template <typename R>
+__device__ void affine_ds(const CtxT<R>& cx, const ScaleT<R>& sc, const R* s,
+                          R* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
-      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int i = lo; i < hi; ++i) out[i] = R(0);
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       for (int i = lo; i < hi; ++i) out[i] = s[i];
 #if MK_GENPOW
@@ -1727,40 +1810,42 @@ __device__ void affine_ds(const Ctx& cx, const Scale& sc, const double* s,
     } else if (kind == SEG_PSD) {
       // lam o lam: lam_j^2 on the svec diagonal slots
       const int np = psd_side(hi - lo);
-      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int i = lo; i < hi; ++i) out[i] = R(0);
       for (int j = 0; j < np; ++j)
         out[lo + j * (j + 1) / 2 + j] = sc.psd_lam[g][j] * sc.psd_lam[g][j];
 #endif
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = sc.lam[i] * sc.lam[i];
     } else {
-      double acc = 0.0;
+      R acc = R(0);
       for (int i = lo; i < hi; ++i) acc += sc.lam[i] * sc.lam[i];
       out[lo] = acc;
-      for (int i = lo + 1; i < hi; ++i) out[i] = sc.lam[lo] * sc.lam[i] * 2.0;
+      for (int i = lo + 1; i < hi; ++i) out[i] = sc.lam[lo] * sc.lam[i] * R(2);
     }
   }
 }
 
 // W X (inv = false) or W^{-1} X (inv = true) on one soc segment
-__device__ void mul_w(const double* w, const double* X, int len,
-                      double etaf, bool inv, double* y) {
-  double zeta = 0.0;
+template <typename R>
+__device__ void mul_w(const R* w, const R* X, int len, R etaf, bool inv,
+                      R* y) {
+  R zeta = R(0);
   for (int i = 1; i < len; ++i) zeta += w[i] * X[i];
-  const double denom = 1.0 / (w[0] + 1.0);
-  const double c = (inv ? -X[0] : X[0]) + zeta * denom;
+  const R denom = R(1) / (w[0] + R(1));
+  const R c = (inv ? -X[0] : X[0]) + zeta * denom;
   y[0] = (inv ? w[0] * X[0] - zeta : w[0] * X[0] + zeta) * etaf;
   for (int i = 1; i < len; ++i) y[i] = (X[i] + c * w[i]) * etaf;
 }
 
-__device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
-                                  const double* dz, const double* ds,
-                                  double sigma_mu, double* out) {
+template <typename R>
+__device__ void combined_ds_shift(const CtxT<R>& cx, const ScaleT<R>& sc,
+                                  const R* dz, const R* ds, R sigma_mu,
+                                  R* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
-      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int i = lo; i < hi; ++i) out[i] = R(0);
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = dz[i] * ds[i] - sigma_mu;
 #if MK_NONSYM
@@ -1784,7 +1869,7 @@ __device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
     } else if (kind == SEG_PSD) {
       // W^{-1} ds o W dz - sigma mu e, the circ the symmetrized product
       const int np = psd_side(hi - lo);
-      double Dz[9], Ds[9], WDz[9], WiDs[9], Pm[9], Qm[9], C[9];
+      R Dz[9], Ds[9], WDz[9], WiDs[9], Pm[9], Qm[9], C[9];
       psd_unpack(dz + lo, np, Dz);
       psd_unpack(ds + lo, np, Ds);
       mat_sandwich(sc.psd_R[g], Dz, np, false, WDz);
@@ -1793,16 +1878,16 @@ __device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
       mat_mm(WDz, WiDs, np, Qm);
       for (int i = 0; i < np; ++i)
         for (int j = 0; j < np; ++j)
-          C[i * 3 + j] = (Pm[i * 3 + j] + Qm[i * 3 + j]) * 0.5;
+          C[i * 3 + j] = (Pm[i * 3 + j] + Qm[i * 3 + j]) * R(0.5);
       for (int i = 0; i < np; ++i) C[i * 3 + i] = C[i * 3 + i] - sigma_mu;
       psd_pack(C, np, out + lo);
 #endif
     } else {
       const int len = hi - lo;
-      double wdz[M], wids[M];
+      R wdz[M], wids[M];
       mul_w(sc.w + lo, dz + lo, len, sc.eta[g], false, wdz);
       mul_w(sc.w + lo, ds + lo, len, sc.etainv[g], true, wids);
-      double acc = 0.0;
+      R acc = R(0);
       for (int i = 0; i < len; ++i) acc += wids[i] * wdz[i];
       out[lo] = acc - sigma_mu;
       for (int i = 1; i < len; ++i)
@@ -1811,14 +1896,14 @@ __device__ void combined_ds_shift(const Ctx& cx, const Scale& sc,
   }
 }
 
-__device__ void ds_from_dz_offset(const Ctx& cx, const Scale& sc,
-                                  const double* dsv, const double* z,
-                                  double* out) {
+template <typename R>
+__device__ void ds_from_dz_offset(const CtxT<R>& cx, const ScaleT<R>& sc,
+                                  const R* dsv, const R* z, R* out) {
   for (int g = 0; g < S; ++g) {
     const int lo = cx.p.seg_lo[g], hi = cx.p.seg_hi[g];
     const int kind = cx.p.seg_kind[g];
     if (kind == SEG_ZERO) {
-      for (int i = lo; i < hi; ++i) out[i] = 0.0;
+      for (int i = lo; i < hi; ++i) out[i] = R(0);
     } else if (kind == SEG_EXP || kind == SEG_POW) {
       for (int i = lo; i < hi; ++i) out[i] = dsv[i];
 #if MK_GENPOW
@@ -1829,35 +1914,35 @@ __device__ void ds_from_dz_offset(const Ctx& cx, const Scale& sc,
     } else if (kind == SEG_PSD) {
       // W'(lam \ ds): (lam \ Z)_ij = 2 Z_ij / (lam_i + lam_j)
       const int np = psd_side(hi - lo);
-      const double* lam = sc.psd_lam[g];
-      double Zm[9], X[9], Y[9];
+      const R* lam = sc.psd_lam[g];
+      R Zm[9], X[9], Y[9];
       psd_unpack(dsv + lo, np, Zm);
       for (int i = 0; i < np; ++i)
         for (int j = 0; j < np; ++j)
-          X[i * 3 + j] = Zm[i * 3 + j] * 2.0 * (1.0 / (lam[i] + lam[j]));
+          X[i * 3 + j] = Zm[i * 3 + j] * R(2) * (R(1) / (lam[i] + lam[j]));
       mat_sandwich(sc.psd_R[g], X, np, true, Y);
       psd_pack(Y, np, out + lo);
 #endif
     } else if (kind == SEG_NN) {
       for (int i = lo; i < hi; ++i) out[i] = dsv[i] / z[i];
     } else {
-      const double* w = sc.w + lo;
-      const double* lam = sc.lam + lo;
-      const double* zg = z + lo;
-      const double* dsg = dsv + lo;
+      const R* w = sc.w + lo;
+      const R* lam = sc.lam + lo;
+      const R* zg = z + lo;
+      const R* dsg = dsv + lo;
       const int len = hi - lo;
-      const double eta = sc.eta[g];
-      const double z1n = vnorm(zg + 1, len - 1);
-      const double resz = (zg[0] - z1n) * (zg[0] + z1n);
-      double lam1ds1 = 0.0, w1ds1 = 0.0;
+      const R eta = sc.eta[g];
+      const R z1n = vnorm(zg + 1, len - 1);
+      const R resz = (zg[0] - z1n) * (zg[0] + z1n);
+      R lam1ds1 = R(0), w1ds1 = R(0);
       for (int i = 1; i < len; ++i) {
         lam1ds1 += lam[i] * dsg[i];
         w1ds1 += w[i] * dsg[i];
       }
-      const double c = (lam[0] * dsg[0] - lam1ds1) * (1.0 / resz);
-      const double o0 = zg[0] * c + eta * w1ds1;
-      const double wc = w1ds1 * (1.0 / (w[0] + 1.0));
-      const double lam0inv = 1.0 / lam[0];
+      const R c = (lam[0] * dsg[0] - lam1ds1) * (R(1) / resz);
+      const R o0 = zg[0] * c + eta * w1ds1;
+      const R wc = w1ds1 * (R(1) / (w[0] + R(1)));
+      const R lam0inv = R(1) / lam[0];
       out[lo] = o0 * lam0inv;
       for (int i = 1; i < len; ++i)
         out[lo + i] = (-zg[i] * c + (dsg[i] + wc * w[i]) * eta) * lam0inv;
@@ -1866,9 +1951,9 @@ __device__ void ds_from_dz_offset(const Ctx& cx, const Scale& sc,
 }
 
 // ---- residuals, info, convergence (reference l.2702-2835) ----
-__device__ void residuals(const Ctx& cx, const double* x, const double* z,
-                          const double* s, double tau, double kappa,
-                          double tinv, Res& r) {
+template <typename R>
+__device__ void residuals(const CtxT<R>& cx, const R* x, const R* z,
+                          const R* s, R tau, R kappa, R tinv, ResT<R>& r) {
   r.sz = dotn<M>(s, z);
   r.qx = dotn<N>(cx.pr.q, x);
   r.bz = dotn<M>(cx.pr.b, z);
@@ -1884,41 +1969,42 @@ __device__ void residuals(const Ctx& cx, const double* x, const double* z,
   r.rtau = r.qx + r.bz + kappa + r.xPx * tinv;
 }
 
-template <int D> __device__ double scaled_norm(const double* sc,
-                                               const double* v) {
-  double acc = 0.0;
+template <int D, typename R>
+__device__ R scaled_norm(const R* sc, const R* v) {
+  R acc = R(0);
   for (int i = 0; i < D; ++i) {
-    const double t = sc[i] * v[i];
+    const R t = sc[i] * v[i];
     acc += t * t;
   }
-  return sqrt(acc);
+  return msqrt(acc);
 }
 
-__device__ void compute_info(const Ctx& cx, const Res& r, const double* x,
-                             const double* z, const double* s, double kappa,
-                             double tinv, Info& in) {
-  const Prob& pr = cx.pr;
-  const double xPx_half = r.xPx * tinv * tinv * 0.5;
+template <typename R>
+__device__ void compute_info(const CtxT<R>& cx, const ResT<R>& r, const R* x,
+                             const R* z, const R* s, R kappa, R tinv,
+                             InfoT<R>& in) {
+  const ProbT<R>& pr = cx.pr;
+  const R xPx_half = r.xPx * tinv * tinv * R(0.5);
   in.cost_primal = (r.qx * tinv + xPx_half) * pr.cinv;
   in.cost_dual = (-r.bz * tinv - xPx_half) * pr.cinv;
-  double normx = scaled_norm<N>(pr.d, x);
-  double normz = scaled_norm<M>(pr.e, z) * pr.cinv;
-  double norms = scaled_norm<M>(pr.einv, s);
+  R normx = scaled_norm<N>(pr.d, x);
+  R normz = scaled_norm<M>(pr.e, z) * pr.cinv;
+  R norms = scaled_norm<M>(pr.einv, s);
   in.res_primal_inf =
-      scaled_norm<N>(pr.dinv, r.rx_inf) * pr.cinv / nmax(1.0, normz);
+      scaled_norm<N>(pr.dinv, r.rx_inf) * pr.cinv / nmax(R(1), normz);
   in.res_dual_inf =
-      nmax(scaled_norm<N>(pr.dinv, r.Px) / nmax(1.0, normx),
-           scaled_norm<M>(pr.einv, r.rz_inf) / nmax(1.0, normx + norms));
+      nmax(scaled_norm<N>(pr.dinv, r.Px) / nmax(R(1), normx),
+           scaled_norm<M>(pr.einv, r.rz_inf) / nmax(R(1), normx + norms));
   normx = normx * tinv;
   normz = normz * tinv;
   norms = norms * tinv;
   in.res_primal = scaled_norm<M>(pr.einv, r.rz) * tinv /
-                  nmax(1.0, pr.normb + normx + norms);
+                  nmax(R(1), pr.normb + normx + norms);
   in.res_dual = scaled_norm<N>(pr.dinv, r.rx) * tinv * pr.cinv /
-                nmax(1.0, pr.normq + normx + normz);
-  in.gap_abs = fabs(in.cost_primal - in.cost_dual);
+                nmax(R(1), pr.normq + normx + normz);
+  in.gap_abs = mabs(in.cost_primal - in.cost_dual);
   in.gap_rel = in.gap_abs /
-               nmax(1.0, nmin(fabs(in.cost_primal), fabs(in.cost_dual)));
+               nmax(R(1), nmin(mabs(in.cost_primal), mabs(in.cost_dual)));
   in.ktratio = kappa * tinv;
 }
 
@@ -1936,42 +2022,42 @@ __device__ int check_convergence(const Info& in, double bz, double qx,
   return UNSOLVED;
 }
 
-struct Step {
-  double dx[N], dz[M], ds[M];
-  double dtau, dkappa, alpha, sigma;
+template <typename R> struct StepT {
+  R dx[N], dz[M], ds[M];
+  R dtau, dkappa, alpha, sigma;
   bool kkt_fail;
 };
+using Step = StepT<double>;
 
 // tau recovery (reference pc_step.tau_recovery, src/kktsystem.jl:135-215)
-__device__ void tau_recovery(const Ctx& cx, const Scale& sc,
-                             const double* x1, const double* z1,
-                             const double* x2, const double* z2,
-                             const double* xi, const double* ds_const,
-                             double rhs_tau, double rhs_kappa, double kappa,
-                             double tinv, double tau_den, double* dx,
-                             double* dz, double* dsv, double& dtau,
-                             double& dkappa) {
-  double tau_num = rhs_tau - rhs_kappa * tinv + dotn<N>(cx.pr.q, x1) +
-                   dotn<M>(cx.pr.b, z1);
+template <typename R>
+__device__ void tau_recovery(const CtxT<R>& cx, const ScaleT<R>& sc,
+                             const R* x1, const R* z1, const R* x2,
+                             const R* z2, const R* xi, const R* ds_const,
+                             R rhs_tau, R rhs_kappa, R kappa, R tinv,
+                             R tau_den, R* dx, R* dz, R* dsv, R& dtau,
+                             R& dkappa) {
+  R tau_num = rhs_tau - rhs_kappa * tinv + dotn<N>(cx.pr.q, x1) +
+              dotn<M>(cx.pr.b, z1);
   if (cx.p.p_nonzero) {
-    double px1[N];
+    R px1[N];
     Pxv(cx, x1, px1);
-    tau_num = tau_num + dotn<N>(xi, px1) * 2.0;
+    tau_num = tau_num + dotn<N>(xi, px1) * R(2);
   }
   dtau = tau_num / tau_den;
   for (int j = 0; j < N; ++j) dx[j] = x1[j] + x2[j] * dtau;
   for (int k = 0; k < M; ++k) dz[k] = z1[k] + z2[k] * dtau;
-  double h[M];
+  R h[M];
   hs_apply(cx, sc, dz, h);
   for (int k = 0; k < M; ++k) dsv[k] = -(h[k] + ds_const[k]);
   dkappa = -(rhs_kappa + kappa * dtau) * tinv;
 }
 
-__device__ double max_step(double tau, double kappa, double dtau,
-                           double dkappa) {
-  const double a_tau = dtau < 0 ? -tau / dtau : BIG;
-  const double a_kap = dkappa < 0 ? -kappa / dkappa : BIG;
-  return nmin(nmin(a_tau, a_kap), 1.0);
+template <typename R>
+__device__ R max_step(R tau, R kappa, R dtau, R dkappa) {
+  const R a_tau = dtau < 0 ? -tau / dtau : R(BIG);
+  const R a_kap = dkappa < 0 ? -kappa / dkappa : R(BIG);
+  return nmin(nmin(a_tau, a_kap), R(1));
 }
 
 #if MK_NONSYM
@@ -2033,60 +2119,61 @@ __device__ double barrier_at(const Ctx& cx, const double* z, const double* s,
 
 // One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977);
 // on a Dual lane (K1b) the step is then backtracked to a barrier below 1
-__device__ void pc_step(const Ctx& cx, const double* x, const double* z,
-                        const double* s, double tau, double kappa,
-                        double tinv, const Res& res, double mu, int iters1,
-                        int strat, Step& st) {
-  Scale sc;
+template <typename R>
+__device__ void pc_step(const CtxT<R>& cx, const R* x, const R* z,
+                        const R* s, R tau, R kappa, R tinv,
+                        const ResT<R>& res, R mu, int iters1, int strat,
+                        StepT<R>& st) {
+  ScaleT<R> sc;
   const bool ok_scale = make_scaling(cx, s, z, mu, strat, sc);
-  const double eps = eps_of(cx, &sc);
-  Kkt kk;
+  const R eps = eps_of(cx, &sc);
+  KktT<R> kk;
   const bool ok_chol = build_kkt(cx, sc, eps, kk);
   bool ok_kkt = ok_scale && ok_chol;
 
-  double aff[M];
+  R aff[M];
   affine_ds(cx, sc, s, aff);
-  double bx[2][N], bz[2][M], xs[2][N], zs[2][M];
+  R bx[2][N], bz[2][M], xs[2][N], zs[2][M];
   for (int j = 0; j < N; ++j) { bx[0][j] = -cx.pr.q[j]; bx[1][j] = res.rx[j]; }
   for (int k = 0; k < M; ++k) { bz[0][k] = cx.pr.b[k]; bz[1][k] = s[k] - res.rz[k]; }
   ok_kkt = refined_solve<2>(cx, kk, bx, bz, xs, zs) && ok_kkt;
-  const double* x2 = xs[0];
-  const double* z2 = zs[0];
+  const R* x2 = xs[0];
+  const R* z2 = zs[0];
 
-  double xi[N], xm[N];
+  R xi[N], xm[N];
   for (int j = 0; j < N; ++j) { xi[j] = x[j] * tinv; xm[j] = xi[j] - x2[j]; }
-  double tau_den = kappa * tinv - dotn<N>(cx.pr.q, x2) - dotn<M>(cx.pr.b, z2);
+  R tau_den = kappa * tinv - dotn<N>(cx.pr.q, x2) - dotn<M>(cx.pr.b, z2);
   if (cx.p.p_nonzero) {
-    double t1[N], t2[N];
+    R t1[N], t2[N];
     Pxv(cx, xm, t1);
     Pxv(cx, x2, t2);
     tau_den = tau_den + dotn<N>(xm, t1) - dotn<N>(x2, t2);
   }
 
   // affine step
-  double dxa[N], dza[M], dsa[M], dtaua, dkappaa;
+  R dxa[N], dza[M], dsa[M], dtaua, dkappaa;
   tau_recovery(cx, sc, xs[1], zs[1], x2, z2, xi, s, res.rtau, tau * kappa,
                kappa, tinv, tau_den, dxa, dza, dsa, dtaua, dkappaa);
-  const double alpha_aff = step_length(cx, PSD_SC_ARG dza, dsa, z, s,
-                                       max_step(tau, kappa, dtaua, dkappaa));
-  const double oma = 1.0 - alpha_aff;
-  const double sigma = oma * oma * oma;
-  const double m_corr = iters1 > 1 ? 1.0 : alpha_aff;
-  const double sigma_mu = sigma * mu;
+  const R alpha_aff = step_length(cx, PSD_SC_ARG dza, dsa, z, s,
+                                  max_step(tau, kappa, dtaua, dkappaa));
+  const R oma = R(1) - alpha_aff;
+  const R sigma = oma * oma * oma;
+  const R m_corr = iters1 > 1 ? R(1) : alpha_aff;
+  const R sigma_mu = sigma * mu;
 
   // combined step
-  double dzm[M], shift[M];
+  R dzm[M], shift[M];
   for (int k = 0; k < M; ++k) dzm[k] = dza[k] * m_corr;
   combined_ds_shift(cx, sc, dzm, dsa, sigma_mu, shift);
   for (int k = 0; k < M; ++k) aff[k] = aff[k] + shift[k];   // comb_s
-  const double one_m_sigma = 1.0 - sigma;
-  const double comb_tau = res.rtau * one_m_sigma;
-  const double comb_kappa = -sigma_mu + dtaua * dkappaa * m_corr + tau * kappa;
-  double ds_const[M];
+  const R one_m_sigma = R(1) - sigma;
+  const R comb_tau = res.rtau * one_m_sigma;
+  const R comb_kappa = -sigma_mu + dtaua * dkappaa * m_corr + tau * kappa;
+  R ds_const[M];
   ds_from_dz_offset(cx, sc, aff, z, ds_const);
   for (int j = 0; j < N; ++j) bx[0][j] = res.rx[j] * one_m_sigma;
   for (int k = 0; k < M; ++k) bz[0][k] = ds_const[k] - res.rz[k] * one_m_sigma;
-  double xc[1][N], zc[1][M];
+  R xc[1][N], zc[1][M];
   const bool ok3 = refined_solve<1>(cx, kk, bx, bz, xc, zc);
   tau_recovery(cx, sc, xc[0], zc[0], x2, z2, xi, ds_const, comb_tau,
                comb_kappa, kappa, tinv, tau_den, st.dx, st.dz, st.ds, st.dtau,
@@ -2094,7 +2181,7 @@ __device__ void pc_step(const Ctx& cx, const double* x, const double* z,
   st.kkt_fail = !(ok_kkt && ok3);
   st.alpha = step_length(cx, PSD_SC_ARG st.dz, st.ds, z, s,
                          max_step(tau, kappa, st.dtau, st.dkappa)) *
-             cx.p.max_step_fraction;
+             R(cx.p.max_step_fraction);
   st.sigma = sigma;
 #if MK_NONSYM
   if (strat == DUAL) {
@@ -2178,6 +2265,109 @@ __device__ void ruiz(const Ctx& cx, const double* Praw, const double* Araw,
     for (int k = lo; k < hi; ++k) ef[k] = mean;
   }
 }
+
+#if MK_TWO_PHASE
+// The float32 first phase (K1e; reference loop_cond1/loop_body1,
+// l.3212-3281) of one lane, over float32 copies of the scaled data
+// (reference _Dat.to_f32, l.523-528) and the float instance of the loop's
+// code.  Each iteration reads the carry rounded to float32 and hands off
+// to the float64 loop at the top when mu < p1_switch_mu, mu is not finite,
+// the lane has run p1_cap iterations, or mu stopped contracting (mu >
+// 0.9 mu_prev from iteration 5 on); after the step when the KKT solve
+// failed or alpha <= 0.01, in which case the step is not taken.  A taken
+// step writes the new and the previous iterate (float32 values); a step
+// not taken leaves the carry as it was.  prev_*, mu_f, alpha_f and
+// sigma_f update as the float64 loop updates them; no status is set.
+// Returns the phase's iteration count, where the float64 loop's count
+// starts.  Not inlined: its float32 working set (the data copy, scaling,
+// factor and refinement arrays) is a frame of its own, dead before the
+// float64 loop's exists.
+__device__ __noinline__ int phase1(const Ctx& cx, double* x, double* z,
+                                   double* s, double& tau, double& kappa,
+                                   double* px, double* pz, double* ps,
+                                   double& ptau, double& pkap,
+                                   double& prev_rp, double& prev_rd,
+                                   double& prev_ga, double& prev_gr,
+                                   double& mu_f, double& alpha_f,
+                                   double& sigma_f) {
+  CtxT<float> c32;
+  c32.p = cx.p;
+  c32.p.refine_abstol = P1_REFINE_ABSTOL;
+  c32.p.refine_reltol = P1_REFINE_RELTOL;
+  c32.p.refine_passes = cx.p.p1_refine_passes;
+  ProbT<float>& pr = c32.pr;
+  const Prob& pd = cx.pr;
+  for (int i = 0; i < N * N; ++i) pr.P[i] = (float)pd.P[i];
+  for (int i = 0; i < M * N; ++i) pr.A[i] = (float)pd.A[i];
+  for (int j = 0; j < N; ++j) {
+    pr.q[j] = (float)pd.q[j];
+    pr.d[j] = (float)pd.d[j];
+    pr.dinv[j] = (float)pd.dinv[j];
+  }
+  for (int k = 0; k < M; ++k) {
+    pr.b[k] = (float)pd.b[k];
+    pr.e[k] = (float)pd.e[k];
+    pr.einv[k] = (float)pd.einv[k];
+  }
+  pr.cinv = (float)pd.cinv;
+  pr.normq = (float)pd.normq;
+  pr.normb = (float)pd.normb;
+  pr.pdiag = (float)pd.pdiag;
+  const float inv_deg1 = (float)(1.0 / (cx.p.degree + 1));
+  const float switch_mu = (float)cx.p.p1_switch_mu;
+  float muf = (float)mu_f;
+  int iters = 0;
+  for (;;) {
+    float xf[N], zf[M], sf[M];
+    for (int j = 0; j < N; ++j) xf[j] = (float)x[j];
+    for (int k = 0; k < M; ++k) {
+      zf[k] = (float)z[k];
+      sf[k] = (float)s[k];
+    }
+    const float tauf = (float)tau, kapf = (float)kappa;
+    const float tinv = 1.0f / tauf;
+    ResT<float> res;
+    residuals(c32, xf, zf, sf, tauf, kapf, tinv, res);
+    const float mu = (res.sz + tauf * kapf) * inv_deg1;
+    InfoT<float> info;
+    compute_info(c32, res, xf, zf, sf, kapf, tinv, info);
+    const bool hand_top =
+        mu < switch_mu || !isfinite(mu) || iters >= cx.p.p1_cap ||
+        (iters >= P1_STALL_FROM_ITER && mu > P1_STALL_RATIO * muf);
+    muf = mu;
+    if (hand_top) break;
+    ++iters;
+    StepT<float> st;
+    pc_step(c32, xf, zf, sf, tauf, kapf, tinv, res, mu, iters, PRIMAL_DUAL,
+            st);
+    const bool take = !st.kkt_fail && !(st.alpha <= P1_MIN_STEP);
+    alpha_f = take ? st.alpha : 0.0f;
+    sigma_f = st.sigma;
+    if (!take) break;
+    const float a = st.alpha;
+    for (int j = 0; j < N; ++j) {
+      px[j] = xf[j];
+      x[j] = xf[j] + st.dx[j] * a;
+    }
+    for (int k = 0; k < M; ++k) {
+      pz[k] = zf[k];
+      ps[k] = sf[k];
+      z[k] = zf[k] + st.dz[k] * a;
+      s[k] = sf[k] + st.ds[k] * a;
+    }
+    ptau = tauf;
+    pkap = kapf;
+    tau = tauf + st.dtau * a;
+    kappa = kapf + st.dkappa * a;
+    prev_rp = info.res_primal;
+    prev_rd = info.res_dual;
+    prev_ga = info.gap_abs;
+    prev_gr = info.gap_rel;
+  }
+  mu_f = muf;
+  return iters;
+}
+#endif
 
 __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
                            const In& Ain, const In& bin, long long lane,
@@ -2267,7 +2457,7 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
     Scale id;
     id.ident = true;
     Kkt k0;
-    build_kkt(cx, id, eps_of(cx, nullptr), k0);
+    build_kkt(cx, id, eps_of<double>(cx, nullptr), k0);
     if (p.p_nonzero) {
       double bx[1][N], bz[1][M], xs[1][N], zs[1][M];
       for (int j = 0; j < N; ++j) bx[0][j] = -pr.q[j];
@@ -2297,6 +2487,11 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
 #if MK_GENPOW
   // a generalized power cone pins every lane to Dual (reference l.560-568)
   strat = DUAL;
+#endif
+#if MK_TWO_PHASE
+  iters = phase1(cx, x, z, s, tau, kappa, px, pz, ps, ptau, pkap, prev_rp,
+                 prev_rd, prev_ga, prev_gr, mu_f, alpha_f, sigma_f);
+  const int p1_iters = iters;
 #endif
   const double inv_deg1 = 1.0 / (p.degree + 1);
   const double sr = p.stall_ratio;
@@ -2431,6 +2626,9 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
   ints[lane] = status;
   ints[B + lane] = iters;
   ints[2 * B + lane] = strat;
+#if MK_TWO_PHASE
+  ints[3 * B + lane] = p1_iters;
+#endif
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -2448,7 +2646,7 @@ mk_kernel(In P, In q, In A, In b, long long B, MkParams prm,
 extern "C" {
 
 // Shape this library was built for: {n, m, segments, nonsymmetric, psd,
-// genpow, OUTD}.
+// genpow, two-phase, OUTD}.
 int mk_shape(int* out) {
   out[0] = N;
   out[1] = M;
@@ -2456,7 +2654,8 @@ int mk_shape(int* out) {
   out[3] = MK_NONSYM;
   out[4] = MK_PSD;
   out[5] = MK_GENPOW;
-  out[6] = OUTD;
+  out[6] = MK_TWO_PHASE;
+  out[7] = OUTD;
   return 0;
 }
 
@@ -2464,9 +2663,10 @@ int mk_shape(int* out) {
 int mk_params_size(void) { return (int)sizeof(MkParams); }
 
 // Launch the whole batched solve on `stream`.  Input component k of lane l
-// is ptr[k * ld + l * ls].  vals is (OUTD, B) float64, ints (3, B) int32
-// (status, iterations, final scaling strategy).  Returns cudaGetLastError()
-// after the launch.
+// is ptr[k * ld + l * ls].  vals is (OUTD, B) float64, ints (4, B) int32
+// (status, iterations, final scaling strategy, and with MK_TWO_PHASE the
+// float32 phase's iterations; without it the kernel leaves that row to the
+// caller).  Returns cudaGetLastError() after the launch.
 int mk_solve(const double* P, long long P_ld, long long P_ls,
              const double* q, long long q_ld, long long q_ls,
              const double* A, long long A_ld, long long A_ls,

@@ -1,15 +1,17 @@
-"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a-K1d).
+"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a-K1e).
 
 The kernel has compile-time sizes, so there is one library per problem
-shape: n, m, the number of cone segments, and three flags that compile a
-cone family's code in only where the layout has such a segment (a
-nonsymmetric segment: K1b; a generalized power segment: K1c; a PSD
-segment: K1d).  Each is built at first use by `cuda_build.CudaLibrary`
-(nvcc for sm_90a, loaded with ctypes).
+shape: n, m, the number of cone segments, three flags that compile a cone
+family's code in only where the layout has such a segment (a nonsymmetric
+segment: K1b; a generalized power segment: K1c; a PSD segment: K1d), and
+one that compiles in the float32 first phase (K1e) where the spec runs it.
+Each is built at first use by `cuda_build.CudaLibrary` (nvcc for sm_90a,
+loaded with ctypes).
 
 `megakernel(Ptri, q, A, b, spec, B)` checks its inputs, allocates the outputs
-with `torch.empty`, launches on the current stream and counts the launch.
-It never falls back to the plain version: a failed build or launch raises.
+with `torch.empty`, launches on the current stream and counts the launch
+(and, for a two-phase library, the launch of K1e).  It never falls back to
+the plain version or to the single phase: a failed build or launch raises.
 """
 
 import ctypes
@@ -24,22 +26,25 @@ _SEG_CODES = {"zero": 0, "nn": 1, "soc": 2, "exp": 3, "pow": 4,
               "genpow": 5, "psd": 6}
 GPW = 16    # the widest generalized power segment (csrc GPW)
 
-# (n, m, segments, nonsymmetric 0/1, psd 0/1, genpow 0/1)
-Shape = Tuple[int, int, int, int, int, int]
+# (n, m, segments, nonsymmetric 0/1, psd 0/1, genpow 0/1, two-phase 0/1)
+Shape = Tuple[int, int, int, int, int, int, int]
 
 
 @functools.lru_cache(maxsize=None)
-def _params_struct(nseg: int, psd: int, genpow: int):
+def _params_struct(nseg: int, psd: int, genpow: int, two_phase: int):
     """The ctypes mirror of MkParams for `nseg` cone segments, with the
-    genpow fields where the library has K1c and the PSD field where it has
-    K1d (one class per variant: ctypes checks a by-value argument's
-    class).  `bind` checks its size against the library's
-    sizeof(MkParams)."""
+    genpow fields where the library has K1c, the PSD field where it has
+    K1d and the first phase's fields where it has K1e (one class per
+    variant: ctypes checks a by-value argument's class).  `bind` checks
+    its size against the library's sizeof(MkParams)."""
     seg = ctypes.c_int * nseg
     seg_d = ctypes.c_double * nseg
     gp_fields = [("gp_alpha", ctypes.c_double * (nseg * GPW)),
                  ("gp_d1", seg)] if genpow else []
     psd_fields = [("psd_sweeps", ctypes.c_int)] if psd else []
+    p1_fields = [("p1_switch_mu", ctypes.c_double),
+                 ("p1_cap", ctypes.c_int),
+                 ("p1_refine_passes", ctypes.c_int)] if two_phase else []
 
     class MkParams(ctypes.Structure):
         _fields_ = [
@@ -68,7 +73,7 @@ def _params_struct(nseg: int, psd: int, genpow: int):
             ("eq_max_iter", ctypes.c_int),
             ("refine_passes", ctypes.c_int),
             ("linesearch_max_iter", ctypes.c_int),
-        ] + gp_fields + psd_fields
+        ] + gp_fields + psd_fields + p1_fields
 
     return MkParams
 
@@ -76,7 +81,7 @@ def _params_struct(nseg: int, psd: int, genpow: int):
 def _params(spec):
     st = spec.st
     prm = _params_struct(len(spec.segs), int(spec.has("psd")),
-                         int(spec.has("genpow")))()
+                         int(spec.has("genpow")), int(spec.two_phase))()
     prm.eq_min_scaling = st.equilibrate_min_scaling
     prm.eq_max_scaling = st.equilibrate_max_scaling
     prm.static_reg_constant = st.static_regularization_constant
@@ -107,6 +112,10 @@ def _params(spec):
                 prm.gp_alpha[g * GPW + j] = v
     if spec.has("psd"):
         prm.psd_sweeps = spec.psd_sweeps
+    if spec.two_phase:
+        prm.p1_switch_mu = spec.switch_mu
+        prm.p1_cap = spec.p1_cap
+        prm.p1_refine_passes = int(st.iterative_refinement_enable)
     prm.degree = spec.degree
     prm.p_nonzero = int(spec.p_nonzero)
     prm.max_iter = st.max_iter
@@ -119,22 +128,25 @@ def _params(spec):
 
 def shape_of(spec) -> Shape:
     return (spec.n, spec.m, len(spec.segs), int(spec.nonsym),
-            int(spec.has("psd")), int(spec.has("genpow")))
+            int(spec.has("psd")), int(spec.has("genpow")),
+            int(spec.two_phase))
 
 
 class Megakernel(CudaLibrary):
-    """The built libraries, one per shape, and the launch count."""
+    """The built libraries, one per shape, and the launch counts: every
+    launch, and the launches of two-phase libraries (K1e)."""
 
     def __init__(self):
         super().__init__("megakernel.cu",
                          macros=("MK_N", "MK_M", "MK_S", "MK_NONSYM",
-                                 "MK_PSD", "MK_GENPOW"),
-                         tags=("n", "m", "s", "ns", "psd", "gp"))
+                                 "MK_PSD", "MK_GENPOW", "MK_TWO_PHASE"),
+                         tags=("n", "m", "s", "ns", "psd", "gp", "tp"))
         self.launches = 0
+        self.two_phase_launches = 0
 
     def bind(self, lib: ctypes.CDLL, shape: Shape) -> None:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        params = _params_struct(shape[2], shape[4], shape[5])
+        params = _params_struct(shape[2], shape[4], shape[5], shape[6])
         lib.mk_solve.argtypes = [vp, ll, ll, vp, ll, ll, vp, ll, ll,
                                  vp, ll, ll, ll, params, vp, vp, vp]
         lib.mk_solve.restype = ctypes.c_int
@@ -142,11 +154,11 @@ class Megakernel(CudaLibrary):
         lib.mk_shape.restype = ctypes.c_int
         lib.mk_params_size.argtypes = []
         lib.mk_params_size.restype = ctypes.c_int
-        got = (ctypes.c_int * 7)()
+        got = (ctypes.c_int * 8)()
         lib.mk_shape(got)
-        if tuple(got[:6]) != shape:
+        if tuple(got[:7]) != shape:
             raise RuntimeError(f"{self.lib_path(shape)} was built for "
-                               f"{tuple(got[:6])}, not {shape}")
+                               f"{tuple(got[:7])}, not {shape}")
         if lib.mk_params_size() != ctypes.sizeof(params):
             raise RuntimeError(
                 f"MkParams is {lib.mk_params_size()} bytes in "
@@ -155,8 +167,9 @@ class Megakernel(CudaLibrary):
 
     def __call__(self, Ptri, q, A, b, spec, B):
         """Launch the batched solve over B lanes; returns (vals (OUTD, B)
-        float64, ints (3, B) int32: status, iterations, final scaling
-        strategy) on the inputs' device."""
+        float64, ints (4, B) int32: status, iterations, final scaling
+        strategy, iterations of the float32 first phase) on the inputs'
+        device."""
         dims = (spec.triu, spec.n, spec.n * spec.m, spec.m)
         device = Ptri.device
         if B < 1:
@@ -183,7 +196,9 @@ class Megakernel(CudaLibrary):
             else:
                 raise ValueError(f"{name} must be 1-D or 2-D")
         vals = torch.empty((spec.outd, B), dtype=torch.float64, device=device)
-        ints = torch.empty((3, B), dtype=torch.int32, device=device)
+        ints = torch.empty((4, B), dtype=torch.int32, device=device)
+        if not spec.two_phase:
+            ints[3].zero_()     # a single-phase library leaves this row
         lib = self.load(shape_of(spec))
         args = []
         for t, (ld, ls) in zip((Ptri, q, A, b), strides):
@@ -195,6 +210,7 @@ class Megakernel(CudaLibrary):
         if rc != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.two_phase_launches += int(spec.two_phase)
         return vals, ints
 
 

@@ -1,6 +1,7 @@
 """Host side of the batched IPM megakernel (K1a: zero/nn/soc segments;
 K1b: exponential and power segments; K1c: generalized power segments; K1d:
-PSD-triangle segments of side at most 3).
+PSD-triangle segments of side at most 3; K1e: the opt-in float32 first
+phase, `Settings.megakernel_two_phase`).
 
 The reference (`clarabel_tpu/ipm/megakernel.py`) runs the whole batched
 IPM as one Pallas kernel per 1024-lane block.  The port runs it as one
@@ -103,8 +104,9 @@ class MegaSpec:
     (kind, lo, hi), each segment's power-cone exponent (0 for the other
     kinds), each segment's generalized-power exponents (() for the other
     kinds; the segment's dim2 is its width less their count), the cap on
-    the Jacobi sweeps of PSD segments and the settings.  A PSD segment's
-    side follows from its width."""
+    the Jacobi sweeps of PSD segments, the float32 first phase (K1e) as
+    `make_spec` resolves it, and the settings.  A PSD segment's side
+    follows from its width."""
 
     n: int
     m: int
@@ -117,6 +119,11 @@ class MegaSpec:
     # the most Jacobi sweeps of a PSD segment's SVD and eigenvalues; they
     # stop earlier once no pair rotates (DEVIATIONS.md #12)
     psd_sweeps: int = megakernel_ref.JACOBI_SWEEPS
+    # the float32 first phase: on, the mu below which a lane hands off to
+    # the float64 loop, and the most iterations a lane spends in it
+    two_phase: bool = False
+    switch_mu: float = 1e-3
+    p1_cap: int = megakernel_ref.P1_CAP
 
     def has(self, *kinds) -> bool:
         return any(k in kinds for k, _, _ in self.segs)
@@ -154,14 +161,22 @@ def make_spec(layout: ConeLayout, settings: Settings, n: int,
                       else 0.0)
         gp_alphas.append(tuple(float(a) for a in cone.alpha)
                          if isinstance(cone, GenPowerConeT) else ())
+    # the reference keeps the float32 phase off where zero-cone rows (1/eps
+    # in the condensed system) or nonsymmetric segments would break it
+    # (clarabel_tpu/ipm/megakernel.py:549-570)
+    kinds = {k for k, _, _ in segs}
+    two_phase = bool(settings.megakernel_two_phase) and not (
+        kinds & {"zero", "exp", "pow", "genpow"})
     return MegaSpec(n, layout.m, tuple(segs), layout.degree,
                     bool(p_nonzero), settings, tuple(alphas),
-                    tuple(gp_alphas))
+                    tuple(gp_alphas), two_phase=two_phase,
+                    switch_mu=float(settings.megakernel_switch_mu),
+                    p1_cap=min(megakernel_ref.P1_CAP, int(settings.max_iter)))
 
 
 REST_NAMES = ["obj_val_dual", "r_prim", "r_dual", "gap_abs", "gap_rel",
               "mu", "step_length", "sigma", "ktratio", "tau", "kappa",
-              "raw_status"]
+              "raw_status", "p1_iterations"]
 
 
 def prepare(P, q, A, b, spec: MegaSpec, device):
@@ -217,8 +232,9 @@ def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
     """The megakernel wrapper over B lanes: on CUDA tensors it launches
     the kernel (or raises); on CPU tensors it runs the plain PyTorch
     version.  B is passed, not read from the flats: every flat may be a
-    batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (3, B)
-    int32: status, iterations, final scaling strategy)."""
+    batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (4, B)
+    int32: status, iterations, final scaling strategy, iterations of the
+    float32 first phase)."""
     devs = {t.device.type for t in (Ptri, q, A, b)}
     if devs == {"cuda"}:
         from . import _cuda
@@ -230,13 +246,15 @@ def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
 
 
 def split_outputs(vals, ints, spec: MegaSpec):
-    """(OUTD, B), (3, B) -> the eager block (x, obj_val, status,
-    iterations; (n+3, B) float64) and the rest (z, s, diagnostics), both
-    lane-minor on the device."""
+    """(OUTD, B), (4, B) -> the eager block (x, obj_val, status,
+    iterations; (n+3, B) float64) and the rest (z, s, diagnostics, the
+    iterations of the float32 first phase last), both lane-minor on the
+    device."""
     n, k = spec.n, spec.n + 2 * spec.m
     eager = torch.cat([vals[:n], vals[k:k + 1], ints[:2].to(vals.dtype)],
                       dim=0)
-    rest = torch.cat([vals[n:k], vals[k + 1:]], dim=0)
+    rest = torch.cat([vals[n:k], vals[k + 1:], ints[3:4].to(vals.dtype)],
+                     dim=0)
     return eager, rest
 
 

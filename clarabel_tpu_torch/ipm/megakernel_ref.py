@@ -1,4 +1,4 @@
-"""The plain PyTorch version of the batched IPM megakernel (K1a-K1d).
+"""The plain PyTorch version of the batched IPM megakernel (K1a-K1e).
 
 Computes what the reference's one-block function
 (`clarabel_tpu/ipm/megakernel.py` `compute`) computes for zero,
@@ -17,7 +17,9 @@ inverted by three Sherman–Morrison updates, no third-order correction, and
 pin every lane to Dual from the start.  PSD segments (K1d) take the NT
 scaling from clamped Cholesky factors and a one-sided Jacobi SVD, their
 step lengths from Jacobi eigenvalues and their barrier from a Cholesky
-logdet.
+logdet.  With `MegaSpec.two_phase` (K1e, nn, SOC and PSD layouts only)
+a float32 first phase runs predictor-corrector steps in plain float32
+until each lane hands off to the float64 loop (`_phase1`).
 Every per-lane update is masked; the loops run while any lane is still
 active, so each lane's result is what a loop run for that lane alone
 gives.  This is what lets the CUDA kernel (`csrc/megakernel.cu`) run one
@@ -34,9 +36,10 @@ CUDA kernel; this version then only serves to check it.
 Inputs are the kernel's flats, component-major and lane-minor: Ptri
 (n(n+1)/2, B) column-major upper triangle, q (n, B), A (n*m, B)
 column-major, b (m, B); a batch-constant component may come as a 1-D
-(d,) tensor instead.  Outputs are (OUTD, B) float64 values and (3, B)
-int32 (status, iterations, final scaling strategy), OUTD = n + 2m + 13,
-the values in the reference's row order.
+(d,) tensor instead.  Outputs are (OUTD, B) float64 values and (4, B)
+int32 (status, iterations, final scaling strategy, iterations of the
+float32 first phase), OUTD = n + 2m + 13, the values in the reference's
+row order.
 """
 
 import math
@@ -53,6 +56,7 @@ MAX_ITERATIONS, NUMERICAL_ERROR, INSUFFICIENT_PROGRESS = 7, 9, 10
 BIG = 1e30
 F64 = torch.float64
 EPS64 = float(torch.finfo(F64).eps)
+EPS32 = float(torch.finfo(torch.float32).eps)
 
 # scaling strategies (reference src/types.jl:73-76)
 PRIMAL_DUAL, DUAL = 0, 1
@@ -63,6 +67,11 @@ STEP_CAP = 1.0 - 2.0 ** -12
 # trip limits of the joint feasibility backtrack (reference l.2209) and of
 # the one-sided Newton iteration of the pow primal gradient (l.1029)
 FEAS_TRIPS, NR_TRIPS = 60, 50
+# hand-off rules of the float32 first phase (K1e; reference l.79-82): a
+# lane leaves it when its step falls to P1_MIN_STEP, when its mu stops
+# contracting by P1_STALL_RATIO from iteration P1_STALL_FROM_ITER on, or
+# at the cap min(P1_CAP, max_iter) (MegaSpec.p1_cap)
+P1_MIN_STEP, P1_STALL_RATIO, P1_STALL_FROM_ITER, P1_CAP = 0.01, 0.9, 5, 25
 
 
 def _lanes(flat, d, B):
@@ -142,9 +151,13 @@ def ruiz(P, q, A, spec):
 
 
 class _Ops:
-    """The solver's subroutines over one batch's scaled data."""
+    """The solver's subroutines over one batch's scaled data, in the data's
+    dtype: float64, or float32 in the first phase (`f32=True`), which also
+    takes at most one refinement pass at float32 tolerances (reference
+    l.89, 1842-1849) and stops the Jacobi sweeps at float32 rounding
+    (DEVIATIONS.md #12)."""
 
-    def __init__(self, spec, Ps, As, qe, be):
+    def __init__(self, spec, Ps, As, qe, be, f32=False):
         self.spec = spec
         self.st = spec.st
         self.n, self.m = spec.n, spec.m
@@ -156,10 +169,16 @@ class _Ops:
         self.Ps, self.As, self.qe, self.be = Ps, As, qe, be
         self.pn = spec.p_nonzero
         st = spec.st
-        self.r_abstol = min(st.iterative_refinement_abstol, 1e-14)
-        self.r_reltol = min(st.iterative_refinement_reltol, 1e-15)
-        self.passes = (0 if not st.iterative_refinement_enable
-                       else min(int(st.iterative_refinement_max_iter), 4))
+        if f32:
+            self.r_abstol, self.r_reltol = 1e-7, 3e-7
+            self.passes = int(st.iterative_refinement_enable)
+            self.jacobi_eps = EPS32
+        else:
+            self.r_abstol = min(st.iterative_refinement_abstol, 1e-14)
+            self.r_reltol = min(st.iterative_refinement_reltol, 1e-15)
+            self.passes = (0 if not st.iterative_refinement_enable
+                           else min(int(st.iterative_refinement_max_iter), 4))
+            self.jacobi_eps = EPS64
         self.pdiag = (torch.diagonal(Ps, dim1=1, dim2=2).abs().amax(dim=1)
                       if self.pn else torch.zeros_like(qe[:, 0]))
 
@@ -191,7 +210,7 @@ class _Ops:
                 # a breakdown of the chol factors is not fatal; non-finite
                 # R or Rinv is (reference l.1418-1451)
                 stg, fin = _psd_scaling(sg, zg, psd_side(hi - lo),
-                                        self.sweeps)
+                                        self.sweeps, self.jacobi_eps)
                 ok = ok & fin
                 state.append(stg)
             elif kind == "genpow":
@@ -501,10 +520,11 @@ class _Ops:
                 continue
             if kind == "psd":
                 alpha = torch.minimum(alpha, _psd_step_comp(
-                    dz[:, lo:hi], stg["R"], stg["lam"], False, self.sweeps))
+                    dz[:, lo:hi], stg["R"], stg["lam"], False, self.sweeps,
+                    self.jacobi_eps))
                 alpha = torch.minimum(alpha, _psd_step_comp(
                     ds[:, lo:hi], stg["Rinv"], stg["lam"], True,
-                    self.sweeps))
+                    self.sweeps, self.jacobi_eps))
             elif kind == "nn":
                 for v, dv in ((z[:, lo:hi], dz[:, lo:hi]),
                               (s[:, lo:hi], ds[:, lo:hi])):
@@ -1265,12 +1285,13 @@ def _mat_chol(M):
     return L, ok
 
 
-def _jacobi_svd(A, sweeps):
+def _jacobi_svd(A, sweeps, eps=EPS64):
     """One-sided (Hestenes) Jacobi SVD, A = U diag(sigma) V' (reference
     jacobi_svd, l.707): rotations orthogonalize the column pairs of A
     itself, so accuracy follows kappa(A), not kappa(A)^2.  A pair rotates
-    while |a_p . a_q| > eps64 sqrt(|a_p|^2 |a_q|^2); sweeps run until no
-    pair of any lane rotates, at most `sweeps`."""
+    while |a_p . a_q| > eps sqrt(|a_p|^2 |a_q|^2), eps the unit roundoff of
+    the arithmetic (float64, or float32 in the first phase); sweeps run
+    until no pair of any lane rotates, at most `sweeps`."""
     np_ = len(A)
     one = torch.ones_like(A[0][0])
     if np_ == 1:
@@ -1287,7 +1308,7 @@ def _jacobi_svd(A, sweeps):
             al = sum(Ac[i][p] * Ac[i][p] for i in range(np_))
             be = sum(Ac[i][q] * Ac[i][q] for i in range(np_))
             ga = sum(Ac[i][p] * Ac[i][q] for i in range(np_))
-            live = ga.abs() > EPS64 * torch.sqrt(al * be)
+            live = ga.abs() > eps * torch.sqrt(al * be)
             rotated = rotated | live
             ga_s = torch.where(live, ga, 1.0)
             zeta = (be - al) / (ga_s * 2.0)
@@ -1316,11 +1337,11 @@ def _jacobi_svd(A, sweeps):
     return sig, U, V
 
 
-def _psd_eigvals(M, sweeps):
+def _psd_eigvals(M, sweeps, eps=EPS64):
     """All eigenvalues (a list, in no order) of a symmetric matrix of side
     <= 3 (reference psd_eigvals32, l.767, in float64): side 2 in closed
     form, side 3 by values-only cyclic Jacobi, rotating a pair while
-    |a_pq| > eps64 sqrt(|a_pp a_qq|), until no pair of any lane rotates,
+    |a_pq| > eps sqrt(|a_pp a_qq|), until no pair of any lane rotates,
     at most `sweeps`."""
     np_ = len(M)
     if np_ == 1:
@@ -1336,7 +1357,7 @@ def _psd_eigvals(M, sweeps):
         rotated = torch.zeros_like(zero, dtype=torch.bool)
         for p, q in ((0, 1), (0, 2), (1, 2)):
             apq = A[p][q]
-            live = apq.abs() > EPS64 * torch.sqrt((A[p][p] * A[q][q]).abs())
+            live = apq.abs() > eps * torch.sqrt((A[p][p] * A[q][q]).abs())
             rotated = rotated | live
             theta = (A[q][q] - A[p][p]) / (2.0 * torch.where(live, apq, 1.0))
             t = torch.sign(theta) / (theta.abs()
@@ -1384,14 +1405,14 @@ def _psd_logdet(M):
     return val, ok
 
 
-def _psd_scaling(sg, zg, np_, sweeps):
+def _psd_scaling(sg, zg, np_, sweeps, eps):
     """NT scaling of one segment: clamped, non-fatal chol of S and Z, the
     one-sided Jacobi SVD of L2'L1 = U diag(lam) V', R = L1 V lam^{-1/2},
     Rinv = lam^{-1/2} U' L2' (reference l.1418-1451).  Returns the state
     and whether R and Rinv are finite."""
     L1, _ = _mat_chol(_psd_unpack(list(sg.unbind(1)), np_))
     L2, _ = _mat_chol(_psd_unpack(list(zg.unbind(1)), np_))
-    lam, U, V = _jacobi_svd(_mm(_mT(L2), L1), sweeps)
+    lam, U, V = _jacobi_svd(_mm(_mT(L2), L1), sweeps, eps)
     lis = [1.0 / torch.sqrt(l) for l in lam]
     L1V = _mm(L1, V)
     R = [[L1V[i][j] * lis[j] for j in range(np_)] for i in range(np_)]
@@ -1401,7 +1422,7 @@ def _psd_scaling(sg, zg, np_, sweeps):
     return {"R": R, "Rinv": Rinv, "lam": lam, "np": np_}, fin
 
 
-def _psd_step_comp(dg, Rx, lam, transpose, sweeps):
+def _psd_step_comp(dg, Rx, lam, transpose, sweeps, eps):
     """The largest step along one direction of a PSD segment: from the
     least eigenvalue of lam^{-1/2} (W d) lam^{-1/2} (reference
     l.2104-2150, in float64)."""
@@ -1412,7 +1433,7 @@ def _psd_step_comp(dg, Rx, lam, transpose, sweeps):
           else _mm(_mm(_mT(Rx), D), Rx))
     Ms = [[0.5 * (Mt[i][j] + Mt[j][i]) * li[i] * li[j] for j in range(np_)]
           for i in range(np_)]
-    eigs = _psd_eigvals(Ms, sweeps)
+    eigs = _psd_eigvals(Ms, sweeps, eps)
     gmin = eigs[0]
     for e in eigs[1:]:
         gmin = torch.minimum(gmin, e)
@@ -1653,7 +1674,7 @@ def tolerances(st):
 
 def mega_solve_plain(Ptri, q, A, b, spec, B):
     """The whole batched solve over B lanes; see the module docstring for
-    the layout.  Returns (vals (OUTD, B) float64, ints (3, B) int32)."""
+    the layout.  Returns (vals (OUTD, B) float64, ints (4, B) int32)."""
     st = spec.st
     n, m = spec.n, spec.m
     for name, t in zip("PqAb", (Ptri, q, A, b)):
@@ -1713,6 +1734,17 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
     # l.560-568: allows_pd)
     strat = torch.full_like(iters, DUAL if spec.has("genpow")
                             else PRIMAL_DUAL)
+    p1_iters = torch.zeros_like(iters)
+    if spec.two_phase:
+        carry = _phase1(spec, Ps, As, qe, be, sc, dict(
+            x=x, z=z, s=s, tau=tau, kappa=kappa, px=px, pz=pz, ps=ps,
+            ptau=ptau, pkap=pkap, prev_rp=prev_rp, prev_rd=prev_rd,
+            prev_ga=prev_ga, prev_gr=prev_gr, mu_f=mu_f, alpha_f=alpha_f,
+            sigma_f=sigma_f, iters=iters, strat=strat))
+        (x, z, s, tau, kappa, px, pz, ps, ptau, pkap, prev_rp, prev_rd,
+         prev_ga, prev_gr, mu_f, alpha_f, sigma_f, iters) = (
+            carry[k] for k in _CARRY)
+        p1_iters = iters.clone()
     full_tols, reduced_tols = tolerances(st)
     inv_deg1 = 1.0 / (spec.degree + 1)
     sr = st.stall_detection_ratio
@@ -1837,7 +1869,74 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
                       s * einv * scaleinv[:, None],
                       torch.stack(scalars, dim=1)], dim=1)
     return (vals.t().contiguous(),
-            torch.stack([status, iters, strat]).contiguous())
+            torch.stack([status, iters, strat, p1_iters]).contiguous())
+
+
+_CARRY = ("x", "z", "s", "tau", "kappa", "px", "pz", "ps", "ptau", "pkap",
+          "prev_rp", "prev_rd", "prev_ga", "prev_gr", "mu_f", "alpha_f",
+          "sigma_f", "iters")
+
+
+def _phase1(spec, Ps, As, qe, be, sc, c):
+    """The float32 first phase (K1e; reference loop_body1, l.3212-3281):
+    predictor-corrector steps in plain float32 over float32 copies of the
+    scaled data, each lane until it hands off to the float64 loop, at the
+    top of an iteration when mu < switch_mu, mu is not finite, the lane
+    reached p1_cap iterations, or mu stopped contracting; or after a step
+    whose KKT solve failed or whose length is at most P1_MIN_STEP, which is
+    then not taken.  Every read of the carry rounds it to float32; a taken
+    step writes the new and the previous iterate, a step not taken leaves
+    them as they were.  No status is set here.  Returns the carry (`c`,
+    float64 values and int32 iterations) that the float64 loop starts
+    from."""
+    f32 = torch.float32
+    ops = _Ops(spec, Ps.to(f32), As.to(f32), qe.to(f32), be.to(f32),
+               f32=True)
+    sc32 = {k: v.to(f32) for k, v in sc.items()}
+    inv_deg1 = 1.0 / (spec.degree + 1)
+    mu_f = c["mu_f"].to(f32)
+    hand = torch.zeros_like(mu_f, dtype=torch.bool)
+    W = lambda msk, a, b_: torch.where(msk[:, None], a, b_)
+    while not bool(hand.all()):
+        active = ~hand
+        x, z, s, tau, kappa = (c[k].to(f32)
+                               for k in ("x", "z", "s", "tau", "kappa"))
+        iters = c["iters"]
+        tinv = 1.0 / tau
+        res = ops.residuals(x, z, s, tau, kappa, tinv)
+        mu = (res["sz"] + tau * kappa) * inv_deg1
+        info = ops.compute_info(sc32, res, x, z, s, kappa, tinv)
+        hand_top = ((mu < spec.switch_mu) | ~torch.isfinite(mu)
+                    | (iters >= spec.p1_cap)
+                    | ((iters >= P1_STALL_FROM_ITER)
+                       & (mu > P1_STALL_RATIO * mu_f)))
+        do = active & ~hand_top
+        iters1 = iters + do.to(torch.int32)
+        dx, dz, dsv, dtau, dkappa, alpha, sigma, kkt_fail = _pc_step(
+            ops, x, z, s, tau, kappa, tinv, res, mu, iters1, c["strat"], do)
+        take = ~kkt_fail & ~(alpha <= P1_MIN_STEP)
+        alpha_eff = torch.where(take, alpha, 0.0)
+        dotake = do & take
+        a = alpha_eff[:, None]
+        for k, v, d in (("x", x, dx), ("z", z, dz), ("s", s, dsv)):
+            c["p" + k] = W(dotake, v.to(F64), c["p" + k])
+            c[k] = W(dotake, (v + d * a).to(F64), c[k])
+        c["ptau"] = torch.where(dotake, tau.to(F64), c["ptau"])
+        c["pkap"] = torch.where(dotake, kappa.to(F64), c["pkap"])
+        c["tau"] = torch.where(dotake, (tau + dtau * alpha_eff).to(F64),
+                               c["tau"])
+        c["kappa"] = torch.where(
+            dotake, (kappa + dkappa * alpha_eff).to(F64), c["kappa"])
+        for k, f in (("prev_rp", "res_primal"), ("prev_rd", "res_dual"),
+                     ("prev_ga", "gap_abs"), ("prev_gr", "gap_rel")):
+            c[k] = torch.where(dotake, info[f].to(F64), c[k])
+        mu_f = torch.where(active, mu, mu_f)
+        c["alpha_f"] = torch.where(do, alpha_eff.to(F64), c["alpha_f"])
+        c["sigma_f"] = torch.where(do, sigma.to(F64), c["sigma_f"])
+        hand = hand | (active & (hand_top | (do & ~take)))
+        c["iters"] = iters1
+    c["mu_f"] = mu_f.to(F64)
+    return c
 
 
 def unit_point(spec, B, device):

@@ -6,7 +6,10 @@ CUDA card":
 
 * the megakernel: the whole batched solve as one launch of the CUDA kernel
   (`csrc/megakernel.cu`), or its plain PyTorch version when the caller
-  asks for it on the CPU with `kkt_backend="megakernel"`;
+  asks for it on the CPU with `kkt_backend="megakernel"`.  As in the
+  reference it ignores `factor_dtype` (it factors in float64, and the
+  rescue's stages force float64 factors) and runs a float32 first phase
+  where `megakernel_two_phase` is set and the layout allows it;
 * the loop solver (`ipm/loop.py`) with the `condensed` or the dense `ldl`
   KKT backend, batched over the lanes; float32 factors with N ≤ 80 go
   through the LDL kernel K2 (`csrc/ldl_inverse.cu`) on the card.
@@ -158,14 +161,6 @@ class BatchSolver:
                     "kkt_backend='megakernel' requires a small dense "
                     "layout at float64 with at least one barrier cone "
                     "(see ipm.megakernel.eligible)")
-            if st.megakernel_two_phase:
-                raise NotImplementedError(
-                    "megakernel_two_phase=True: ROADMAP.md Queue 2 K1e "
-                    "(f32 first phase)")
-            if st.factor_dtype not in (None, "float64"):
-                raise NotImplementedError(
-                    "float32 factors in the megakernel: ROADMAP.md Queue 1 "
-                    "item 10")
             self._mega_fn = megakernel.build_mega_solve(
                 self.layout, st, self.n, p_nonzero=p_nonzero,
                 device=self.device)

@@ -22,6 +22,7 @@ from clarabel_tpu_torch.parallel import batch_impl
 
 N = 3
 CONES = [ctt.NonnegativeConeT(N), ctt.SecondOrderConeT(N + 1)]
+CONES_BENCH = [ctt.NonnegativeConeT(6), ctt.SecondOrderConeT(7)]
 MEGA = ctt.Settings(kkt_backend="megakernel")
 SOLVED = int(ctt.SolverStatus.SOLVED)
 
@@ -81,12 +82,40 @@ def test_cones_now_in_the_slice_solve(cone):
 
 
 @pytest.mark.parametrize("change", [
-    {"kkt_backend": "blockarrow"}, {"kkt_backend": "multifrontal"},
-    {"kkt_backend": "megakernel", "megakernel_two_phase": True},
-    {"kkt_backend": "megakernel", "factor_dtype": "float32"}])
+    {"kkt_backend": "blockarrow"}, {"kkt_backend": "multifrontal"}])
 def test_settings_outside_the_slice_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         _solver(settings=ctt.Settings(**change))
+
+
+@pytest.mark.parametrize("change", [
+    {"megakernel_two_phase": True}, {"factor_dtype": "float32"}])
+def test_megakernel_settings_now_in_the_slice_solve(change):
+    """The float32 first phase (K1e) and float32 factors, which the
+    megakernel ignores as the reference does, run on the megakernel."""
+    P, q, A, b = _batch(16)
+    bs = _solver(settings=MEGA.replace(**change))
+    assert bs._mega_fn is not None
+    assert bs._mega_fn.spec.two_phase == change.get("megakernel_two_phase",
+                                                    False)
+    sol = bs.solve(P, q, A, b)
+    assert sol.all_solved, sol.status
+    assert sol.x.shape == (16, N) and np.isfinite(sol.x).all()
+
+
+def test_megakernel_ignores_factor_dtype():
+    """The same bits with float32 factors as without, and "auto" still
+    resolves to the megakernel on a card (resolve_backend reads only the
+    device's type)."""
+    P, q, A, b = _batch(16)
+    a = _solver(settings=MEGA.replace(factor_dtype="float32")).solve(
+        P, q, A, b)
+    ref = _solver().solve(P, q, A, b)
+    for k in ("x", "z", "s", "status", "iterations", "obj_val"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(ref, k))
+    st = ctt.Settings(factor_dtype="float32")
+    assert batch_impl.resolve_backend(ConeLayout(CONES), st, N,
+                                      torch.device("cuda")) == "megakernel"
 
 
 F32_TOLS = {"tol_gap_abs": 1e-5, "tol_gap_rel": 1e-5, "tol_feas": 1e-5}
@@ -276,7 +305,7 @@ def test_prepare_passes_batch_constant_components_once():
     v2, i2 = megakernel_ref.mega_solve_plain(flats[0], flats[1], wide,
                                              flats[3], spec, B)
     assert torch.equal(v1, v2) and torch.equal(i1, i2)
-    assert v1.shape == (spec.outd, B) and i1.shape == (3, B)
+    assert v1.shape == (spec.outd, B) and i1.shape == (4, B)
 
 
 def _identical_lanes(B):
@@ -318,7 +347,7 @@ def test_outputs_stay_lazy_until_read():
 
 def test_kernel_source_and_params_cover_the_spec():
     spec = _solver([ctt.ZeroConeT(1)] + CONES)._mega_fn.spec
-    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3, 0, 0, 0)
+    assert _cuda.shape_of(spec) == (N, 1 + 2 * N + 1, 3, 0, 0, 0, 0)
     prm = _cuda._params(spec)
     assert list(prm.seg_kind) == [0, 1, 2]
     assert list(prm.seg_hi) == [1, 1 + N, 2 + 2 * N]
@@ -364,7 +393,7 @@ def test_nonsym_kernel_matches_plain_version_on_the_card():
                        (ctt.PowerConeT(0.6), bench_data.make_pow_batch)):
         bs = ctt.BatchSolver([ctt.NonnegativeConeT(2), cone], 3)
         spec = bs._mega_fn.spec
-        assert _cuda.shape_of(spec) == (3, 5, 2, 1, 0, 0)
+        assert _cuda.shape_of(spec) == (3, 5, 2, 1, 0, 0, 0)
         _, flats = megakernel.prepare(*make(256), spec, "cuda")
         before = _cuda.megakernel.launches
         kv, ki = _cuda.megakernel(*flats, spec, 256)
@@ -452,3 +481,36 @@ def test_throughput_path_launches_the_ldl_kernel_on_the_card():
                             device="cpu").solve(*data)
     assert abs(int((sol.status == SOLVED).sum())
                - int((plain.status == SOLVED).sum())) <= 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bench", "psd3"])
+def test_two_phase_kernel_matches_plain_version_on_the_card(name):
+    """K1e: BatchSolver with megakernel_two_phase launches the two-phase
+    library, whose phase-1 counts and results meet the CPU tests' bars
+    against its plain version on the card (x to 1e-4 at n=6, as K1a; the
+    objective to 1e-6; iterations within 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    cones, n, data = {
+        "bench": (CONES_BENCH, 6, bench_data.make_batch(256, 6, 0)),
+        "psd3": ([ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)], 3,
+                 bench_data.make_sdp_batch(256, 3, 13)),
+    }[name]
+    bs = ctt.BatchSolver(cones, n, ctt.Settings(megakernel_two_phase=True))
+    spec = bs._mega_fn.spec
+    assert spec.two_phase and _cuda.shape_of(spec)[6] == 1
+    before = _cuda.megakernel.two_phase_launches
+    sol = bs.solve(*data)
+    assert _cuda.megakernel.two_phase_launches == before + 1
+    _, flats = megakernel.prepare(*data, spec, "cuda")
+    pv, pi = megakernel_ref.mega_solve_plain(*flats, spec, 256)
+    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+    assert (sol.status == SOLVED).sum() >= (pi[0] == SOLVED).sum() - 1
+    both = (sol.status == SOLVED) & (pi[0] == SOLVED)
+    assert np.abs(sol.x[both] - pv[:n, both].T).max() < 1e-4
+    obj = n + 2 * spec.m
+    assert np.abs(sol.obj_val[both] - pv[obj, both]).max() < 1e-6
+    assert np.abs(sol.iterations[both] - pi[1, both]).max() <= 4
+    p1 = sol._out["p1_iterations"]
+    assert (p1 > 0).all() and np.abs(p1 - pi[3]).max() <= 1

@@ -94,7 +94,7 @@ def test_eligibility_width_and_budget():
 def test_spec_and_kernel_params():
     spec = port_solver(GP, 4)._mega_fn.spec
     assert spec.gp_alphas == ((), (0.3, 0.7))
-    assert _cuda.shape_of(spec) == (4, 6, 2, 1, 0, 1)
+    assert _cuda.shape_of(spec) == (4, 6, 2, 1, 0, 1, 0)
     prm = _cuda._params(spec)
     assert list(prm.seg_kind) == [1, 5]
     assert list(prm.gp_d1) == [0, 2]
@@ -102,7 +102,7 @@ def test_spec_and_kernel_params():
     assert not any(prm.gp_alpha[:16]) and not any(prm.gp_alpha[18:])
     assert not hasattr(prm, "psd_sweeps")
     both = port_solver(GP + [("PSDTriangleConeT", 2)], 4)._mega_fn.spec
-    assert _cuda.shape_of(both) == (4, 9, 3, 1, 1, 1)
+    assert _cuda.shape_of(both) == (4, 9, 3, 1, 1, 1, 0)
     assert _cuda._params(both).psd_sweeps == spec.psd_sweeps == 12
 
 

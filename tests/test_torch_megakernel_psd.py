@@ -132,7 +132,7 @@ def test_eligibility_and_auto_resolution():
 def test_spec_and_kernel_params():
     cones, n, *_ = load_fixture("psd_zero")
     spec = port_solver(cones, n)._mega_fn.spec
-    assert _cuda.shape_of(spec) == (3, 9, 3, 0, 1, 0)
+    assert _cuda.shape_of(spec) == (3, 9, 3, 0, 1, 0, 0)
     prm = _cuda._params(spec)
     assert list(prm.seg_kind) == [0, 1, 6]
     assert list(prm.seg_hi) == [1, 6, 9]
