@@ -286,6 +286,40 @@ def psd_genpow_flops(segs, m):
     return hinv_x, extra
 
 
+def search_costs(trips):
+    """What the searches of one plain-version solve cost a warp, from the
+    per-lane trip counts it kept (megakernel_ref.mega_solve_plain's
+    `trips`): for the joint feasibility backtracks and the barrier
+    backtracks, (evaluations, the sum over warps and searches of the
+    warp's largest trip count, which a warp pays when each lane runs its
+    own loop, the same sum of the rounds of the kernel's cooperative
+    search).  The schedule is fixed by the counts, and the plain version's
+    arithmetic is the kernel's, so the kernel's counts are these up to
+    rounding."""
+    from clarabel_tpu_torch.ipm import megakernel_ref
+
+    out = {}
+    for kind in ("feas", "barrier"):
+        ev = serial = rounds = 0
+        for t in trips[kind]:
+            sv, rv = megakernel_ref.warp_costs(t)
+            ev += int(t.sum())
+            serial += sv
+            rounds += rv
+        out[kind] = (ev, serial, rounds)
+    return out
+
+
+def describe_searches(costs):
+    return "; ".join(
+        f"{what}: {ev} evaluations, per-warp serial trips {serial}, "
+        f"cooperative rounds {rounds}"
+        + (f" ({rounds / serial:.3f} of serial)" if serial else "")
+        for what, (ev, serial, rounds) in (
+            ("feasibility backtracks", costs["feas"]),
+            ("barrier backtracks", costs["barrier"])))
+
+
 def true_kkt(P, q, A, b, x, z, s):
     rp = np.linalg.norm(np.einsum("bij,bj->bi", A, x) + s - b, axis=1)
     rd = np.linalg.norm(np.einsum("bij,bj->bi", P, x) + q
@@ -1132,8 +1166,10 @@ def main():
         B, flats = megakernel.prepare(P, q, A, b, spec, dev)
         k_ms, (kv, ki) = events_ms(
             lambda: _cuda.megakernel(*flats, spec, B), 3)
+        trips = {}
         p_ms, (pv, pi) = events_ms(
-            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
+            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B,
+                                                    trips=trips), 1)
         k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
         qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
             q.shape))
@@ -1141,6 +1177,8 @@ def main():
         pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
                      spec)
         tag = f"[8] {name} B={B}"
+        print(f"{tag}: searches (plain version's trips): "
+              f"{describe_searches(search_costs(trips))}", flush=True)
         r = readings(k, p, P, q, A, b)
         dual_k, dual_p = int(ki[2].sum()), int(pi[2].sum())
         print(f"{tag}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; kernel "
@@ -1335,8 +1373,10 @@ def main():
         B, flats = megakernel.prepare(P, q, A, b, spec, dev)
         k_ms, (kv, ki) = events_ms(
             lambda: _cuda.megakernel(*flats, spec, B), 3)
+        trips = {}
         p_ms, (pv, pi) = events_ms(
-            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
+            lambda: megakernel_ref.mega_solve_plain(*flats, spec, B,
+                                                    trips=trips), 1)
         k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
         qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
             q.shape))
@@ -1344,6 +1384,9 @@ def main():
         pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
                      spec)
         tag = f"[{phase}] {name} B={B}"
+        if spec.nonsym:
+            print(f"{tag}: searches (plain version's trips): "
+                  f"{describe_searches(search_costs(trips))}", flush=True)
         r = readings(k, p, P, q, A, b)
         counts = np.bincount(k["status"], minlength=11).tolist()
         pcounts = np.bincount(p["status"], minlength=11).tolist()

@@ -195,3 +195,23 @@ def make_genpow_batch(B, seed=4):
     b[:, 4] = rng.uniform(-0.3, 0.3, B)
     b[:, 5] = rng.uniform(-0.3, 0.3, B)
     return P, q, A, b
+
+
+def make_large_qp_eq(B, n=200, n_eq=20, n_low=100, seed=5):
+    """Dense QPs whose KKT system is larger than 512 (N = 2n + n_eq +
+    n_low): P = F F'/n + I/2, q random, n_eq random equality rows (a zero
+    cone) through a point of the box, x <= 1 on every variable and
+    x >= -1 on the first n_low.  Cones [Zero(n_eq), NN(n + n_low)]."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = np.einsum("bij,bkj->bik", F, F) / n + 0.5 * np.eye(n)
+    q = rng.standard_normal((B, n))
+    Aeq = rng.standard_normal((B, n_eq, n)) / np.sqrt(n)
+    x0 = rng.uniform(-0.5, 0.5, (B, n))
+    low = np.zeros((n_low, n))
+    low[np.arange(n_low), np.arange(n_low)] = -1.0
+    A = np.concatenate([Aeq, np.broadcast_to(np.eye(n), (B, n, n)),
+                        np.broadcast_to(low, (B, n_low, n))], axis=1)
+    b = np.concatenate([np.einsum("bij,bj->bi", Aeq, x0),
+                        np.ones((B, n + n_low))], axis=1)
+    return P, q, A, b

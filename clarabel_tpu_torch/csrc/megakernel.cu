@@ -32,6 +32,21 @@
 // the joint feasibility backtrack, the primal barrier through a one-sided
 // Newton gradient (at most 50 trips), and every lane on Dual from the
 // start (reference l.1103-1239, 2181-2193, 2326-2431, 3119-3124).
+// What bounds K1c: its backtracking searches, run lane by lane.  Every
+// step runs two joint feasibility backtracks (2 d1 logs and two exps a
+// trial) and, every lane being on Dual, the barrier backtrack, each trial
+// of which runs a Newton solve of about four trips with d1 + 1 logs each.
+// On the card the barrier backtrack alone took 41 % of the kernel at
+// B = 131072 (97.5 ms against 57.3 ms with linesearch_max_iter 0), and a
+// lane's serial trials hold its warp-mates idle: on chip_smoke.py's batch
+// at B = 4096 one lane runs 51 iterations, with barrier backtracks of up
+// to 50 trials, long after the rest of its warp is done (PERF.md section
+// 5; tools/search_trips.py).  The design (`coop_search`): the warp shares
+// the trials out.  Each searching lane stages its point and direction in
+// shared memory and the warp's 32 threads try the searching lanes'
+// candidate steps side by side, each lane taking its first passing step,
+// the serial loop's.  The IPM loop runs while any lane of the warp does,
+// so lanes that are done, and threads past the batch, help.
 //
 // K1d (MK_PSD=1, only where the layout has a PSD segment; sides <= 3):
 // the NT scaling from clamped Cholesky factors of S and Z and a one-sided
@@ -83,6 +98,13 @@
 // PyTorch's elementwise ops do not; the two versions may then differ by
 // an iteration on marginal lanes (DEVIATIONS.md).
 //
+// The launch: one lane per thread, in blocks of 32 threads while blocks of
+// 128 would leave SMs without a block (at B = 4096, 128 blocks of 32 on
+// 132 SMs in place of 32 blocks of 128), else of 128; K1b always of 128.
+// At B = 4096 that took K1a from 2.80 to 1.82 ms and K1c from 9.0 to 5.0
+// ms on the card, where K1b measured slower in blocks of 32 (PERF.md
+// section 5).
+//
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -DMK_NONSYM=0 \
@@ -113,6 +135,10 @@
 #if MK_TWO_PHASE && MK_NONSYM
 #error "the float32 first phase runs on nn, SOC and PSD layouts only"
 #endif
+// the warp-cooperative backtracking searches (`coop_search`): in K1c, whose
+// feasibility tests and barrier (a Newton solve per evaluation) are costly
+// enough to pay for staging; K1b keeps one serial loop per lane
+#define MK_COOP MK_GENPOW
 
 namespace {
 
@@ -1737,7 +1763,8 @@ __device__ bool nonsym_feasible(const Ctx& cx, const double* z,
 #endif
 
 // symmetric segments first; with nonsymmetric segments the step is then
-// capped and backtracked jointly over all of them (reference l.2091-2229)
+// capped and backtracked jointly over all of them (reference l.2091-2229),
+// here or, in K1c, by `coop_search`
 template <typename R>
 __device__ R step_length(const CtxT<R>& cx, PSD_SC_PARAM const R* dz,
                          const R* ds, const R* z, const R* s, R amax) {
@@ -1779,6 +1806,7 @@ __device__ R step_length(const CtxT<R>& cx, PSD_SC_PARAM const R* dz,
   }
 #if MK_NONSYM
   alpha = nmin(alpha, STEP_CAP);
+#if !MK_COOP
   for (int k = 0; k < FEAS_TRIPS; ++k) {
     if (nonsym_feasible(cx, z, s, dz, ds, alpha)) break;
     alpha = alpha * cx.p.linesearch_backtrack_step;
@@ -1787,6 +1815,7 @@ __device__ R step_length(const CtxT<R>& cx, PSD_SC_PARAM const R* dz,
       break;
     }
   }
+#endif
 #endif
   return alpha;
 }
@@ -2117,74 +2146,224 @@ __device__ double barrier_at(const Ctx& cx, const double* z, const double* s,
 }
 #endif
 
+#if MK_COOP
+// ---- warp-cooperative backtracking searches (K1c) ----
+//
+// The joint feasibility backtrack of a step length and the barrier
+// backtrack of a Dual lane try alpha_k = alpha_0 * step^k for k = 0, 1, ...
+// (k successive multiplications) and keep the first alpha_k that passes.
+// A lane searching alone in its warp would hold 31 threads idle for every
+// trip, and the warp pays for its slowest lane.  Here the warp shares the
+// candidates out: each searching lane stages its point and direction in
+// shared memory, laid out [word][thread], and in each round the L lanes of
+// the warp still searching share its 32 threads, thread t trying the
+// (t / L)-th untried candidate of the (t % L)-th lane (ipm/
+// megakernel_ref.py `warp_costs` counts the rounds).  A lane takes the
+// smallest candidate that passes, or, when none does, exactly what the
+// serial loop leaves: 0 once alpha_k fell below min_terminate_step_length
+// (feasibility), else alpha_limit.  Every candidate is formed and tested by
+// the code the serial loop ran, on the same values, so every lane's alpha
+// is the serial loop's.  The IPM loop runs while any lane of the warp
+// does, and a lane that takes no step in a trip (it is done, or lies past
+// the batch) passes through the step's searches as a helper.
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// staged words per thread: z, s, dz, ds (M each), tau, kappa, dtau, dkappa
+// and alpha_0
+constexpr int STAGE_WORDS = 4 * M + 5;
+
+// the n-th set bit of m (n from 0)
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// Called by every thread of the warp at the same point.  `want`: this
+// lane searches, from alpha0 along (dz, ds) at (z, s) (and tau, kappa,
+// dtau, dkappa for the barrier).  Returns the lane's alpha (alpha0 where
+// it does not search).
+template <bool BARRIER>
+__device__ double coop_search(const Ctx& cx, bool want, const double* z,
+                              const double* s, const double* dz,
+                              const double* ds, double tau, double kappa,
+                              double dtau, double dkappa, double alpha0) {
+  extern __shared__ double mk_stage[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int wl = tid & 31, wb = tid - wl;
+  auto stage = [&](int w, int t) -> double& { return mk_stage[w * T + t]; };
+  const double step = cx.p.linesearch_backtrack_step;
+  const double amin = cx.p.min_terminate_step_length;
+  const int limit = BARRIER ? cx.p.linesearch_max_iter : FEAS_TRIPS;
+  if (want) {
+    for (int k = 0; k < M; ++k) {
+      stage(k, tid) = z[k];
+      stage(M + k, tid) = s[k];
+      stage(2 * M + k, tid) = dz[k];
+      stage(3 * M + k, tid) = ds[k];
+    }
+    stage(4 * M, tid) = tau;
+    stage(4 * M + 1, tid) = kappa;
+    stage(4 * M + 2, tid) = dtau;
+    stage(4 * M + 3, tid) = dkappa;
+    stage(4 * M + 4, tid) = alpha0;
+  }
+  __syncwarp();
+  double result = alpha0;
+  bool searching = want && limit > 0;
+  int next = 0;   // this lane's first untried candidate
+  unsigned m = __ballot_sync(FULL_MASK, searching);
+  while (m) {
+    const int L = __popc(m);
+    const int j = nth_bit(m, wl % L);          // the lane this thread serves
+    const int k = __shfl_sync(FULL_MASK, next, j) + wl / L;
+    // candidate k of lane j: k multiplications, cut where the serial loop
+    // cuts (feasibility: a step below min_terminate_step_length)
+    double a = stage(4 * M + 4, wb + j);
+    bool cut = false;
+    for (int i = 0; i < k; ++i) {
+      a = a * step;
+      if (!BARRIER && a < amin) cut = true;
+    }
+    bool pass = false;
+    if (k < limit && !cut) {
+      double zc[M], sc[M], dzc[M], dsc[M];
+      for (int r = 0; r < M; ++r) {
+        zc[r] = stage(r, wb + j);
+        sc[r] = stage(M + r, wb + j);
+        dzc[r] = stage(2 * M + r, wb + j);
+        dsc[r] = stage(3 * M + r, wb + j);
+      }
+      pass = BARRIER ? barrier_at(cx, zc, sc, dzc, dsc,
+                                  stage(4 * M, wb + j),
+                                  stage(4 * M + 1, wb + j),
+                                  stage(4 * M + 2, wb + j),
+                                  stage(4 * M + 3, wb + j), a) < 1.0
+                     : nonsym_feasible(cx, zc, sc, dzc, dsc, a);
+    }
+    const unsigned passed = __ballot_sync(FULL_MASK, pass);
+    if (searching) {
+      // the threads that served this lane, in candidate order
+      const int rank = __popc(m & ((1u << wl) - 1u));
+      unsigned mine = 0;
+      for (int t = rank; t < 32; t += L) mine |= 1u << t;
+      const unsigned hit = passed & mine;
+      const int kk = hit ? next + (__ffs(hit) - 1) / L
+                         : next + __popc(mine);
+      double ak = alpha0;
+      bool cutk = false;
+      for (int i = 0; i < kk && i < limit; ++i) {
+        ak = ak * step;
+        if (!BARRIER && ak < amin) cutk = true;
+      }
+      if (hit) {
+        result = ak;
+        searching = false;
+      } else if (cutk) {
+        result = 0.0;
+        searching = false;
+      } else if (kk >= limit) {
+        result = ak;
+        searching = false;
+      } else {
+        next = kk;
+      }
+    }
+    m = __ballot_sync(FULL_MASK, searching);
+  }
+  __syncwarp();
+  return result;
+}
+
+#endif
+
 // One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977);
-// on a Dual lane (K1b) the step is then backtracked to a barrier below 1
+// on a Dual lane (K1b) the step is then backtracked to a barrier below 1.
+// `run`: this lane takes a step.  In K1c every thread of the warp calls
+// this at the same point, and those that do not run serve the warp's
+// cooperative searches.
 template <typename R>
-__device__ void pc_step(const CtxT<R>& cx, const R* x, const R* z,
-                        const R* s, R tau, R kappa, R tinv,
+__device__ void pc_step(const CtxT<R>& cx, bool run, const R* x,
+                        const R* z, const R* s, R tau, R kappa, R tinv,
                         const ResT<R>& res, R mu, int iters1, int strat,
                         StepT<R>& st) {
   ScaleT<R> sc;
-  const bool ok_scale = make_scaling(cx, s, z, mu, strat, sc);
-  const R eps = eps_of(cx, &sc);
   KktT<R> kk;
-  const bool ok_chol = build_kkt(cx, sc, eps, kk);
-  bool ok_kkt = ok_scale && ok_chol;
+  bool ok_kkt = false;
+  R aff[M], bx[2][N], bz[2][M], xs[2][N], zs[2][M], xi[N], tau_den = R(0);
+  R dxa[N], dza[M], dsa[M], dtaua = R(0), dkappaa = R(0), alpha_aff = R(0);
+  if (run) {
+    const bool ok_scale = make_scaling(cx, s, z, mu, strat, sc);
+    const R eps = eps_of(cx, &sc);
+    const bool ok_chol = build_kkt(cx, sc, eps, kk);
+    ok_kkt = ok_scale && ok_chol;
 
-  R aff[M];
-  affine_ds(cx, sc, s, aff);
-  R bx[2][N], bz[2][M], xs[2][N], zs[2][M];
-  for (int j = 0; j < N; ++j) { bx[0][j] = -cx.pr.q[j]; bx[1][j] = res.rx[j]; }
-  for (int k = 0; k < M; ++k) { bz[0][k] = cx.pr.b[k]; bz[1][k] = s[k] - res.rz[k]; }
-  ok_kkt = refined_solve<2>(cx, kk, bx, bz, xs, zs) && ok_kkt;
-  const R* x2 = xs[0];
-  const R* z2 = zs[0];
+    affine_ds(cx, sc, s, aff);
+    for (int j = 0; j < N; ++j) { bx[0][j] = -cx.pr.q[j]; bx[1][j] = res.rx[j]; }
+    for (int k = 0; k < M; ++k) { bz[0][k] = cx.pr.b[k]; bz[1][k] = s[k] - res.rz[k]; }
+    ok_kkt = refined_solve<2>(cx, kk, bx, bz, xs, zs) && ok_kkt;
+    const R* x2 = xs[0];
+    const R* z2 = zs[0];
 
-  R xi[N], xm[N];
-  for (int j = 0; j < N; ++j) { xi[j] = x[j] * tinv; xm[j] = xi[j] - x2[j]; }
-  R tau_den = kappa * tinv - dotn<N>(cx.pr.q, x2) - dotn<M>(cx.pr.b, z2);
-  if (cx.p.p_nonzero) {
-    R t1[N], t2[N];
-    Pxv(cx, xm, t1);
-    Pxv(cx, x2, t2);
-    tau_den = tau_den + dotn<N>(xm, t1) - dotn<N>(x2, t2);
+    R xm[N];
+    for (int j = 0; j < N; ++j) { xi[j] = x[j] * tinv; xm[j] = xi[j] - x2[j]; }
+    tau_den = kappa * tinv - dotn<N>(cx.pr.q, x2) - dotn<M>(cx.pr.b, z2);
+    if (cx.p.p_nonzero) {
+      R t1[N], t2[N];
+      Pxv(cx, xm, t1);
+      Pxv(cx, x2, t2);
+      tau_den = tau_den + dotn<N>(xm, t1) - dotn<N>(x2, t2);
+    }
+
+    // affine step
+    tau_recovery(cx, sc, xs[1], zs[1], x2, z2, xi, s, res.rtau, tau * kappa,
+                 kappa, tinv, tau_den, dxa, dza, dsa, dtaua, dkappaa);
+    alpha_aff = step_length(cx, PSD_SC_ARG dza, dsa, z, s,
+                            max_step(tau, kappa, dtaua, dkappaa));
   }
+#if MK_COOP
+  alpha_aff = coop_search<false>(cx, run, z, s, dza, dsa, 0.0, 0.0, 0.0, 0.0,
+                                 alpha_aff);
+#endif
+  if (run) {
+    const R* x2 = xs[0];
+    const R* z2 = zs[0];
+    const R oma = R(1) - alpha_aff;
+    const R sigma = oma * oma * oma;
+    const R m_corr = iters1 > 1 ? R(1) : alpha_aff;
+    const R sigma_mu = sigma * mu;
 
-  // affine step
-  R dxa[N], dza[M], dsa[M], dtaua, dkappaa;
-  tau_recovery(cx, sc, xs[1], zs[1], x2, z2, xi, s, res.rtau, tau * kappa,
-               kappa, tinv, tau_den, dxa, dza, dsa, dtaua, dkappaa);
-  const R alpha_aff = step_length(cx, PSD_SC_ARG dza, dsa, z, s,
-                                  max_step(tau, kappa, dtaua, dkappaa));
-  const R oma = R(1) - alpha_aff;
-  const R sigma = oma * oma * oma;
-  const R m_corr = iters1 > 1 ? R(1) : alpha_aff;
-  const R sigma_mu = sigma * mu;
-
-  // combined step
-  R dzm[M], shift[M];
-  for (int k = 0; k < M; ++k) dzm[k] = dza[k] * m_corr;
-  combined_ds_shift(cx, sc, dzm, dsa, sigma_mu, shift);
-  for (int k = 0; k < M; ++k) aff[k] = aff[k] + shift[k];   // comb_s
-  const R one_m_sigma = R(1) - sigma;
-  const R comb_tau = res.rtau * one_m_sigma;
-  const R comb_kappa = -sigma_mu + dtaua * dkappaa * m_corr + tau * kappa;
-  R ds_const[M];
-  ds_from_dz_offset(cx, sc, aff, z, ds_const);
-  for (int j = 0; j < N; ++j) bx[0][j] = res.rx[j] * one_m_sigma;
-  for (int k = 0; k < M; ++k) bz[0][k] = ds_const[k] - res.rz[k] * one_m_sigma;
-  R xc[1][N], zc[1][M];
-  const bool ok3 = refined_solve<1>(cx, kk, bx, bz, xc, zc);
-  tau_recovery(cx, sc, xc[0], zc[0], x2, z2, xi, ds_const, comb_tau,
-               comb_kappa, kappa, tinv, tau_den, st.dx, st.dz, st.ds, st.dtau,
-               st.dkappa);
-  st.kkt_fail = !(ok_kkt && ok3);
-  st.alpha = step_length(cx, PSD_SC_ARG st.dz, st.ds, z, s,
-                         max_step(tau, kappa, st.dtau, st.dkappa)) *
-             R(cx.p.max_step_fraction);
-  st.sigma = sigma;
-#if MK_NONSYM
-  if (strat == DUAL) {
+    // combined step
+    R dzm[M], shift[M];
+    for (int k = 0; k < M; ++k) dzm[k] = dza[k] * m_corr;
+    combined_ds_shift(cx, sc, dzm, dsa, sigma_mu, shift);
+    for (int k = 0; k < M; ++k) aff[k] = aff[k] + shift[k];   // comb_s
+    const R one_m_sigma = R(1) - sigma;
+    const R comb_tau = res.rtau * one_m_sigma;
+    const R comb_kappa = -sigma_mu + dtaua * dkappaa * m_corr + tau * kappa;
+    R ds_const[M];
+    ds_from_dz_offset(cx, sc, aff, z, ds_const);
+    for (int j = 0; j < N; ++j) bx[0][j] = res.rx[j] * one_m_sigma;
+    for (int k = 0; k < M; ++k) bz[0][k] = ds_const[k] - res.rz[k] * one_m_sigma;
+    R xc[1][N], zc[1][M];
+    const bool ok3 = refined_solve<1>(cx, kk, bx, bz, xc, zc);
+    tau_recovery(cx, sc, xc[0], zc[0], x2, z2, xi, ds_const, comb_tau,
+                 comb_kappa, kappa, tinv, tau_den, st.dx, st.dz, st.ds,
+                 st.dtau, st.dkappa);
+    st.kkt_fail = !(ok_kkt && ok3);
+    st.alpha = step_length(cx, PSD_SC_ARG st.dz, st.ds, z, s,
+                           max_step(tau, kappa, st.dtau, st.dkappa));
+    st.sigma = sigma;
+  }
+#if MK_COOP
+  st.alpha = coop_search<false>(cx, run, z, s, st.dz, st.ds, 0.0, 0.0, 0.0,
+                                0.0, st.alpha);
+#endif
+  st.alpha = st.alpha * R(cx.p.max_step_fraction);
+#if MK_COOP
+  st.alpha = coop_search<true>(cx, run && strat == DUAL, z, s, st.dz, st.ds,
+                               tau, kappa, st.dtau, st.dkappa, st.alpha);
+#elif MK_NONSYM
+  if (run && strat == DUAL) {
     for (int k = 0; k < cx.p.linesearch_max_iter; ++k) {
       if (barrier_at(cx, z, s, st.dz, st.ds, tau, kappa, st.dtau, st.dkappa,
                      st.alpha) < 1.0)
@@ -2338,8 +2517,8 @@ __device__ __noinline__ int phase1(const Ctx& cx, double* x, double* z,
     if (hand_top) break;
     ++iters;
     StepT<float> st;
-    pc_step(c32, xf, zf, sf, tauf, kapf, tinv, res, mu, iters, PRIMAL_DUAL,
-            st);
+    pc_step(c32, true, xf, zf, sf, tauf, kapf, tinv, res, mu, iters,
+            PRIMAL_DUAL, st);
     const bool take = !st.kkt_fail && !(st.alpha <= P1_MIN_STEP);
     alpha_f = take ? st.alpha : 0.0f;
     sigma_f = st.sigma;
@@ -2375,17 +2554,21 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
                            int* __restrict__ ints) {
   Prob& pr = cx.pr;
   const MkParams& p = cx.p;
+  // a thread past the batch's end (in K1c it stays to serve its warp's
+  // cooperative searches) runs lane 0's setup and no step
+  const bool valid = lane < B;
+  const long long ln = valid ? lane : 0;
   // raw data: P full symmetric from the column-major upper triangle
   for (int j = 0; j < N; ++j)
     for (int i = 0; i <= j; ++i) {
-      const double v = at(Pin, j * (j + 1) / 2 + i, lane);
+      const double v = at(Pin, j * (j + 1) / 2 + i, ln);
       pr.P[i * N + j] = v;
       pr.P[j * N + i] = v;
     }
   for (int j = 0; j < N; ++j)
-    for (int k = 0; k < M; ++k) pr.A[k * N + j] = at(Ain, j * M + k, lane);
+    for (int k = 0; k < M; ++k) pr.A[k * N + j] = at(Ain, j * M + k, ln);
   double qraw[N];
-  for (int j = 0; j < N; ++j) qraw[j] = at(qin, j, lane);
+  for (int j = 0; j < N; ++j) qraw[j] = at(qin, j, ln);
 
   float df[N], ef[M], cf;
   ruiz(cx, pr.P, pr.A, qraw, df, ef, cf);
@@ -2399,7 +2582,7 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
   for (int k = 0; k < M; ++k) {
     pr.e[k] = (double)ef[k];
     pr.einv[k] = 1.0 / pr.e[k];
-    pr.b[k] = at(bin, k, lane) * pr.e[k];
+    pr.b[k] = at(bin, k, ln) * pr.e[k];
   }
   for (int i = 0; i < N; ++i)
     for (int j = 0; j < N; ++j)
@@ -2496,57 +2679,75 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
   const double inv_deg1 = 1.0 / (p.degree + 1);
   const double sr = p.stall_ratio;
 
-  // ---- main loop: this lane runs until it terminates ----
-  while (status == UNSOLVED) {
-    const double tinv = 1.0 / tau;
-    Res res;
-    residuals(cx, x, z, s, tau, kappa, tinv, res);
-    const double mu = (res.sz + tau * kappa) * inv_deg1;
-    Info info;
-    compute_info(cx, res, x, z, s, kappa, tinv, info);
-    const int status1 =
-        check_convergence(info, res.bz, res.qx, p.tol, SOLVED, PINF, DINF);
-
-    const double rp = info.res_primal, rd = info.res_dual;
-    const bool going_back = rd > prev_rd || rp > prev_rp;
-    const bool stagnating = (rd > sr * prev_rd || rp > sr * prev_rp) &&
-                            (info.gap_abs > sr * prev_ga &&
-                             info.gap_rel > sr * prev_gr);
-    const bool after_first = status1 == UNSOLVED && iters > 1;
-    const bool poor_hi = info.ktratio < 100.0 * EPS64 &&
-                         (prev_ga < p.tol[0] || prev_gr < p.tol[1]);
-    const double tf100 = 100.0 * p.tol[2];
-    const bool diverging =
-        info.ktratio < 1.0 && ((rd > tf100 && rd > 100.0 * prev_rd) ||
-                               (rp > tf100 && rp > 100.0 * prev_rp));
-    const bool insuff = (after_first && stagnating && poor_hi) ||
-                        (after_first && going_back && diverging);
-    int status2 = insuff ? INSUFFICIENT_PROGRESS : status1;
-    if (status2 == UNSOLVED && iters >= p.max_iter) status2 = MAX_ITERATIONS;
-    mu_f = mu;
-    if (status2 != UNSOLVED) {
-      // terminated at the top of the loop; roll back on insufficient
-      // progress (src/solver.jl:453-472)
-      if (status2 == INSUFFICIENT_PROGRESS) {
-        for (int j = 0; j < N; ++j) x[j] = px[j];
-        for (int k = 0; k < M; ++k) { z[k] = pz[k]; s[k] = ps[k]; }
-        tau = ptau;
-        kappa = pkap;
-#if MK_NONSYM
-        // a PrimalDual lane downgrades to Dual and continues from the
-        // restored iterate (reference l.3354-3383)
-        if (strat == PRIMAL_DUAL) {
-          strat = DUAL;
-          continue;
-        }
+  // ---- main loop: this lane runs until it terminates.  In K1c the loop
+  // runs while any lane of the warp does, so that every thread reaches the
+  // cooperative searches of each trip (a lane that is done, or that
+  // restarts a trip, serves them) ----
+  bool act = valid;
+  for (;;) {
+#if MK_COOP
+    if (!__any_sync(FULL_MASK, act)) break;
+#else
+    if (!act) break;
 #endif
+    bool run = false;
+    double tinv = 0.0, mu = 0.0;
+    Res res;
+    Info info;
+    if (act) {
+      tinv = 1.0 / tau;
+      residuals(cx, x, z, s, tau, kappa, tinv, res);
+      mu = (res.sz + tau * kappa) * inv_deg1;
+      compute_info(cx, res, x, z, s, kappa, tinv, info);
+      const int status1 =
+          check_convergence(info, res.bz, res.qx, p.tol, SOLVED, PINF, DINF);
+
+      const double rp = info.res_primal, rd = info.res_dual;
+      const bool going_back = rd > prev_rd || rp > prev_rp;
+      const bool stagnating = (rd > sr * prev_rd || rp > sr * prev_rp) &&
+                              (info.gap_abs > sr * prev_ga &&
+                               info.gap_rel > sr * prev_gr);
+      const bool after_first = status1 == UNSOLVED && iters > 1;
+      const bool poor_hi = info.ktratio < 100.0 * EPS64 &&
+                           (prev_ga < p.tol[0] || prev_gr < p.tol[1]);
+      const double tf100 = 100.0 * p.tol[2];
+      const bool diverging =
+          info.ktratio < 1.0 && ((rd > tf100 && rd > 100.0 * prev_rd) ||
+                                 (rp > tf100 && rp > 100.0 * prev_rp));
+      const bool insuff = (after_first && stagnating && poor_hi) ||
+                          (after_first && going_back && diverging);
+      int status2 = insuff ? INSUFFICIENT_PROGRESS : status1;
+      if (status2 == UNSOLVED && iters >= p.max_iter) status2 = MAX_ITERATIONS;
+      mu_f = mu;
+      run = status2 == UNSOLVED;
+      if (!run) {
+        // terminated at the top of the loop; roll back on insufficient
+        // progress (src/solver.jl:453-472)
+        bool restart = false;
+        if (status2 == INSUFFICIENT_PROGRESS) {
+          for (int j = 0; j < N; ++j) x[j] = px[j];
+          for (int k = 0; k < M; ++k) { z[k] = pz[k]; s[k] = ps[k]; }
+          tau = ptau;
+          kappa = pkap;
+#if MK_NONSYM
+          // a PrimalDual lane downgrades to Dual and starts the next trip
+          // from the restored iterate (reference l.3354-3383)
+          if (strat == PRIMAL_DUAL) {
+            strat = DUAL;
+            restart = true;
+          }
+#endif
+        }
+        if (!restart) {
+          status = status2;
+          act = false;
+        }
       }
-      status = status2;
-      break;
     }
     const int iters1 = iters + 1;
     Step stp;
-    pc_step(cx, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, stp);
+    pc_step(cx, run, x, z, s, tau, kappa, tinv, res, mu, iters1, strat, stp);
+    if (!run) continue;
 
     // numerical-error and small-step checkpoints (reference l.3391-3430)
     int fail_status = stp.kkt_fail ? NUMERICAL_ERROR : UNSOLVED;
@@ -2583,16 +2784,18 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
       pkap = kappa;
       tau = tau + stp.dtau * a;
       kappa = kappa + stp.dkappa * a;
-      prev_rp = rp;
-      prev_rd = rd;
+      prev_rp = info.res_primal;
+      prev_rd = info.res_dual;
       prev_ga = info.gap_abs;
       prev_gr = info.gap_rel;
     }
     alpha_f = a;
     sigma_f = stp.sigma;
     status = fail_status;
+    act = status == UNSOLVED;
     iters = iters1;
   }
+  if (!valid) return;
 
   // ---- finalize ----
   const double tinv = 1.0 / tau;
@@ -2631,11 +2834,47 @@ __device__ void solve_lane(Ctx& cx, const In& Pin, const In& qin,
 #endif
 }
 
+// Threads per block: 32 while blocks of THREADS would leave SMs without a
+// block (B < THREADS * SMs; at B = 4096, 128 blocks of 32 in place of 32
+// blocks of 128 on 132 SMs), else THREADS.  With the cooperative searches
+// a block also holds STAGE_WORDS doubles of shared memory per thread; where
+// THREADS of them would pass the 227 KB a block may have (M > 55) the
+// block is halved.
+int launch_threads(long long B, int sms) {
+#if MK_NONSYM && !MK_COOP
+  // K1b keeps blocks of THREADS: with blocks of 32 the exp batch took
+  // 1.256 ms at B = 4096 against 0.773 ms (PERF.md section 5)
+  (void)B;
+  (void)sms;
+  return THREADS;
+#else
+  int big = THREADS;
+#if MK_COOP
+  while (big > 32 && (size_t)STAGE_WORDS * sizeof(double) * big > 232448)
+    big /= 2;
+#endif
+  return B < (long long)big * sms ? 32 : big;
+#endif
+}
+
+// the dynamic shared memory of a block: the cooperative searches' staging
+// (K1c)
+size_t shared_bytes(int threads) {
+#if MK_COOP
+  return (size_t)STAGE_WORDS * sizeof(double) * threads;
+#else
+  (void)threads;
+  return 0;
+#endif
+}
+
 __global__ void __launch_bounds__(THREADS)
 mk_kernel(In P, In q, In A, In b, long long B, MkParams prm,
           double* __restrict__ vals, int* __restrict__ ints) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+#if !MK_COOP
   if (lane >= B) return;
+#endif
   Ctx cx;
   cx.p = prm;
   solve_lane(cx, P, q, A, b, lane, B, vals, ints);
@@ -2675,8 +2914,17 @@ int mk_solve(const double* P, long long P_ld, long long P_ls,
   if (B <= 0) return 0;
   const In Pi{P, P_ld, P_ls}, qi{q, q_ld, q_ls}, Ai{A, A_ld, A_ls},
       bi{b, b_ld, b_ls};
-  const long long blocks = (B + THREADS - 1) / THREADS;
-  mk_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int threads = launch_threads(B, sms);
+  const long long blocks = (B + threads - 1) / threads;
+  const size_t smem = shared_bytes(threads);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(mk_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  mk_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       Pi, qi, Ai, bi, B, prm, vals, ints);
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,7 @@ import torch
 
 from ..cones.layout import ConeLayout
 from ..cones import ops as cone_ops
+from ..info_print import print_iterations
 from ..kkt import dense as kkt
 from ..linalg import smallops as so
 from ..settings import torch_dtype
@@ -210,8 +211,9 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     """Build the batched solve function for a fixed problem structure
     (cone layout and dimensions): solve(P, q, A, b) -> solution dict of
     (B, ...) tensors on the inputs' device.  P must be the FULL symmetric
-    cost matrix.  The dense `ldl` backend (also what "auto" means here)
-    and `condensed` are ported; the others raise."""
+    cost matrix.  The backends are the dense `ldl` (also what "auto",
+    "blockarrow" and "multifrontal" mean here, as in the reference
+    without a structure plan) and `condensed`."""
     m = layout.m
     if kkt_backend is None:
         kkt_backend = settings.kkt_backend
@@ -220,20 +222,29 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             "kkt_backend='megakernel' is a BatchSolver backend "
             "(parallel.batch_impl.BatchSolver); the loop solver supports "
             "ldl/condensed/auto")
-    if kkt_backend in ("blockarrow", "multifrontal"):
-        raise NotImplementedError(
-            f"kkt_backend={kkt_backend!r}: ROADMAP.md Queue 1 item 11 "
-            "(sparse and structured KKT)")
-    if kkt_backend not in ("ldl", "condensed", "auto"):
+    if kkt_backend not in ("ldl", "condensed", "auto", "blockarrow",
+                           "multifrontal"):
         raise ValueError(f"unknown kkt_backend {kkt_backend!r}")
-    if settings.verbose:
-        raise NotImplementedError(
-            "verbose=True (the iteration log): ROADMAP.md Queue 1 item 7")
+    # the reference's float32 default for multifrontal fronts off a CPU
+    # (reference loop.py:238-258), read here as "on a CUDA card": a float64
+    # solve with refinement, without mixed precision, on a layout without
+    # zero or PSD cones
+    mf_float32 = (kkt_backend == "multifrontal"
+                  and settings.factor_dtype is None
+                  and not any(g.kind in ("zero", "psd")
+                              for g in layout.groups.values())
+                  and settings.dtype == "float64"
+                  and settings.iterative_refinement_enable
+                  and not settings.mixed_precision)
+    if kkt_backend in ("blockarrow", "multifrontal"):
+        # without a structure plan, which BatchSolver never passes, the
+        # reference's build_solve takes neither branch and falls through
+        # to the dense ldl path (reference loop.py:374, 398, 442-452)
+        kkt_backend = "ldl"
     dtype = torch_dtype(settings.dtype)
     degree = layout.degree
     if settings.factor_dtype is None:
-        # every ported backend factors at the solve dtype (the reference's
-        # float32 default is for multifrontal fronts on a TPU only)
+        # every other backend factors at the solve dtype
         settings = settings.replace(factor_dtype=settings.dtype)
     if settings.dense_ldl_diag_order is None:
         # auto: descending-|diag| elimination order for zero/nn/soc layouts
@@ -301,7 +312,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
 
         return fac.ok, solve_xz, solve_xz2
 
-    def default_start(P, q, A, b, signs):
+    def default_start(P, q, A, b, signs, factor_dtype):
         """reference: src/solver.jl:383-404, src/kktsystem.jl:95-132"""
         B = q.shape[0]
         one = torch.ones((B,), dtype=dtype, device=q.device)
@@ -312,7 +323,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             return zero_n, z0, s0, one, one.clone()
         zero_m = torch.zeros_like(b)
         state0 = cone_ops.set_identity_scaling(layout, dtype, B, q.device)
-        _, solve_xz, _ = make_kkt(P, A, state0, settings.factor_dtype, signs)
+        _, solve_xz, _ = make_kkt(P, A, state0, factor_dtype, signs)
         if p_nonzero:
             # QP initialization
             x0, z0, _ = solve_xz(-q, b)
@@ -374,7 +385,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             done = done | good
         return alpha
 
-    def prepare(P, q, A, b):
+    def prepare(P, q, A, b, factor_dtype):
         """Equilibration and the initial point: (data, initial carry)."""
         P, q, A, b = (t.to(dtype) for t in (P, q, A, b))
         device = q.device
@@ -387,7 +398,8 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         normb = (equil.einv * b).abs().amax(dim=1)
 
         # -- initial point
-        x0, z0, s0, tau0, kappa0 = default_start(P, q, A, b, signs)
+        x0, z0, s0, tau0, kappa0 = default_start(P, q, A, b, signs,
+                                                 factor_dtype)
 
         B = q.shape[0]
 
@@ -415,6 +427,11 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         res = compute_residuals(P, q, A, b, x, z, s, tau, kappa)
         mu = (res.dot_sz + tau * kappa) / (degree + 1)
         info = compute_info(res, x, z, s, tau, kappa, equil, normq, normb)
+        if settings.verbose:
+            # one row per lane and pass, as jax.debug.print under the
+            # reference's vmap prints it: a host sync that only verbose
+            # runs pay
+            print_iterations(carry.iters, info, mu, carry.alpha)
 
         full_tols = (
             settings.tol_gap_abs, settings.tol_gap_rel, settings.tol_feas,
@@ -618,7 +635,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             carry = _select_tuple(active, loop_body(data, carry,
                                                     factor_dtype), carry)
 
-    def run_phases(data, carry0: Carry) -> Carry:
+    def run_phases(data, carry0: Carry, factor_dtype) -> Carry:
         if settings.mixed_precision:
             # two-phase precision schedule: factor in f32 while the barrier
             # parameter is large, then at factor_dtype for the final
@@ -626,8 +643,8 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             mu_switch = settings.mixed_precision_mu_switch
             mid = run_loop(data, carry0, lambda c: c.mu > mu_switch,
                            "float32")
-            return run_loop(data, mid, None, settings.factor_dtype)
-        return run_loop(data, carry0, None, settings.factor_dtype)
+            return run_loop(data, mid, None, factor_dtype)
+        return run_loop(data, carry0, None, factor_dtype)
 
     def finalize(data, final: Carry):
         """Post-processing: almost-checks, unscaling, certificates."""
@@ -699,8 +716,10 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         }
 
     def solve(P, q, A, b):
-        data, carry0 = prepare(P, q, A, b)
-        final = run_phases(data, carry0)
+        factor_dtype = ("float32" if mf_float32 and q.device.type == "cuda"
+                        else settings.factor_dtype)
+        data, carry0 = prepare(P, q, A, b, factor_dtype)
+        final = run_phases(data, carry0, factor_dtype)
         return finalize(data, final)
 
     return solve

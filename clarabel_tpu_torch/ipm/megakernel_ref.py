@@ -181,6 +181,9 @@ class _Ops:
             self.jacobi_eps = EPS64
         self.pdiag = (torch.diagonal(Ps, dim1=1, dim2=2).abs().amax(dim=1)
                       if self.pn else torch.zeros_like(qe[:, 0]))
+        # per-lane trip counts of the searches, kept when mega_solve_plain
+        # is given a `trips` dict
+        self.trips = None
 
     # ---- products with the scaled data ----
     def Px(self, x):
@@ -542,14 +545,18 @@ class _Ops:
         step = self.st.linesearch_backtrack_step
         amin = self.st.min_terminate_step_length
         done = ~live
+        trips = torch.zeros_like(alpha, dtype=torch.int32)
         for _ in range(FEAS_TRIPS):
             if bool(done.all()):
                 break
+            trips += (~done).to(torch.int32)
             newdone = done | self.nonsym_feasible(z, s, dz, ds, alpha)
             alpha = torch.where(newdone, alpha, alpha * step)
             killed = ~newdone & (alpha < amin)
             alpha = torch.where(killed, 0.0, alpha)
             done = newdone | killed
+        if self.trips is not None:
+            self.trips["feas"].append(trips)
         return alpha
 
     def nonsym_feasible(self, z, s, dz, ds, a):
@@ -573,9 +580,12 @@ class _Ops:
                 ok = ok & _pow_feas_dual(Z, al) & _pow_feas_primal(S, al)
         return ok
 
-    def barrier_at(self, z, s, dz, ds, tau, kappa, dtau, dkappa, a):
+    def barrier_at(self, z, s, dz, ds, tau, kappa, dtau, dkappa, a,
+                   newton=None):
         """The total barrier at the point a step a (B,) along the
-        direction, float64 (reference barrier_at, l.2230-2269, in f32)."""
+        direction, float64 (reference barrier_at, l.2230-2269, in f32).
+        `newton`, a list, receives each genpow segment's per-lane Newton
+        trips."""
         cur_tau = tau + a * dtau
         cur_kappa = kappa + a * dkappa
         zs = z + a[:, None] * dz
@@ -596,7 +606,7 @@ class _Ops:
                 bar = bar + torch.where(okz & oks, -(lz + ls), BIG)
             elif kind == "genpow":
                 bar = bar + _gp_barrier(gal, list(zg.unbind(1)),
-                                        list(sg.unbind(1)))
+                                        list(sg.unbind(1)), newton)
             elif kind == "soc":
                 rs = sg[:, 0] * sg[:, 0] - (sg[:, 1:] * sg[:, 1:]).sum(-1)
                 rz = zg[:, 0] * zg[:, 0] - (zg[:, 1:] * zg[:, 1:]).sum(-1)
@@ -614,14 +624,22 @@ class _Ops:
         l.2948-2976)."""
         step = self.st.linesearch_backtrack_step
         done = ~active
+        trips = torch.zeros_like(alpha, dtype=torch.int32)
+        rec = self.trips
         for _ in range(int(self.st.linesearch_max_iter)):
             if bool(done.all()):
                 break
+            trips += (~done).to(torch.int32)
+            newton = [] if rec is not None else None
             good = self.barrier_at(z, s, dz, ds, tau, kappa, dtau, dkappa,
-                                   alpha) < 1.0
+                                   alpha, newton) < 1.0
+            if newton:
+                rec["newton"].append(torch.where(done, 0, sum(newton)))
             newdone = done | good
             alpha = torch.where(newdone, alpha, alpha * step)
             done = newdone
+        if rec is not None:
+            rec["barrier"].append(trips)
         return alpha
 
     # ---- predictor-corrector pieces ----
@@ -1567,11 +1585,12 @@ def _gp_hs_diag(stg):
     return out
 
 
-def _gp_barrier(al, Z, S):
+def _gp_barrier(al, Z, S, newton=None):
     """f*(z) + f(s) of one segment, BIG where infeasible (reference
     _genpow_barrier32, l.2326, in float64): the primal barrier through a
     one-sided Newton gradient (at most NR_TRIPS steps) and the dual
-    barrier of -g."""
+    barrier of -g.  `newton`, a list, receives the per-lane Newton trips
+    (evaluations of the Newton function, as the kernel counts them)."""
     d1 = len(al)
     z1, z2 = Z[:d1], Z[d1:]
     s1, s2 = S[:d1], S[d1:]
@@ -1609,9 +1628,11 @@ def _gp_barrier(al, Z, S):
         return v
 
     done = torch.zeros_like(big)
+    trips = torch.zeros_like(x, dtype=torch.int32)
     for _ in range(NR_TRIPS):
         if bool(done.all()):
             break
+        trips += (~done).to(torch.int32)
         d1_ = f1(x)
         dx = -f0(x) / torch.where(d1_ != 0, d1_, 1.0)
         stop = ((dx < EPS64)
@@ -1620,6 +1641,8 @@ def _gp_barrier(al, Z, S):
                 | (d1_.abs() < EPS64))
         x = torch.where(done | stop, x, x + dx)
         done = done | stop
+    if newton is not None:
+        newton.append(trips)
     gr = [torch.where(big, x * v / nr, 0.0) for v in s2]
     gp = [torch.where(big, -(1.0 + a + a * x * norm_r) / sj,
                       -(1.0 + a) / sj) for sj, a in zip(s1, al)]
@@ -1672,9 +1695,17 @@ def tolerances(st):
     return full, reduced
 
 
-def mega_solve_plain(Ptri, q, A, b, spec, B):
+def mega_solve_plain(Ptri, q, A, b, spec, B, trips=None):
     """The whole batched solve over B lanes; see the module docstring for
-    the layout.  Returns (vals (OUTD, B) float64, ints (4, B) int32)."""
+    the layout.  Returns (vals (OUTD, B) float64, ints (4, B) int32).
+
+    `trips`, a dict, receives the per-lane trip counts of the searches of
+    a layout with nonsymmetric segments, one (B,) int32 tensor per search
+    (0 on the lanes that do not run it): "feas", the joint feasibility
+    backtracks (two per IPM step); "barrier", the barrier backtracks of
+    the Dual lanes (one per step); "newton", each barrier evaluation's
+    genpow Newton trips.  The kernel runs the same searches with the same
+    counts, up to rounding; `coop_rounds` turns them into its schedule."""
     st = spec.st
     n, m = spec.n, spec.m
     for name, t in zip("PqAb", (Ptri, q, A, b)):
@@ -1695,6 +1726,9 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
               normq=(dinv * qe).abs().amax(dim=1) * cinv,
               normb=(einv * be).abs().amax(dim=1))
     ops = _Ops(spec, Ps, As, qe, be)
+    if trips is not None:
+        trips.update(feas=[], barrier=[], newton=[])
+        ops.trips = trips
 
     # ---- initial point (reference l.3089-3157) ----
     if spec.nonsym:
@@ -1870,6 +1904,37 @@ def mega_solve_plain(Ptri, q, A, b, spec, B):
                       torch.stack(scalars, dim=1)], dim=1)
     return (vals.t().contiguous(),
             torch.stack([status, iters, strat, p1_iters]).contiguous())
+
+
+def warp_costs(trips, warp=32):
+    """(serial, cooperative) cost of one search over a batch, from its
+    per-lane trip counts (B,) as `mega_solve_plain` keeps them: the sum
+    over warps of the warp's largest count (what a warp pays when each
+    lane runs its own loop), and the sum over warps of the rounds of the
+    kernel's warp-cooperative search (csrc/megakernel.cu `coop_search`).
+    Lanes l and l' share a warp when l // warp == l' // warp.  In a round
+    the L lanes of a warp still searching share all the warp's threads
+    (the lanes that search no more, or have finished, or lie past the
+    batch, serve): the t-th takes the (t // L)-th untried step of the
+    (t % L)-th lane, so a lane gets warp // L candidates, one more for the
+    first warp % L, and is done once its count is reached."""
+    t = trips.detach().to("cpu", torch.int64)
+    pad = (-t.numel()) % warp
+    t = torch.cat([t, torch.zeros(pad, dtype=torch.int64)]).view(-1, warp)
+    serial = int(t.max(dim=1).values.sum())
+    W = warp
+    nxt = torch.zeros_like(t)
+    rounds = 0
+    while True:
+        rem = nxt < t
+        L = rem.sum(dim=1, keepdim=True)
+        if not bool((L > 0).any()):
+            return serial, rounds
+        rounds += int((L > 0).sum())
+        rank = torch.cumsum(rem.to(torch.int64), dim=1) - 1
+        Ls = L.clamp_min(1)
+        share = W // Ls + (rank < W % Ls).to(torch.int64)
+        nxt = nxt + torch.where(rem, share, 0)
 
 
 _CARRY = ("x", "z", "s", "tau", "kappa", "px", "pz", "ps", "ptau", "pkap",

@@ -13,7 +13,8 @@ The factor takes one of two routes.  A float32 factor with N ≤ 80 takes
 the K2 route (`_use_pallas`, the reference's name): `linalg.batched_ldl`
 factors the whole batch and builds L⁻¹ in one call, which on CUDA tensors
 is the hand-written kernel.  Every other factor is `linalg.ldl.ldl_factor`,
-with the explicit inverse for N ≤ 512.
+with the explicit inverse, for N ≤ 512, and the blocked
+`linalg.ldl.ldl_factor_blocked` above that.
 """
 
 from typing import NamedTuple, Optional
@@ -135,13 +136,22 @@ def assemble_and_factor(P, A, Hs, signs, settings, factor_dtype=None):
             settings.dynamic_regularization_enable)
         return KKTFactor(Linv, d, K_true, ok, Linv, perm, iperm)
 
+    dyn = dict(dyn_eps=settings.dynamic_regularization_eps,
+               dyn_delta=settings.dynamic_regularization_delta,
+               dynamic_enable=settings.dynamic_regularization_enable)
     if N > 512:
-        ldl_factor_blocked(K_fac, lane_signs)
-    L, d, ok = ldl_factor(
-        K_fac, lane_signs,
-        dyn_eps=settings.dynamic_regularization_eps,
-        dyn_delta=settings.dynamic_regularization_delta,
-        dynamic_enable=settings.dynamic_regularization_enable)
+        # the blocked factor, on K padded to a multiple of 128 with unit
+        # pivots of sign +1 (reference kkt/dense.py:157-180)
+        pad = (-N) % 128
+        Kp = torch.nn.functional.pad(K_fac, (0, pad, 0, pad))
+        Kp[:, N:, N:] = torch.eye(pad, dtype=fdt, device=K_fac.device)
+        sp = torch.cat([lane_signs.to(fdt).expand(K_fac.shape[0], N),
+                        torch.ones((K_fac.shape[0], pad), dtype=fdt,
+                                   device=K_fac.device)], dim=1)
+        Lp, dp, ok = ldl_factor_blocked(Kp, sp, **dyn)
+        L, d = Lp[:, :N, :N], dp[:, :N]
+    else:
+        L, d, ok = ldl_factor(K_fac, lane_signs, **dyn)
     Linv = invert_unit_lower(L) if _use_inverse(settings, N) else None
     return KKTFactor(L, d, K_true, ok, Linv, perm, iperm)
 

@@ -42,11 +42,36 @@ def ldl_factor(K, signs, dyn_eps=1e-13, dyn_delta=2e-7, dynamic_enable=True):
 
 def ldl_factor_blocked(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
                        dynamic_enable=True, block=128):
-    """The reference's blocked factor serves single instances with
-    N > 512; batches of small instances never take it."""
-    raise NotImplementedError(
-        "the blocked dense LDL (N > 512): ROADMAP.md Queue 1 item 7 "
-        "(single-instance Solver)")
+    """Blocked right-looking LDLᵀ of (B, N, N) K (reference
+    `ldl_factor_blocked`, for N > 512): each diagonal block is factored
+    with the unblocked `ldl_factor`, the panel below it by a triangular
+    solve, and the trailing Schur complement is updated by one product.
+    Requires N % block == 0 (the caller pads).  signs are (N,) or (B, N).
+    Returns (L, d, ok) as `ldl_factor` does."""
+    B, n, _ = K.shape
+    if n % block:
+        raise ValueError(f"N = {n} is not a multiple of the block {block}")
+    signs = signs.to(K.dtype).expand(B, n)
+    W = K.clone()
+    d = torch.zeros((B, n), dtype=K.dtype, device=K.device)
+    for j0 in range(0, n, block):
+        j1 = j0 + block
+        Lbb, db, _ = ldl_factor(W[:, j0:j1, j0:j1], signs[:, j0:j1],
+                                dyn_eps, dyn_delta, dynamic_enable)
+        # panel below the block: Lsub = panel Lbb^-T D^-1
+        Lsub = torch.linalg.solve_triangular(
+            Lbb, W[:, j1:, j0:j1].transpose(-1, -2), upper=False,
+            unitriangular=True).transpose(-1, -2) / db[:, None, :]
+        # trailing Schur update: W -= Lsub D Lsubᵀ
+        W[:, j1:, j1:] -= torch.matmul(Lsub * db[:, None, :],
+                                       Lsub.transpose(-1, -2))
+        W[:, j1:, j0:j1] = Lsub
+        W[:, j0:j1, j0:j1] = Lbb
+        d[:, j0:j1] = db
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    L = torch.tril(W, -1) + eye
+    ok = torch.isfinite(d).all(dim=1) & (d != 0).all(dim=1)
+    return L, d, ok
 
 
 def ldl_solve(L, d, b):

@@ -15,8 +15,10 @@ CUDA card":
   through the LDL kernel K2 (`csrc/ldl_inverse.cu`) on the card.
 
 `rescue=` re-solves the lanes that did not reach SOLVED with a cascade of
-loop solvers.  Everything outside this slice of the port raises
-`NotImplementedError` naming the ROADMAP.md item that will bring it.
+loop solvers.  `kkt_backend="blockarrow"` and `"multifrontal"` run the
+dense `ldl` loop, as the reference's BatchSolver does (it passes no
+structure plan).  `mesh=` raises `NotImplementedError` naming the
+ROADMAP.md item that will bring it.
 """
 
 import dataclasses

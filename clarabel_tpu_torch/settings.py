@@ -2,9 +2,9 @@
 
 Same field names, the same defaults and the same comments, so that one
 settings object (as a dict) configures both packages (`interop.py`).  Many
-fields name paths that this slice of the port does not have yet;
-`parallel/batch_impl.BatchSolver` raises `NotImplementedError` for every
-setting outside the slice instead of ignoring it.
+fields name paths of the single-instance `Solver`, which the port does not
+have yet; `parallel/batch_impl.BatchSolver`, like the reference's, does not
+read them.
 """
 
 import dataclasses

@@ -9,6 +9,8 @@ installed:
     python -m pytest --noconftest -m gpu tests/test_torch_batch.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -84,8 +86,24 @@ def test_cones_now_in_the_slice_solve(cone):
 @pytest.mark.parametrize("change", [
     {"kkt_backend": "blockarrow"}, {"kkt_backend": "multifrontal"}])
 def test_settings_outside_the_slice_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _solver(settings=ctt.Settings(**change))
+    """These backends once raised here; now they solve.  BatchSolver
+    passes no structure plan, so the reference runs its dense ldl loop for
+    both, and so does the port: on the example batch of __graft_entry__.py
+    the reference's statuses (tests/torch_fixtures/faults.npz), x within
+    the bench bar of DEVIATIONS.md #4 (1e-4), the objective within 1e-6,
+    iterations within 4, and the bits of the port's own ldl loop."""
+    bk = change["kkt_backend"]
+    data = bench_data.make_batch(4, 6, 0)
+    sol = _solver(CONES_BENCH, 6, ctt.Settings(**change)).solve(*data)
+    ldl = _solver(CONES_BENCH, 6, ctt.Settings(kkt_backend="ldl")).solve(
+        *data)
+    fix = np.load(os.path.join(os.path.dirname(__file__), "torch_fixtures",
+                               "faults.npz"))
+    np.testing.assert_array_equal(sol.status, fix[f"{bk}_status"])
+    assert np.abs(sol.x - fix[f"{bk}_x"]).max() < 1e-4
+    assert np.abs(sol.obj_val - fix[f"{bk}_obj_val"]).max() < 1e-6
+    assert np.abs(sol.iterations - fix[f"{bk}_iterations"]).max() <= 4
+    np.testing.assert_array_equal(sol.x, ldl.x)
 
 
 @pytest.mark.parametrize("change", [
@@ -514,3 +532,63 @@ def test_two_phase_kernel_matches_plain_version_on_the_card(name):
     assert np.abs(sol.iterations[both] - pi[1, both]).max() <= 4
     p1 = sol._out["p1_iterations"]
     assert (p1 > 0).all() and np.abs(p1 - pi[3]).max() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["genpow", "psd3"])
+def test_family_kernel_meets_the_smoke_bars_on_the_card(name):
+    """K1c on the genpow batch and K1d on psd3 at chip_smoke.py's B
+    (FAMILY_B = 4096, the first lanes of its largest batch), each held to
+    its plain version on the card by chip_smoke.py's bars (GENPOW_BARS,
+    PSD_BARS); every genpow lane ends on the Dual strategy in both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    import chip_smoke as cs
+    B = cs.FAMILY_B
+    big = max(cs.FAMILY_THROUGHPUT)
+    if name == "genpow":
+        cones, n = [ctt.NonnegativeConeT(2),
+                    ctt.GenPowerConeT((0.3, 0.7), 2)], 4
+        data, bars = bench_data.make_genpow_batch(big), cs.GENPOW_BARS[name]
+    else:
+        cones, n = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)], 3
+        data, bars = bench_data.make_sdp_batch(big, 3, 13), cs.PSD_BARS[name]
+    P, q, A, b = (a[:B] for a in data)
+    spec = ctt.BatchSolver(cones, n)._mega_fn.spec
+    _, flats = megakernel.prepare(P, q, A, b, spec, "cuda")
+    before = _cuda.megakernel.launches
+    kv, ki = _cuda.megakernel(*flats, spec, B)
+    torch.cuda.synchronize()
+    assert _cuda.megakernel.launches == before + 1
+    pv, pi = megakernel_ref.mega_solve_plain(*flats, spec, B)
+    k, p = cs.outputs(kv, ki, spec), cs.outputs(pv, pi, spec)
+    r = cs.readings(k, p, P, q, A, b)
+    assert not cs.violations(r, bars, B), cs.describe(r)
+    if name == "genpow":
+        assert bool((ki[2] == 1).all()) and bool((pi[2] == 1).all())
+
+
+@pytest.mark.gpu
+def test_multifrontal_takes_float32_factors_on_the_card():
+    """kkt_backend="multifrontal" resolves its factor dtype as the
+    reference does off a CPU: float32 factors, refined in float64, which at
+    N = 19 is the K2 route; "ldl" keeps float64 factors and no K2.  The
+    float32 factor's refinement stalls near the optimum, so lanes end
+    SOLVED or ALMOST_SOLVED (on the card 63 of these 256 SOLVED, the rest
+    ALMOST_SOLVED; DEVIATIONS.md #6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    data = bench_data.make_batch(256, 6, 0)
+    before = batched_ldl.kernel.launches
+    mf = ctt.BatchSolver(CONES_BENCH, 6,
+                         ctt.Settings(kkt_backend="multifrontal")).solve(*data)
+    assert batched_ldl.kernel.launches > before
+    before = batched_ldl.kernel.launches
+    ldl = ctt.BatchSolver(CONES_BENCH, 6,
+                          ctt.Settings(kkt_backend="ldl")).solve(*data)
+    assert batched_ldl.kernel.launches == before
+    almost = int(ctt.SolverStatus.ALMOST_SOLVED)
+    assert np.isin(mf.status, [SOLVED, almost]).all(), mf.status
+    both = (mf.status == SOLVED) & (ldl.status == SOLVED)
+    assert both.any()
+    assert np.abs(mf.obj_val[both] - ldl.obj_val[both]).max() < 1e-6

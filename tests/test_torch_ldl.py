@@ -137,3 +137,25 @@ def test_f64_ldl_matches_the_reference():
     np.testing.assert_allclose(
         ldl.ldl_solve_via_inverse(Linv, d, rhs_t[..., 0]).numpy(),
         np.asarray(rx_inv)[..., 0], rtol=0, atol=F64_TOL)
+
+
+def test_blocked_f64_ldl_matches_the_reference():
+    """`ldl_factor_blocked` (the dense ldl loop's factor for N > 512)
+    against the reference's, vmapped: N = 12 padded with unit pivots to
+    16, as the KKT code pads it, in two blocks of 8."""
+    K, signs = make_kkts(4, seed=5)
+    N = K.shape[1]
+    Np = -(-N // 8) * 8
+    Kp = np.zeros((4, Np, Np))
+    Kp[:, :N, :N] = K
+    Kp[:, np.arange(N, Np), np.arange(N, Np)] = 1.0
+    sp = np.concatenate([signs, np.ones(Np - N)])
+    args = (1e-13, 2e-7, True)
+    rL, rd, rok = jax.vmap(lambda k: ref_ldl.ldl_factor_blocked(
+        k, jnp.asarray(sp), *args, block=8))(jnp.asarray(Kp))
+    L, d, ok = ldl.ldl_factor_blocked(torch.tensor(Kp), torch.tensor(sp),
+                                      *args, block=8)
+    assert ok.all() and bool(np.all(rok))
+    for got, want in ((L, rL), (d, rd)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=F64_TOL)
