@@ -2,16 +2,22 @@
 """Smoke run of the PyTorch / CUDA port (clarabel_tpu_torch) on one NVIDIA card.
 
 Builds the CUDA kernels from the sources beside this script, in parallel:
-the batched IPM megakernel (clarabel_tpu_torch/csrc/megakernel.cu) as K1a
-(zero/nn/SOC layouts), as K1b (exponential and power cones), as K1d (PSD
-cones of side at most 3), as K1c (generalized power cones) and as K1e
-(its float32 first phase, on the bench and psd3 shapes), and the float32
-LDL-inverse kernel K2 (csrc/ldl_inverse.cu).
+the batched IPM megakernel as K1a (zero/nn/SOC layouts: one lane per
+group of threads, clarabel_tpu_torch/csrc/megakernel_group.cu, up to 48
+lanes an SM, and one lane per thread, csrc/megakernel.cu, above), as K1b
+(exponential and power cones), as K1d (PSD cones of side at most 3), as
+K1c (generalized power cones) and as K1e (its float32 first phase, on the
+bench and psd3 shapes; these four from csrc/megakernel.cu), a wrong group
+kernel (its butterfly sums without their last step), and the float32
+LDL-inverse kernel K2 (csrc/ldl_inverse.cu).  Phase [1] prints each
+library's ptxas line and the local loads and stores in its SASS; every
+phase prints its seconds.
 Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
 
 * [1] the card, the toolchain and the builds;
-* [2]-[4] K1a against its plain version on four batches, and the main path
+* [2]-[4] K1a against its plain version on four batches (with the wrong
+  kernels, the wrong group kernel among them), and the main path
   (the megakernel on the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8
   tolerances) at B = 4096, 65536 and 131072;
 * [5] K2 against its plain version at N = 19 and 80, B = 65536, and a
@@ -353,6 +359,65 @@ def synced_wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
+
+
+def wrong_group_kernel():
+    """K1a's group kernel (csrc/megakernel_group.cu) built with
+    MK_WRONG_BUTTERFLY=1: every butterfly sum drops its last step and
+    takes thread 0's partial sum, a sum over half of the group's rows.
+    The bars of [2] and [3] must reject it."""
+    import os as _os
+    from clarabel_tpu_torch.ipm import _cuda
+
+    class WrongGroup(_cuda.Megakernel):
+        def __init__(self):
+            super().__init__()
+            self.source = _os.path.join(_os.path.dirname(self.source),
+                                        "megakernel_group.cu")
+            self.stem = "megakernel_group_wrong"
+            self.macros += ("MK_WRONG_BUTTERFLY",)
+            self.tags += ("wb",)
+
+        def source_for(self, variant):
+            return self.source
+
+        def variant(self, spec, B, device):
+            return _cuda.shape_of(spec) + (1, 1)
+
+    return WrongGroup()
+
+
+def sass_counts(path):
+    """Counts in the SASS of a built library (`cuobjdump -sass`): its
+    instructions, local loads (LDL) and stores (STL), and generic loads
+    and stores (LD.E, ST.E)."""
+    import re
+    from clarabel_tpu_torch import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     text)
+    return dict(instructions=len(ops),
+                LDL=sum(o.startswith("LDL") for o in ops),
+                STL=sum(o.startswith("STL") for o in ops),
+                LD=sum(o.startswith("LD.E") or o == "LD" for o in ops),
+                ST=sum(o.startswith("ST.E") or o == "ST" for o in ops))
+
+
+class PhaseClock:
+    """Prints each phase's seconds as the next one starts."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def start(self, name):
+        """Close the running phase and start `name` (None: the last)."""
+        now = time.perf_counter()
+        if self.name is not None:
+            print(f"{self.name} took {now - self.t0:.1f} s", flush=True)
+        self.name, self.t0 = name, now
 
 
 # ---- K2: the float32 LDL-inverse kernel ----
@@ -946,6 +1011,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     # ---- phase 1: device and toolchain, kernel build ----
+    clock = PhaseClock()
+    clock.start("[1]")
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True)
     print(f"[1] card: {card}", flush=True)
@@ -982,22 +1049,44 @@ def main():
                   for c, n in ((nn_soc, BENCH_N),
                                ([ctt.NonnegativeConeT(6),
                                  ctt.PSDTriangleConeT(3)], 3))]
+    # the wrong group kernel on the bench shape
+    wrong_group = wrong_group_kernel()
+    wrong_shapes = [_cuda.shape_of(solvers["bench"]._mega_fn.spec)]
     t0 = time.perf_counter()
+    all_shapes = shapes + [k1b_shape] + k1d_shapes + [k1c_shape] + k1e_shapes
+    # the libraries this run launches: a zero/nn/SOC shape takes the group
+    # kernel or the one-lane-per-thread kernel by B; the bench shapes run
+    # at every B of THROUGHPUT_BATCHES, the other shapes at 4096
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bench_shapes = {_cuda.shape_of(solvers["bench"]._mega_fn.spec),
+                    k1e_shapes[0]}
+    variants = sorted({_cuda.variant_of(sh, B, sms) for sh in all_shapes
+                       for B in (THROUGHPUT_BATCHES if sh in bench_shapes
+                                 else (4096,))})
     cuda_build.build_together(
-        (_cuda.megakernel, shapes + [k1b_shape] + k1d_shapes + [k1c_shape]
-         + k1e_shapes),
-        (batched_ldl.kernel, [()]))
+        (_cuda.megakernel, variants), (batched_ldl.kernel, [()]),
+        (wrong_group, [sh + (1, 1) for sh in wrong_shapes]))
     print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
           f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e for "
-          f"{k1e_shapes} and K2 in {time.perf_counter() - t0:.1f} s (one "
-          f"nvcc each, in parallel)", flush=True)
+          f"{k1e_shapes} (zero/nn/SOC shapes from the source each B takes: "
+          f"{[v for v in variants if _cuda.group_eligible(v)]}), K2, and "
+          f"the wrong group kernel for {wrong_shapes} "
+          f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
+          f"parallel)", flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
+            src = os.path.basename(lib.source_for(variant))
             for line in log.splitlines():
                 if "registers" in line or "spill" in line or "stack" in line:
-                    print(f"[1] ptxas {lib.stem} {variant}: {line.strip()}")
+                    print(f"[1] ptxas {src} {variant}: {line.strip()}")
+    for v in variants:
+        c = sass_counts(_cuda.megakernel.lib_path(v))
+        print(f"[1] sass {_cuda.source_for(v)} {v}: {c['instructions']} "
+              f"instructions, {c['LDL']} local loads (LDL), {c['STL']} local "
+              f"stores (STL), {c['LD']} and {c['ST']} generic (LD.E, ST.E)")
 
     # ---- phases 2-3: kernel vs plain version on the card ----
+    clock.start("[2]-[3]")
     failures = []
 
     def check(name):
@@ -1063,12 +1152,22 @@ def main():
                   f"{describe(rw)}; rejected by: "
                   f"{', '.join(rejected) or 'none'}", flush=True)
             bar(rejected, f"the bars pass the wrong kernel ({wname})")
+        if _cuda.shape_of(spec) in wrong_shapes:
+            # the group kernel without its last butterfly step
+            w = outputs(*wrong_group(*flats, spec, B), spec)
+            rw = readings(w, p, P, q, A, b)
+            rejected = violations(rw, bars, B)
+            print(f"{tag}: wrong group kernel (last butterfly step dropped)"
+                  f" vs plain: {describe(rw)}; rejected by: "
+                  f"{', '.join(rejected) or 'none'}", flush=True)
+            bar(rejected, "the bars pass the wrong group kernel")
         return dict(ms=k_ms, plain_ms=p_ms,
                     max_abs_err=max(r["dx"], r["dobj"]), iters=k["iterations"], spec=spec, B=B, flats=flats)
 
     results = {name: check(name) for name in cases}
 
     # ---- phase 4: throughput through BatchSolver.solve ----
+    clock.start("[4]")
     big = bench_data.make_batch(max(THROUGHPUT_BATCHES), BENCH_N, 0)
     bs = solvers["bench"]
     spec = bs._mega_fn.spec
@@ -1148,14 +1247,18 @@ def main():
           f" {in_bytes + out_bytes} bytes -> {bytes_ms:.4f} ms")
 
     # ---- phases 5-7: K2, the loop solver and the rescue cascade ----
+    clock.start("[5]")
     k2 = k2_phase(card, failures)
+    clock.start("[6]")
     k2_launches = loop_phase(card, failures)
     print(f"[6] K2 launches on the loop paths: {k2_launches}", flush=True)
     if k2_launches <= 0:
         failures.append("[6] the Settings.throughput() path did not launch K2")
+    clock.start("[7]")
     rescue_phase(card, failures)
 
     # ---- phase 8: K1b (exponential and power cones) ----
+    clock.start("[8]")
     def check_nonsym(name, cones, data, st):
         """K1b against its plain version on one batch at NONSYM_B, the
         plain version against itself under a 1e-15 change of q, and the
@@ -1556,6 +1659,7 @@ def main():
               f"-> {b_ms:.4f} ms", flush=True)
         return max(b_ms, o_ms), ("operations" if o_ms >= b_ms else "bytes")
 
+    clock.start("[9]")
     psd3_cones = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)]
     psd_big = bench_data.make_sdp_batch(max(FAMILY_THROUGHPUT), 3, 13)
     psd = {}
@@ -1574,6 +1678,7 @@ def main():
         PSD_BARS["psd3"]["kkt"], (FAMILY_B, max(FAMILY_THROUGHPUT)))
     k1d_bound = family_bound(dict(psd["psd3"], phase=9, name="psd3"))
 
+    clock.start("[10]")
     gp_cones = [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)]
     gp_big = bench_data.make_genpow_batch(max(FAMILY_THROUGHPUT))
     gp = check_family(10, "genpow", gp_cones, 4,
@@ -1587,16 +1692,18 @@ def main():
     k1c_bound = family_bound(dict(gp, phase=10, name="genpow"))
 
     # ---- phase 11: K1e (the float32 first phase) ----
+    clock.start("[11]")
     k1e = two_phase_phase(card, failures, big, psd_big, cases["qp_eq"][2],
                           exp_data)
 
+    clock.start(None)
     if failures:
         fail("; ".join(failures))
     k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
     kernels = [{
         "name": "megakernel",
         "route": "cuda",
-        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "source": "clarabel_tpu_torch/csrc/megakernel_group.cu",
         "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
         "launches": launches,
         "max_abs_err": max(v["max_abs_err"] for v in results.values()),

@@ -11,8 +11,9 @@ kept as μ(D + pp' − qq' − rr')) and no third-order correction.
 The reference's data-dependent `lax.while_loop`s (the one-sided
 Newton-Raphson and the backtracking search) run under `jax.vmap`: the loop
 goes on while any lane is active and a finished cone keeps its value.
-Here each is a Python loop over the whole batch that runs while any cone
-of any lane is active and masks the update per cone.
+Here each is a loop over the whole batch that masks the update per cone
+and runs while any cone of any lane is active, checked on the host once
+every few trips (`trips.run_trips`).
 
 Cone math provenance (the reference's reference):
 * exponential cone — src/cones/coneops_expcone.jl
@@ -23,10 +24,12 @@ Cone math provenance (the reference's reference):
 
 import math
 
+import numpy as np
 import torch
 
-from .layout import ConeGroup, _gather, _scatter
+from .layout import ConeGroup, _gather, _on, _scatter
 from ..linalg.smallops import chol3_solve
+from ..trips import run_trips
 
 # exp-cone unit initialization (reference: coneops_expcone.jl:36-52)
 _EXP_UNIT = (-1.051383945322714, 0.556409619469370, 1.258967884768947)
@@ -44,7 +47,8 @@ def _eps(dtype):
 def _alpha(g: ConeGroup, like):
     """The group's exponents as a tensor like `like`: (c,) for pow cones,
     (c, d1) for generalized power cones."""
-    return torch.as_tensor(g.alpha, dtype=like.dtype, device=like.device)
+    return _on(g, "alpha", np.asarray(g.alpha, dtype=np.float64),
+               like.device).to(like.dtype)
 
 
 def _stack3(a, b, c):
@@ -108,34 +112,50 @@ def _newton_raphson_onesided(x0, f0, f1, dtype):
     shape."""
     eps = _eps(dtype)
     sqrt_eps = math.sqrt(eps)
-    x = x0
-    done = torch.zeros(x0.shape, dtype=torch.bool, device=x0.device)
-    for _ in range(100):
-        if bool(done.all()):
-            break
+
+    def trip(c):
+        x, done = c
         dfdx = f1(x)
         dx = -f0(x) / torch.where(dfdx != 0, dfdx, 1.0)
         stop = ((dx < eps)
                 | ((dx / torch.where(x != 0, x, 1.0)).abs() < sqrt_eps)
                 | (dfdx.abs() < eps))
-        x = torch.where(done | stop, x, x + dx)
-        done = done | stop
+        return torch.where(done | stop, x, x + dx), done | stop
+
+    done = torch.zeros(x0.shape, dtype=torch.bool, device=x0.device)
+    x, _ = run_trips(trip, (x0, done), lambda c: c[1].all(), 100)
     return x
 
 
+def _backtrack_trips(alpha_min, step):
+    """The trips after which `_backtrack_search` has ended every lane.  A
+    lane that starts at alpha_init <= 1 and fails every test holds
+    alpha_init * step^k after k trips and ends once that is below
+    alpha_min: by trip ceil(log(alpha_min) / log(step)), with one trip to
+    spare for the rounding of the repeated products.  None (no cap, as in
+    the reference) where alpha_min <= 0 or step is not in (0, 1)."""
+    if not (alpha_min > 0 and 0 < step < 1):
+        return None
+    return math.ceil(math.log(alpha_min) / math.log(step)) + 1
+
+
 def _backtrack_search(Q, dQ, feas_fcn, alpha_init, alpha_min, step):
-    """Per-cone feasibility backtracking from alpha_init (B,), min over
-    the cones of each lane (reference: coneops_nonsymmetric_common.jl:
-    5-34).  Q, dQ: (B, c, 3)."""
-    a = alpha_init[:, None].expand(Q.shape[:2]).clone()
-    done = torch.zeros(Q.shape[:2], dtype=torch.bool, device=Q.device)
-    while not bool(done.all()):
+    """Per-cone feasibility backtracking from alpha_init (B,), at most 1,
+    min over the cones of each lane (reference: coneops_nonsymmetric_common
+    .jl:5-34).  Q, dQ: (B, c, 3)."""
+
+    def trip(c):
+        a, done = c
         feas = feas_fcn(Q + a[..., None] * dQ)
         newdone = done | feas
         a = torch.where(newdone, a, a * step)
         killed = ~newdone & (a < alpha_min)
-        a = torch.where(killed, 0.0, a)
-        done = newdone | killed
+        return torch.where(killed, 0.0, a), newdone | killed
+
+    a = alpha_init[:, None].expand(Q.shape[:2]).clone()
+    done = torch.zeros(Q.shape[:2], dtype=torch.bool, device=Q.device)
+    a, _ = run_trips(trip, (a, done), lambda c: c[1].all(),
+                     _backtrack_trips(alpha_min, step))
     return a.amin(dim=1)
 
 

@@ -270,9 +270,10 @@ def update_scaling(layout: ConeLayout, state, s, z, mu, scaling_strategy):
 # ---------------------------------------------------------------------------
 
 def _soc_J(width, dtype, device):
-    jd = -torch.ones((width,), dtype=dtype, device=device)
-    jd[0] = 1.0
-    return jd
+    """diag(J) = (1, -1, ..., -1), made on the device (no copy from the
+    host, so a CUDA graph can capture it)."""
+    return torch.cat([torch.ones((1,), dtype=dtype, device=device),
+                      -torch.ones((width - 1,), dtype=dtype, device=device)])
 
 
 def hs_dense(layout: ConeLayout, state: Dict, like):

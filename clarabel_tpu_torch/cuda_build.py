@@ -6,8 +6,9 @@ PyTorch's headers takes minutes.  A `CudaLibrary` is one source under
 `csrc/`.  It is compiled with nvcc for sm_90a at first use, once per
 variant (a tuple of compile-time `-D` values; the empty tuple for a source
 that takes none), into `build/kernels/` beside the package (a directory
-that `.gitignore` lists).  The library name carries a hash of the source and
-the flags, so an edited source builds anew.
+that `.gitignore` lists).  The library name carries the source's name and
+a hash of the source and the flags, so an edited source builds anew; a
+subclass may build its variants from more than one source (`source_for`).
 
 `build_together` starts one nvcc for every missing library of every source
 it is given, all at once, and waits for them; a failed build raises.
@@ -54,13 +55,23 @@ class CudaLibrary:
         self.build_logs: Dict[Variant, str] = {}
         self._libs: Dict[Variant, ctypes.CDLL] = {}
 
+    def source_for(self, variant: Variant = ()) -> str:
+        """The source a variant builds from (one per library by default)."""
+        return self.source
+
+    def flags_for(self, variant: Variant = ()) -> Tuple[str, ...]:
+        """nvcc flags a variant adds to NVCC_FLAGS (none by default)."""
+        return ()
+
     def lib_path(self, variant: Variant = ()) -> str:
-        with open(self.source, "rb") as f:
+        source = self.source_for(variant)
+        with open(source, "rb") as f:
             h = hashlib.sha1(f.read())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(NVCC_FLAGS + self.flags_for(variant)).encode())
+        stem = (self.stem if source == self.source
+                else os.path.splitext(os.path.basename(source))[0])
         tag = "".join(f"_{t}{v}" for t, v in zip(self.tags, variant))
-        return os.path.join(BUILD_DIR,
-                            f"{self.stem}{tag}_{h.hexdigest()[:12]}.so")
+        return os.path.join(BUILD_DIR, f"{stem}{tag}_{h.hexdigest()[:12]}.so")
 
     def _start(self, variants: Iterable[Variant]):
         """Start nvcc for each variant not built yet; returns the running
@@ -73,7 +84,8 @@ class CudaLibrary:
             tmp = f"{out}.{os.getpid()}.tmp"
             defines = [f"-D{mac}={val}"
                        for mac, val in zip(self.macros, variant)]
-            cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp, self.source]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags_for(variant),
+                   *defines, "-o", tmp, self.source_for(variant)]
             procs.append((variant, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -1,10 +1,16 @@
-"""Bind and launch the CUDA megakernel (`csrc/megakernel.cu`, K1a-K1e).
+"""Bind and launch the CUDA megakernel (K1a-K1e).
 
-The kernel has compile-time sizes, so there is one library per problem
-shape: n, m, the number of cone segments, three flags that compile a cone
-family's code in only where the layout has such a segment (a nonsymmetric
-segment: K1b; a generalized power segment: K1c; a PSD segment: K1d), and
-one that compiles in the float32 first phase (K1e) where the spec runs it.
+Single-phase zero/nn/SOC layouts (K1a) launch the group kernel of
+`csrc/megakernel_group.cu`, one lane per group of threads, up to
+GROUP_LANES_PER_SM lanes for each SM of the card, and `csrc/megakernel.cu`,
+one lane per thread, above that; every other layout (K1b-K1e) launches
+`csrc/megakernel.cu` (`variant_of`).  Both sources
+have the same C interface and MkParams.  The kernel has compile-time
+sizes, so there is one library per problem shape and source: n, m, the
+number of cone segments, three flags that compile a cone family's code in
+only where the layout has such a segment (a nonsymmetric segment: K1b; a
+generalized power segment: K1c; a PSD segment: K1d), one that compiles in
+the float32 first phase (K1e) where the spec runs it, and the source.
 Each is built at first use by `cuda_build.CudaLibrary` (nvcc for sm_90a,
 loaded with ctypes).
 
@@ -16,6 +22,7 @@ the plain version or to the single phase: a failed build or launch raises.
 
 import ctypes
 import functools
+import os
 from typing import Tuple
 
 import torch
@@ -132,19 +139,75 @@ def shape_of(spec) -> Shape:
             int(spec.two_phase))
 
 
+# A library: the shape and which source it builds from (1: the group
+# kernel, 0: one lane per thread; nvcc gets it as MK_GROUP, which neither
+# source reads: it names the library)
+Variant = Tuple[int, int, int, int, int, int, int, int]
+
+# The group kernel runs while the batch has at most this many lanes for
+# each SM of the card: at 31 lanes an SM it was faster on every batch, at
+# 62 slower on the LP batch (the H100; PERF.md section 5,
+# `tools/megakernel_probe.py sweep --parts gsweep`).
+GROUP_LANES_PER_SM = 48
+
+
+def group_eligible(shape: Shape) -> bool:
+    """Single-phase zero/nn/SOC layouts: the layouts
+    `csrc/megakernel_group.cu` takes (K1e, the first phase, stays in
+    `csrc/megakernel.cu`)."""
+    return not any(shape[3:7])
+
+
+def variant_of(shape: Shape, B: int, sms: int) -> Variant:
+    """The library a launch over B lanes on a card with `sms` SMs takes:
+    the group kernel for an eligible shape up to GROUP_LANES_PER_SM lanes
+    an SM, else the one-lane-per-thread kernel."""
+    grp = group_eligible(shape) and B <= GROUP_LANES_PER_SM * sms
+    return tuple(shape) + (int(grp),)
+
+
+def variants_of(shape: Shape):
+    """Every library a shape may launch."""
+    return [tuple(shape) + (g,) for g in ((0, 1) if group_eligible(shape)
+                                          else (0,))]
+
+
+def source_for(variant) -> str:
+    """`megakernel_group.cu` (one lane per group of threads, K1a) or
+    `megakernel.cu` (one lane per thread; also for a bare shape)."""
+    return ("megakernel_group.cu" if len(variant) > 7 and variant[7]
+            else "megakernel.cu")
+
+
 class Megakernel(CudaLibrary):
-    """The built libraries, one per shape, and the launch counts: every
-    launch, and the launches of two-phase libraries (K1e)."""
+    """The built libraries, one per variant (the shape and its source),
+    and the launch counts: every launch, and the launches of two-phase
+    libraries (K1e)."""
 
     def __init__(self):
         super().__init__("megakernel.cu",
                          macros=("MK_N", "MK_M", "MK_S", "MK_NONSYM",
-                                 "MK_PSD", "MK_GENPOW", "MK_TWO_PHASE"),
-                         tags=("n", "m", "s", "ns", "psd", "gp", "tp"))
+                                 "MK_PSD", "MK_GENPOW", "MK_TWO_PHASE",
+                                 "MK_GROUP"),
+                         tags=("n", "m", "s", "ns", "psd", "gp", "tp", "grp"))
         self.launches = 0
         self.two_phase_launches = 0
+        self._sms = {}
 
-    def bind(self, lib: ctypes.CDLL, shape: Shape) -> None:
+    def source_for(self, variant: Variant) -> str:
+        return os.path.join(os.path.dirname(self.source),
+                            source_for(tuple(variant)))
+
+    def variant(self, spec, B: int, device) -> Variant:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        if index not in self._sms:
+            self._sms[index] = torch.cuda.get_device_properties(
+                index).multi_processor_count
+        return variant_of(shape_of(spec), B, self._sms[index])
+
+    def bind(self, lib: ctypes.CDLL, variant: Variant) -> None:
+        shape = tuple(variant[:7])
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         params = _params_struct(shape[2], shape[4], shape[5], shape[6])
         lib.mk_solve.argtypes = [vp, ll, ll, vp, ll, ll, vp, ll, ll,
@@ -157,12 +220,12 @@ class Megakernel(CudaLibrary):
         got = (ctypes.c_int * 8)()
         lib.mk_shape(got)
         if tuple(got[:7]) != shape:
-            raise RuntimeError(f"{self.lib_path(shape)} was built for "
+            raise RuntimeError(f"{self.lib_path(variant)} was built for "
                                f"{tuple(got[:7])}, not {shape}")
         if lib.mk_params_size() != ctypes.sizeof(params):
             raise RuntimeError(
                 f"MkParams is {lib.mk_params_size()} bytes in "
-                f"{self.lib_path(shape)}, {ctypes.sizeof(params)} in its "
+                f"{self.lib_path(variant)}, {ctypes.sizeof(params)} in its "
                 "ctypes mirror")
 
     def __call__(self, Ptri, q, A, b, spec, B):
@@ -199,7 +262,7 @@ class Megakernel(CudaLibrary):
         ints = torch.empty((4, B), dtype=torch.int32, device=device)
         if not spec.two_phase:
             ints[3].zero_()     # a single-phase library leaves this row
-        lib = self.load(shape_of(spec))
+        lib = self.load(self.variant(spec, B, device))
         args = []
         for t, (ld, ls) in zip((Ptri, q, A, b), strides):
             args += [t.data_ptr(), ld, ls]

@@ -17,6 +17,11 @@ What `vmap` does to the reference's control flow is written out:
   are still factored; their values never reach a live lane, because every
   merge is a select and never a product with a mask.
 * Refinement is masked per lane (`kkt.refine`).
+* The inner loops (refinement, the backtracks, the one-sided Newton
+  solves) ask the host whether a lane still runs once every few trips
+  (`trips.run_trips`).  On a card the IPM pass of a zero/nn/SOC/exp layout
+  is captured once as a CUDA graph and replayed, with one host check per
+  pass (`_replay`).
 * Layouts with a nonsymmetric cone take the asymmetric IPM: the
   unit-initialization start, and per lane the PrimalDual→Dual strategy
   machine with the barrier backtrack of Dual lanes (reference:
@@ -39,9 +44,11 @@ from ..cones.layout import ConeLayout
 from ..cones import ops as cone_ops
 from ..info_print import print_iterations
 from ..kkt import dense as kkt
+from ..linalg import batched_ldl
 from ..linalg import smallops as so
 from ..settings import torch_dtype
 from ..statuscodes import SolverStatus
+from ..trips import run_trips
 from .equilibration import ruiz_equilibrate
 
 # scaling strategy codes (reference: src/types.jl:73-76); symmetric cones
@@ -206,6 +213,56 @@ def check_convergence(info: Info, res: Residuals, tols) -> torch.Tensor:
     return status.to(torch.int32)
 
 
+# The cone kinds whose IPM pass runs as a CUDA graph on a card.  PSD cones
+# take their step lengths from torch.linalg.eigvalsh, which checks its
+# result on the host; a pow or genpow pass runs one-sided Newton solves,
+# which inside a graph would run to their 100-trip cap (`trips.run_trips`)
+# in every scaling and in every trial of the barrier backtrack.
+GRAPH_KINDS = frozenset({"zero", "nn", "soc", "exp"})
+
+
+def backtrack_to_barrier(barrier, alpha_init, active, step, max_iter):
+    """Backtracking line search on barrier(alpha) < 1 for the lanes
+    `active` (the Dual ones), each for at most max_iter trips; the other
+    lanes keep alpha_init.  reference: src/solver.jl:424-442"""
+
+    def trip(c):
+        alpha, done = c
+        good = barrier(alpha) < 1.0
+        return torch.where(done | good, alpha, alpha * step), done | good
+
+    alpha, _ = run_trips(trip, (alpha_init, ~active), lambda c: c[1].all(),
+                         max_iter)
+    return alpha
+
+
+def _replay(step, active_of, carry: Carry) -> Carry:
+    """Run `carry = step(carry)` while any lane is active, as replays of
+    one captured CUDA graph: the graph steps a static copy of the carry in
+    place and reduces the next pass's loop condition to one flag, which the
+    host reads once per pass.  Inner loops inside the pass run to their
+    caps (`trips.run_trips`); their lane masks keep every lane's bits.  A
+    replay launches what the capture recorded, so K2's launch count grows
+    by the launches one pass records."""
+    if not bool(active_of(carry).any()):
+        return carry
+    static = Carry(*(t.clone() for t in carry))
+    k2 = batched_ldl.kernel
+    before = k2.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for dst, src in zip(static, step(static)):
+            dst.copy_(src)
+        flag = active_of(static).any()
+    per_pass = k2.launches - before
+    k2.launches = before
+    while True:
+        graph.replay()
+        k2.launches += per_pass
+        if not bool(flag):
+            return static
+
+
 def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                 kkt_backend=None):
     """Build the batched solve function for a fixed problem structure
@@ -254,6 +311,8 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                    for g in layout.groups.values())
         settings = settings.replace(dense_ldl_diag_order=safe)
     eps_T = float(np.finfo(settings.dtype).eps)
+    graphed = (not settings.verbose
+               and all(g.kind in GRAPH_KINDS for g in layout.groups.values()))
     is_symmetric = layout.is_symmetric
     # generalized power cones have only the dual scaling
     # (reference: coneops_genpowcone.jl:21, loop.py:213-215, 272)
@@ -367,23 +426,6 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                    - cone_ops._logsafe(cur_kappa))
         return barrier + cone_ops.compute_barrier(layout, state, z, s, dz,
                                                   ds, alpha)
-
-    def backtrack_to_barrier(z, s, tau, kappa, dz, ds, dtau, dkappa, state,
-                             alpha_init, active):
-        """Backtracking line search on barrier < 1 for the lanes `active`
-        (the Dual ones), each for at most linesearch_max_iter trips; the
-        other lanes keep alpha_init.  reference: src/solver.jl:424-442"""
-        step = settings.linesearch_backtrack_step
-        alpha = alpha_init
-        done = ~active
-        for _ in range(settings.linesearch_max_iter):
-            if bool(done.all()):
-                break
-            good = barrier_fn(z, s, tau, kappa, dz, ds, dtau, dkappa, state,
-                              alpha) < 1.0
-            alpha = torch.where(done | good, alpha, alpha * step)
-            done = done | good
-        return alpha
 
     def prepare(P, q, A, b, factor_dtype):
         """Equilibration and the initial point: (data, initial carry)."""
@@ -580,8 +622,11 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             # extra barrier backtrack on the Dual lanes (reference:
             # src/solver.jl:416-419)
             on_dual = scaling == DUAL
-            alpha_bt = backtrack_to_barrier(z, s, tau, kappa, dz, ds, dtau,
-                                            dkappa, state, alpha, on_dual)
+            alpha_bt = backtrack_to_barrier(
+                lambda a: barrier_fn(z, s, tau, kappa, dz, ds, dtau, dkappa,
+                                     state, a),
+                alpha, on_dual, settings.linesearch_backtrack_step,
+                settings.linesearch_max_iter)
             alpha = torch.where(on_dual, alpha_bt, alpha)
             # a PrimalDual lane with a short step switches to Dual
             small_switch = can_downgrade & (
@@ -625,15 +670,28 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     def run_loop(data, carry: Carry, extra_cond, factor_dtype) -> Carry:
         """The IPM while-loop over the batch: each pass runs the body for
         every lane and keeps it only on the lanes whose loop condition
-        holds; the loop ends when it holds on none."""
-        while True:
-            active = carry.status == UNSOLVED
+        holds; the loop ends when it holds on none.  On a card, where the
+        layout's cones allow it (`GRAPH_KINDS`), the first pass runs as
+        it is and the rest replay it as a CUDA graph (`_replay`)."""
+
+        def active_of(c):
+            active = c.status == UNSOLVED
             if extra_cond is not None:
-                active = active & extra_cond(carry)
-            if not bool(active.any()):
-                return carry
-            carry = _select_tuple(active, loop_body(data, carry,
-                                                    factor_dtype), carry)
+                active = active & extra_cond(c)
+            return active
+
+        def step(c):
+            return _select_tuple(active_of(c),
+                                 loop_body(data, c, factor_dtype), c)
+
+        if not bool(active_of(carry).any()):
+            return carry
+        carry = step(carry)
+        if graphed and carry.x.device.type == "cuda":
+            return _replay(step, active_of, carry)
+        while bool(active_of(carry).any()):
+            carry = step(carry)
+        return carry
 
     def run_phases(data, carry0: Carry, factor_dtype) -> Carry:
         if settings.mixed_precision:

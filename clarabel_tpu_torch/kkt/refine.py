@@ -15,6 +15,8 @@ with a finite residual.
 
 import torch
 
+from ..trips import run_trips
+
 
 def _lanes(mask, like):
     """(B,) mask viewed to broadcast against `like` (B, ...)."""
@@ -29,6 +31,8 @@ def _inf_norm(v):
 def refine(apply_fn, kkt_mv, rhs, x, abstol, reltol, stop_ratio, max_iter):
     """Refine x ≈ K⁻¹ rhs: at most `max_iter` passes of x += apply_fn(e),
     e = rhs − kkt_mv(x), each pass accepted per lane unless it stalls.
+    A lane that is done keeps its carry through later passes, so the host
+    checks for active lanes once every `trips.TRIPS_PER_CHECK` passes.
     Returns (x, ok), per lane."""
     normb = _inf_norm(rhs)
     e = rhs - kkt_mv(x)
@@ -37,10 +41,14 @@ def refine(apply_fn, kkt_mv, rhs, x, abstol, reltol, stop_ratio, max_iter):
     done = torch.zeros_like(ok)
     target = abstol + reltol * normb
     tiny = torch.finfo(norme.dtype).tiny
-    for _ in range(max_iter):
-        act = ~done & ok & (norme > target)
-        if not bool(act.any()):
-            break
+
+    def active(c):
+        _, _, norme, ok, done = c
+        return ~done & ok & (norme > target)
+
+    def trip(c):
+        x, e, norme, ok, done = c
+        act = active(c)
         xnew = x + apply_fn(e)
         enew = rhs - kkt_mv(xnew)
         nn = _inf_norm(enew)
@@ -53,6 +61,10 @@ def refine(apply_fn, kkt_mv, rhs, x, abstol, reltol, stop_ratio, max_iter):
         x = torch.where(_lanes(accept, x), xnew, x)
         e = torch.where(_lanes(accept, e), enew, e)
         norme = torch.where(accept, nn, norme)
+        return x, e, norme, ok, done
+
+    x, _, _, ok, _ = run_trips(trip, (x, e, norme, ok, done),
+                               lambda c: ~active(c).any(), max_iter)
     return x, ok
 
 

@@ -592,3 +592,39 @@ def test_multifrontal_takes_float32_factors_on_the_card():
     both = (mf.status == SOLVED) & (ldl.status == SOLVED)
     assert both.any()
     assert np.abs(mf.obj_val[both] - ldl.obj_val[both]).max() < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["throughput", "exp"])
+def test_loop_graph_replay_matches_eager_on_the_card(path, monkeypatch):
+    """On a card the loop solver captures its IPM pass as a CUDA graph
+    (zero/nn/SOC/exp layouts) and replays it; with the pass left eager
+    (`loop.GRAPH_KINDS` emptied) every output has the same bits, and the
+    replays count K2's launches as the eager passes do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    from clarabel_tpu_torch.ipm import loop
+
+    if path == "throughput":
+        cones, n, st = CONES_BENCH, 6, ctt.Settings.throughput()
+        data = bench_data.make_batch(1024, 6, 0)
+    else:
+        cones = [ctt.NonnegativeConeT(2), ctt.ExponentialConeT()]
+        n, st = 3, ctt.Settings(kkt_backend="condensed")
+        data = bench_data.make_exp_batch(1024)
+
+    def run():
+        before = batched_ldl.kernel.launches
+        out = ctt.BatchSolver(cones, n, st).solve(*data)._out
+        return out, batched_ldl.kernel.launches - before
+
+    graphed, k2_graphed = run()
+    monkeypatch.setattr(loop, "GRAPH_KINDS", frozenset())
+    eager, k2_eager = run()
+    assert k2_graphed == k2_eager
+    assert (k2_eager > 0) == (path == "throughput")
+    for key, want in eager.items():
+        got = graphed[key]
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        assert np.array_equal(np.ascontiguousarray(got).view(np.uint8),
+                              np.ascontiguousarray(want).view(np.uint8)), key

@@ -28,8 +28,26 @@ B = 4096 and 131072 in turns (parent, change, change, parent), and checks
 that statuses, iteration counts, strategies, phase-1 counts and every
 output value are equal lane for lane.  It fails when they are not.
 
-Both print one line per reading, with the card's name and power limit,
-and with --out write the readings to a JSON file.  Neither imports JAX or
+`sweep --parts bsweep` times K1a and K1e on bench at every B of SIZES
+with the library's own launch and prints the warps each SM holds there.
+
+`sass [--src DIR]` builds the K1a and K1e bench libraries of a tree and
+counts, in `cuobjdump -sass` of each, the local loads and stores (`LDL`,
+`STL`) and the generic ones (`LD.E`, `ST.E`).
+
+`loops --parent DIR` times the loop solver's paths of chip_smoke.py on the
+card, the tree at DIR (imported under another package name) against this
+checkout in turns: `Settings.throughput()` on bench at B = 65536 and 4096 and the
+condensed loop on exp, psd3 and genpow at B = 4096; on the first two this
+checkout also runs with its IPM pass left eager (`ipm.loop.GRAPH_KINDS`
+emptied) and with its inner loops checking after every trip
+(`trips.TRIPS_PER_CHECK` set to 1 or 4 in place of its own, eager
+too).  Statuses
+and iterations must equal the parent's lane for lane.  Then the genpow
+rescue at B = 131072, this checkout only.
+
+Each prints one line per reading, with the card's name and power limit,
+and with --out writes the readings to a JSON file.  None imports JAX or
 the JAX package.
 """
 
@@ -39,6 +57,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -156,9 +175,18 @@ class TreeKernel(_cuda.Megakernel):
     """The megakernel built from another tree's source (or a patched copy
     of one), bound as the port binds its own."""
 
-    def __init__(self, source, stem):
+    def __init__(self, source, stem, group=0):
         super().__init__()
-        self.source, self.stem = source, stem
+        self.source, self.stem, self.group = source, stem, group
+
+    def source_for(self, variant):
+        return self.source
+
+    def variant(self, spec, B, device):
+        return _cuda.shape_of(spec) + (self.group,)
+
+    def variants(self, shapes):
+        return [tuple(sh) + (self.group,) for sh in shapes]
 
 
 # the launch with its block size from launch_threads, and the older
@@ -228,14 +256,19 @@ def ptxas_lines(kern):
 
 
 def sweep(args, card, out):
+    if args.parts == "gsweep":
+        return group_sweep(card, out)
     kern, default_threads = patched_kernel(args.src)
     all_cases = cases()
     names = [nm for nm in ("K1a bench", "K1b exp", "K1d psd3", "K1c genpow",
                            "K1e bench") if re.search(args.only, nm)]
+    if args.parts in ("bsweep", "gsweep"):
+        names = [nm for nm in names if nm in ("K1a bench", "K1e bench")]
     specs = {nm: spec_of(all_cases[nm]) for nm in names}
     t0 = time.perf_counter()
     cuda_build.build_together(
-        (kern, sorted({_cuda.shape_of(s) for s in specs.values()})))
+        (kern, kern.variants(sorted({_cuda.shape_of(s)
+                                     for s in specs.values()}))))
     print(f"built {len(specs)} libraries in {time.perf_counter() - t0:.1f} "
           f"s; card {card}", flush=True)
     ptxas_lines(kern)
@@ -245,7 +278,7 @@ def sweep(args, card, out):
         if change:
             spec = dataclasses.replace(spec, st=spec.st.replace(**change))
         flats = flats_of(nm, all_cases[nm], spec, B)
-        lib = kern.load(_cuda.shape_of(spec))
+        lib = kern.load(kern.variant(spec, B, "cuda"))
         rc = lib.mk_probe_config(threads, carveout)
         if rc:
             raise SystemExit(f"mk_probe_config failed: CUDA error {rc}")
@@ -271,10 +304,78 @@ def sweep(args, card, out):
             for B in SIZES:
                 for carveout in (-1, 0):
                     run(nm, B, 128, carveout)
+    if "bsweep" in parts:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for nm in ("K1a bench", "K1e bench"):
+            if nm not in specs:
+                continue
+            for B in SIZES:
+                threads = 32 if B < 128 * sms else 128
+                blocks = -(-B // threads)
+                print(f"{nm} B={B}: the source's launch takes blocks of "
+                      f"{threads}, {blocks} blocks, {B / 32 / sms:.2f} warps "
+                      f"an SM if every block is resident at once", flush=True)
+                run(nm, B, default_threads)
+    if "gsweep" in parts:
+        group_sweep(card, out)
     if "lsi" in parts:
         for B in ENDS:
             for lsi in (50, 0):
                 run("K1c genpow", B, linesearch_max_iter=lsi)
+
+
+def group_sweep(card, out):
+    """This checkout's one-lane-per-thread kernel (megakernel.cu) against
+    its group kernel (megakernel_group.cu, and the group kernel with G = 8
+    on bench) on K1a bench, lp, qp_eq and K1e bench at every B of SIZES,
+    in turns (thread, group, group, thread)."""
+    csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
+    thread = TreeKernel(os.path.join(csrc, "megakernel.cu"), "gs_thread")
+    group = TreeKernel(os.path.join(csrc, "megakernel_group.cu"), "gs_group",
+                       group=1)
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    g8_path = os.path.join(cuda_build.BUILD_DIR, "megakernel_group_g8.cu")
+    with open(os.path.join(csrc, "megakernel_group.cu")) as f:
+        text = f.read()
+    with open(g8_path, "w") as f:
+        f.write("#define MK_G 8\n" + text)
+    g8 = TreeKernel(g8_path, "gs_group_g8", group=1)
+    all_cases = cases()
+    names = ("K1a bench", "K1a lp", "K1a qp_eq", "K1e bench")
+    specs = {nm: spec_of(all_cases[nm]) for nm in names}
+    shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
+    bench_shapes = [_cuda.shape_of(specs["K1a bench"]),
+                    _cuda.shape_of(specs["K1e bench"])]
+    t0 = time.perf_counter()
+    cuda_build.build_together((thread, thread.variants(shapes)),
+                              (group, group.variants(shapes)),
+                              (g8, g8.variants(bench_shapes)))
+    print(f"gsweep: built in {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    for k in (group, g8):
+        ptxas_lines(k)
+    for nm in names:
+        spec = specs[nm]
+        kerns = {"thread": thread, "group": group}
+        if _cuda.shape_of(spec) in bench_shapes:
+            kerns["group G=8"] = g8
+        for B in SIZES:
+            flats = flats_of(nm, all_cases[nm], spec, B)
+            order = list(kerns) + list(kerns)[::-1]
+            times = {k: [] for k in kerns}
+            solved = {}
+            for who in order:
+                ms, (v, i) = events_ms(lambda: kerns[who](*flats, spec, B))
+                times[who].append(ms)
+                solved[who] = int((i[0] == 1).sum())
+            rec = dict(kernel=nm, B=B, times=times, solved=solved)
+            print(f"gsweep {nm} B={B}: " + "; ".join(
+                f"{k} {t[0]:.3f} / {t[1]:.3f} ms (SOLVED {solved[k]})"
+                for k, t in times.items()) + f" (turns {', '.join(order)});"
+                f" card {card}", flush=True)
+            out.append(rec)
+            del flats
+            torch.cuda.empty_cache()
 
 
 def compare(args, card, out):
@@ -287,7 +388,9 @@ def compare(args, card, out):
     specs = {nm: spec_of(c) for nm, c in all_cases.items()}
     shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
     t0 = time.perf_counter()
-    cuda_build.build_together((new, shapes), (old, shapes))
+    cuda_build.build_together(
+        (new, [v for sh in shapes for v in _cuda.variants_of(sh)]),
+        (old, old.variants(shapes)))
     print(f"built {2 * len(shapes)} libraries in "
           f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
     ptxas_lines(old)
@@ -344,9 +447,288 @@ def compare(args, card, out):
     return unequal
 
 
+def sass(args, card, out):
+    """Local and generic loads and stores in the SASS of a tree's K1a and
+    K1e bench libraries, per function."""
+    all_cases = cases()
+    names = [nm for nm in ("K1a bench", "K1e bench")
+             if re.search(args.only, nm)]
+    src = os.path.join(os.path.abspath(args.src), "clarabel_tpu_torch",
+                       "csrc")
+    for nm in names:
+        spec = spec_of(all_cases[nm])
+        shape = _cuda.shape_of(spec)
+        for name in ("megakernel.cu", "megakernel_group.cu"):
+            if not os.path.exists(os.path.join(src, name)):
+                continue
+            sass_one(nm, name, shape, src, card, out)
+    return []
+
+
+def sass_one(nm, name, shape, src, card, out):
+    """The SASS counts of one library: `name` of tree `src` at `shape`."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
+    tree = TreeKernel(os.path.join(src, name),
+                      f"sass_{os.path.splitext(name)[0]}",
+                      group=int(name == "megakernel_group.cu"))
+    variant = tree.variants([shape])[0]
+    cuda_build.build_together((tree, [variant]))
+    ptxas_lines(tree)
+    c = cs.sass_counts(tree.lib_path(variant))
+    print(f"sass {nm} {name} {shape}: {c['instructions']} instructions, LDL "
+          f"{c['LDL']}, STL {c['STL']}, generic LD.E {c['LD']}, ST.E "
+          f"{c['ST']}; card {card}", flush=True)
+    out.append(dict(kernel=nm, source=name, **c))
+
+
+class FlagKernel(TreeKernel):
+    """A TreeKernel built with extra nvcc flags."""
+
+    def __init__(self, source, stem, group, flags):
+        super().__init__(source, stem, group)
+        self.extra = tuple(flags)
+
+    def flags_for(self, variant):
+        return self.extra
+
+
+def bars(args, card, out):
+    """chip_smoke.py's bars of [2], [3] and [11] (kernel against its plain
+    version on the card, B = 4096) for the one-lane-per-thread kernel and
+    for group-kernel variants (G = 8 and 16, each with and without
+    -fmad=false), and, to show how near the bars each reading is, the same
+    readings with q moved by 1e-15 (relative, three seeds) for the kernel
+    and for the plain version against itself."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.ipm import megakernel_ref
+
+    csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with open(os.path.join(csrc, "megakernel_group.cu")) as f:
+        text = f.read()
+    g16 = os.path.join(cuda_build.BUILD_DIR, "megakernel_group_g16.cu")
+    with open(g16, "w") as f:
+        f.write("#define MK_G 16\n" + text)
+    group = os.path.join(csrc, "megakernel_group.cu")
+    kerns = {
+        "thread": TreeKernel(os.path.join(csrc, "megakernel.cu"), "b_thread"),
+        "group G=8": TreeKernel(group, "b_g8", 1),
+        "group G=8 nofma": FlagKernel(group, "b_g8nf", 1, ("-fmad=false",)),
+        "group G=16": TreeKernel(g16, "b_g16", 1),
+        "group G=16 nofma": FlagKernel(g16, "b_g16nf", 1, ("-fmad=false",)),
+    }
+    all_cases = cases()
+    names = ["K1a bench", "K1a qp_eq", "K1a infeasible", "K1a lp",
+             "K1e bench", "K1e infeasible", "K1e lp"]
+    specs = {nm: spec_of(all_cases[nm]) for nm in names}
+    shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
+    t0 = time.perf_counter()
+    cuda_build.build_together(*[(k, k.variants(shapes))
+                                for k in kerns.values()])
+    print(f"bars: built in {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    for k in kerns.values():
+        ptxas_lines(k)
+    dev = torch.device("cuda")
+    for nm in names:
+        spec = specs[nm]
+        two = spec.two_phase
+        bars_ = (cs.TWO_PHASE_BARS if two else cs.BARS)[nm.split()[1]]
+        P, q, A, b = batch(nm, all_cases[nm], 4096)
+        if P is None:
+            P = np.zeros((q.shape[0], spec.n, spec.n))
+        B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        p = cs.outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B),
+                       spec)
+        jit = []
+        for seed in (7, 8, 9):
+            qj = q * (1 + 1e-15 * np.random.default_rng(seed)
+                      .standard_normal(q.shape))
+            jit.append((qj, megakernel.prepare(P, qj, A, b, spec, dev)[1]))
+        for seed, (qj, fj) in zip((7, 8, 9), jit):
+            pj = cs.outputs(*megakernel_ref.mega_solve_plain(*fj, spec, B),
+                            spec)
+            r = cs.readings(pj, p, P, qj, A, b)
+            v = cs.violations(r, bars_, B)
+            print(f"bars {nm} plain(q jitter seed {seed}) vs plain: "
+                  f"{cs.describe(r)}; fails: {', '.join(v) or 'none'}",
+                  flush=True)
+        for kname, kern in kerns.items():
+            ms, (kv, ki) = events_ms(lambda: kern(*flats, spec, B))
+            r = cs.readings(cs.outputs(kv, ki, spec), p, P, q, A, b)
+            v = cs.violations(r, bars_, B)
+            fails = [len(v)]
+            print(f"bars {nm} {kname} ({ms:.3f} ms) vs plain: "
+                  f"{cs.describe(r)}; fails: {', '.join(v) or 'none'}",
+                  flush=True)
+            for seed, (qj, fj) in zip((7, 8, 9), jit):
+                rj = cs.readings(cs.outputs(*kern(*fj, spec, B), spec), p, P,
+                                 qj, A, b)
+                vj = cs.violations(rj, bars_, B)
+                fails.append(len(vj))
+                print(f"bars {nm} {kname}(q jitter seed {seed}) vs plain: "
+                      f"{cs.describe(rj)}; fails: {', '.join(vj) or 'none'}",
+                      flush=True)
+            out.append(dict(kernel=nm, variant=kname, ms=ms, fails=fails))
+        del flats, jit
+        torch.cuda.empty_cache()
+    return []
+
+
+LOOP_PATHS = ("throughput bench", "throughput bench 4096", "condensed exp",
+              "condensed psd3", "condensed genpow")
+
+
+def parent_package(tree):
+    """The port package of another tree, imported as
+    `clarabel_tpu_torch_parent` from a copy under build/."""
+    root = os.path.join(HERE, "build", "loop_parent")
+    dst = os.path.join(root, "clarabel_tpu_torch_parent")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(os.path.abspath(tree), "clarabel_tpu_torch"),
+                    dst, ignore=shutil.ignore_patterns("__pycache__"))
+    sys.path.insert(0, root)
+    import clarabel_tpu_torch_parent
+    return clarabel_tpu_torch_parent
+
+
+def loop_case(pkg, name):
+    """(solver, data) of a loop path, built from package `pkg`."""
+    import importlib
+    bd = importlib.import_module(pkg.__name__ + ".bench_data")
+    if name.startswith("throughput bench"):
+        cones = [pkg.NonnegativeConeT(6), pkg.SecondOrderConeT(7)]
+        B = 4096 if name.endswith("4096") else 65536
+        data = tuple(a[:B] for a in bd.make_batch(65536, 6, 0))
+        return pkg.BatchSolver(cones, 6, pkg.Settings.throughput(),
+                               device="cuda"), data
+    kind = name.split()[1]
+    if kind == "exp":
+        cones = [pkg.NonnegativeConeT(2), pkg.ExponentialConeT()]
+        n, big = 3, bd.make_exp_batch(131072)
+    elif kind == "psd3":
+        cones = [pkg.NonnegativeConeT(6), pkg.PSDTriangleConeT(3)]
+        n, big = 3, bd.make_sdp_batch(131072, 3, 13)
+    else:
+        cones = [pkg.NonnegativeConeT(2), pkg.GenPowerConeT((0.3, 0.7), 2)]
+        n, big = 4, bd.make_genpow_batch(131072)
+    return pkg.BatchSolver(cones, n, pkg.Settings(kkt_backend="condensed"),
+                           device="cuda"), tuple(a[:4096] for a in big)
+
+
+def loops(args, card, out):
+    import importlib
+    parent = parent_package(args.parent)
+    loop_mod = importlib.import_module("clarabel_tpu_torch.ipm.loop")
+    trips_mod = importlib.import_module("clarabel_tpu_torch.trips")
+    k_own, graph_kinds = trips_mod.TRIPS_PER_CHECK, loop_mod.GRAPH_KINDS
+    k2 = importlib.import_module("clarabel_tpu_torch.linalg.batched_ldl")
+    bad = []
+
+    def variant(name, label):
+        """(solver, data) of this checkout with the variant's constants;
+        they are read when the solver is built and when it runs."""
+        loop_mod.GRAPH_KINDS = graph_kinds if label == "change" \
+            else frozenset()
+        try:
+            return loop_case(ctt, name)
+        finally:
+            loop_mod.GRAPH_KINDS = graph_kinds
+
+    def timed(solver, data, label):
+        trips_mod.TRIPS_PER_CHECK = (int(label[2:]) if label.startswith("k=")
+                                     else k_own)
+        solver.solve(*(a[:256] for a in data))
+        torch.cuda.synchronize()
+        k2.kernel.launches = 0
+        t0 = time.perf_counter()
+        sol = solver.solve(*data)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sol, k2.kernel.launches
+
+    for name in LOOP_PATHS:
+        if not re.search(args.only, name):
+            continue
+        ps, pdata = loop_case(parent, name)
+        labels = ["change", "k=1", "k=4"]
+        if name in ("throughput bench", "throughput bench 4096",
+                    "condensed exp"):
+            labels.insert(1, "eager")
+        solvers = {lb: variant(name, lb)[0] for lb in labels}
+        data = pdata
+        order = ["parent"] + labels + labels[::-1] + ["parent"]
+        walls = {lb: [] for lb in ["parent"] + labels}
+        sols = {}
+        for lb in order:
+            solver = ps if lb == "parent" else solvers[lb]
+            w, sol, l2 = timed(solver, data, lb)
+            walls[lb].append(w)
+            sols[lb] = (sol, l2)
+        p = sols["parent"][0]
+        for lb in labels:
+            sol, l2 = sols[lb]
+            same_st = bool(np.array_equal(sol.status, p.status))
+            same_it = bool(np.array_equal(sol.iterations, p.iterations))
+            same_x = bool(np.array_equal(sol.x.view(np.int64),
+                                         p.x.view(np.int64)))
+            rec = dict(path=name, variant=lb, parent_s=walls["parent"],
+                       change_s=walls[lb], statuses_equal=same_st,
+                       iterations_equal=same_it, x_bit_equal=same_x,
+                       k2_launches=l2, parent_k2=sols["parent"][1],
+                       statuses=np.bincount(sol.status,
+                                            minlength=11).tolist())
+            print(f"loops {name} B={len(data[1])} {lb}: parent "
+                  f"{walls['parent'][0] * 1e3:.1f} / "
+                  f"{walls['parent'][1] * 1e3:.1f} ms, {lb} "
+                  f"{walls[lb][0] * 1e3:.1f} / {walls[lb][1] * 1e3:.1f} ms "
+                  f"(turns {', '.join(order)}); statuses equal to the "
+                  f"parent's lane for lane: {same_st}, iterations {same_it},"
+                  f" x bit-equal {same_x}; K2 launches {l2} (parent "
+                  f"{sols['parent'][1]}); statuses {rec['statuses']}; card "
+                  f"{card}", flush=True)
+            out.append(rec)
+            if not (same_st and same_it):
+                bad.append(f"{name} {lb}")
+        del ps, solvers, sols, p
+        torch.cuda.empty_cache()
+    trips_mod.TRIPS_PER_CHECK, loop_mod.GRAPH_KINDS = k_own, graph_kinds
+    if re.search(args.only, "genpow rescue"):
+        cones = [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)]
+        big = bench_data.make_genpow_batch(131072)
+        alone = ctt.BatchSolver(cones, 4, device="cuda")
+        resc = ctt.BatchSolver(cones, 4, rescue="same", device="cuda")
+        alone.solve(*(a[:256] for a in big))
+        resc.solve(*(a[:4096] for a in big))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s0 = alone.solve(*big)
+        t1 = time.perf_counter()
+        s1 = resc.solve(*big)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        before = int((s0.status == 1).sum())
+        rec = dict(path="genpow rescue", B=131072, alone_s=t1 - t0,
+                   rescue_s=t2 - t1, solved_before=before,
+                   solved_after=int((s1.status == 1).sum()),
+                   statuses=np.bincount(s1.status, minlength=11).tolist(),
+                   left_statuses=np.bincount(s0.status,
+                                             minlength=11).tolist())
+        print(f"loops genpow rescue B=131072: megakernel alone "
+              f"{rec['alone_s']:.3f} s, SOLVED {before}, statuses "
+              f"{rec['left_statuses']}; with rescue='same' "
+              f"{rec['rescue_s']:.3f} s, SOLVED {rec['solved_after']}, "
+              f"statuses {rec['statuses']}; card {card}", flush=True)
+        out.append(rec)
+    return bad
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("sweep", "compare"))
+    ap.add_argument("mode", choices=("sweep", "compare", "sass", "loops",
+                                     "bars"))
     ap.add_argument("--src", default=HERE)
     ap.add_argument("--parent")
     ap.add_argument("--only", default="",
@@ -355,18 +737,19 @@ def main():
     ap.add_argument("--out", help="a JSON file for the readings")
     ap.add_argument("--parts", default="tpb,carveout,lsi",
                     help="sweep: which of tpb (block sizes), carveout and "
-                    "lsi (K1c's barrier backtrack) to run")
+                    "lsi (K1c's barrier backtrack) and bsweep (K1a and K1e "
+                    "bench over B) to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    if args.mode == "compare" and not args.parent:
-        raise SystemExit("compare needs --parent DIR")
+    if args.mode in ("compare", "loops") and not args.parent:
+        raise SystemExit(f"{args.mode} needs --parent DIR")
     card = card_line()
     print(f"card {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     out = []
-    bad = sweep(args, card, out) if args.mode == "sweep" else \
-        compare(args, card, out)
+    bad = dict(sweep=sweep, compare=compare, sass=sass, loops=loops,
+               bars=bars)[args.mode](args, card, out)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, readings=out), f, indent=1)
