@@ -3,7 +3,7 @@
 
 Builds the CUDA kernels from the sources beside this script, in parallel:
 the batched IPM megakernel as K1a (zero/nn/SOC layouts: one lane per
-group of threads, clarabel_tpu_torch/csrc/megakernel_group.cu, up to 48
+group of threads, clarabel_tpu_torch/csrc/megakernel_group.cu, up to 54
 lanes an SM, and one lane per thread, csrc/megakernel.cu, above), as K1b
 (exponential and power cones), as K1d (PSD cones of side at most 3), as
 K1c (generalized power cones) and as K1e (its float32 first phase, on the
@@ -16,8 +16,9 @@ Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
 
 * [1] the card, the toolchain and the builds;
-* [2]-[4] K1a against its plain version on four batches (with the wrong
-  kernels, the wrong group kernel among them), and the main path
+* [2]-[4] K1a, each of its two sources, against its plain version on four
+  batches (with the wrong kernels, and the wrong group kernel against
+  the group source), and the main path
   (the megakernel on the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8
   tolerances) at B = 4096, 65536 and 131072;
 * [5] K2 against its plain version at N = 19 and 80, B = 65536, and a
@@ -361,6 +362,20 @@ def synced_wall(fn):
     return time.perf_counter() - t0, out
 
 
+def pinned_kernel(group):
+    """The megakernel wrapper held to one of K1a's sources whatever B is:
+    the group kernel (megakernel_group.cu) for group=1, one lane per
+    thread (megakernel.cu) for 0.  It loads the libraries the port's own
+    wrapper builds, and its launches are not the port's."""
+    from clarabel_tpu_torch.ipm import _cuda
+
+    class Pinned(_cuda.Megakernel):
+        def variant(self, spec, B, device):
+            return _cuda.shape_of(spec) + (group,)
+
+    return Pinned()
+
+
 def wrong_group_kernel():
     """K1a's group kernel (csrc/megakernel_group.cu) built with
     MK_WRONG_BUTTERFLY=1: every butterfly sum drops its last step and
@@ -438,11 +453,15 @@ def k2_inputs(n, m, B, seed):
 
 
 def k2_ops(N):
-    """FP32 operations of one instance in the kernel: per column j with
-    r = N-1-j rows below, r divisions, r products pivot*col, the trailing
-    update of K (2 r^2) and the full-row update of L^-1 (2 N^2)."""
-    return sum(2 * r + 2 * r * r + 2 * N * N
-               for r in (N - 1 - j for j in range(N)))
+    """FP32 operations one instance needs (not what the kernel does, which
+    updates whole rows): the LDL' factorization, per column j with
+    r = N-1-j rows below r divisions, r products pivot*col and the
+    symmetric trailing update of the lower triangle (r(r+1) operations),
+    and the inverse of the unit lower-triangular factor, 2(i-j) operations
+    for each entry (i, j) below the diagonal: (N^3 - N)/3 in all.  About
+    2N^3/3."""
+    factor = sum(2 * r + r * (r + 1) for r in (N - 1 - j for j in range(N)))
+    return factor + (N ** 3 - N) // 3
 
 
 def k2_bound_ms(N, B):
@@ -1062,13 +1081,14 @@ def main():
                     k1e_shapes[0]}
     variants = sorted({_cuda.variant_of(sh, B, sms) for sh in all_shapes
                        for B in (THROUGHPUT_BATCHES if sh in bench_shapes
-                                 else (4096,))})
+                                 else (4096,))}
+                      | {v for sh in shapes for v in _cuda.variants_of(sh)})
     cuda_build.build_together(
         (_cuda.megakernel, variants), (batched_ldl.kernel, [()]),
         (wrong_group, [sh + (1, 1) for sh in wrong_shapes]))
     print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
           f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e for "
-          f"{k1e_shapes} (zero/nn/SOC shapes from the source each B takes: "
+          f"{k1e_shapes} (zero/nn/SOC shapes from both sources: "
           f"{[v for v in variants if _cuda.group_eligible(v)]}), K2, and "
           f"the wrong group kernel for {wrong_shapes} "
           f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
@@ -1088,6 +1108,11 @@ def main():
     # ---- phases 2-3: kernel vs plain version on the card ----
     clock.start("[2]-[3]")
     failures = []
+    # K1a's two sources, each held to the bars on every batch: the main
+    # path launches the group kernel at B = 4096 and one lane per thread
+    # at 65536 and 131072
+    k1a_kernels = {"megakernel_group.cu": pinned_kernel(1),
+                   "megakernel.cu": pinned_kernel(0)}
 
     def check(name):
         cones, pn, (P, q, A, b) = cases[name]
@@ -1096,11 +1121,9 @@ def main():
         if P is None:
             P = np.zeros((q.shape[0], BENCH_N, BENCH_N))
         B, flats = megakernel.prepare(P, q, A, b, spec, dev)
-        k_ms, (kv, ki) = events_ms(
-            lambda: _cuda.megakernel(*flats, spec, B), 3)
         p_ms, (pv, pi) = events_ms(
             lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
-        k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
+        p = outputs(pv, pi, spec)
         # the plain version again with q moved by 1e-15 (relative): how far
         # rounding alone moves x and the iteration count on this batch
         qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
@@ -1108,61 +1131,71 @@ def main():
         _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
         pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
                      spec)
-        tag = f"[{2 if name == 'bench' else 3}] {name} B={B}"
-
-        def bar(ok, msg):
-            if not ok:
-                print(f"FAIL: {tag}: {msg}", flush=True)
-                failures.append(f"{tag}: {msg}")
-
-        r = readings(k, p, P, q, A, b)
-        print(f"{tag}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; kernel "
-              f"statuses {np.bincount(k['status'], minlength=11).tolist()}",
-              flush=True)
-        print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
-        print(f"{tag}: plain(q*(1+1e-15*xi)) vs plain: "
-              f"{describe(readings(pj, p, P, qj, A, b))}", flush=True)
-        print(f"{tag}: bars: x {bars['x']:.0e}, iters within 1 on "
+        phase = f"[{2 if name == 'bench' else 3}] {name} B={B}"
+        print(f"{phase}: plain {p_ms:.1f} ms; plain(q*(1+1e-15*xi)) vs "
+              f"plain: {describe(readings(pj, p, P, qj, A, b))}", flush=True)
+        print(f"{phase}: bars: x {bars['x']:.0e}, iters within 1 on "
               f"{bars['within1']} and within {bars['it_max']} on all, "
               f"objective {OBJ_TOL:.0e}, true KKT {KKT_TOL:.0e}, |s'z| "
               f"{SZ_TOL:.0e}, SOLVED at least plain less 0.1 % of B")
-        for v in violations(r, bars, B):
-            bar(False, f"the kernel fails the {v} bar")
-        bar(all(np.isfinite(k[f]).all() for f in ("x", "z", "s")),
-            "non-finite x/z/s from the kernel")
-        inf_lane = np.isin(k["status"], list(INF))
-        bar((np.isnan(k["obj_val"]) == inf_lane).all(),
-            "objective not NaN exactly on the infeasible lanes")
-        if name == "infeasible":
-            lanes = bench_data.infeasible_lanes(B)
-            ok = np.isin(k["status"][lanes],
-                         [int(SolverStatus.PRIMAL_INFEASIBLE),
-                          int(SolverStatus.ALMOST_PRIMAL_INFEASIBLE)])
-            bar(ok.all(), f"infeasible lanes not detected: "
-                f"{k['status'][lanes][~ok][:10]}")
-            bar(np.delete(k["status"] == SOLVED, lanes).mean() >= 0.99,
-                "feasible lanes not solved")
-        # the bars must tell a wrong kernel from this one
-        for wname, change in WRONG_KERNELS.items():
-            wspec = dataclasses.replace(spec, st=spec.st.replace(**change))
-            w = outputs(*_cuda.megakernel(*flats, wspec, B), spec)
-            rw = readings(w, p, P, q, A, b)
-            rejected = violations(rw, bars, B)
-            print(f"{tag}: wrong kernel ({wname}) vs plain: "
-                  f"{describe(rw)}; rejected by: "
-                  f"{', '.join(rejected) or 'none'}", flush=True)
-            bar(rejected, f"the bars pass the wrong kernel ({wname})")
-        if _cuda.shape_of(spec) in wrong_shapes:
-            # the group kernel without its last butterfly step
-            w = outputs(*wrong_group(*flats, spec, B), spec)
-            rw = readings(w, p, P, q, A, b)
-            rejected = violations(rw, bars, B)
-            print(f"{tag}: wrong group kernel (last butterfly step dropped)"
-                  f" vs plain: {describe(rw)}; rejected by: "
-                  f"{', '.join(rejected) or 'none'}", flush=True)
-            bar(rejected, "the bars pass the wrong group kernel")
-        return dict(ms=k_ms, plain_ms=p_ms,
-                    max_abs_err=max(r["dx"], r["dobj"]), iters=k["iterations"], spec=spec, B=B, flats=flats)
+        out = {}
+        for src, kern in k1a_kernels.items():
+            tag = f"{phase} {src}"
+
+            def bar(ok, msg):
+                if not ok:
+                    print(f"FAIL: {tag}: {msg}", flush=True)
+                    failures.append(f"{tag}: {msg}")
+
+            k_ms, (kv, ki) = events_ms(lambda: kern(*flats, spec, B), 3)
+            k = outputs(kv, ki, spec)
+            r = readings(k, p, P, q, A, b)
+            print(f"{tag}: kernel {k_ms:.3f} ms; kernel statuses "
+                  f"{np.bincount(k['status'], minlength=11).tolist()}",
+                  flush=True)
+            print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
+            for v in violations(r, bars, B):
+                bar(False, f"the kernel fails the {v} bar")
+            bar(all(np.isfinite(k[f]).all() for f in ("x", "z", "s")),
+                "non-finite x/z/s from the kernel")
+            inf_lane = np.isin(k["status"], list(INF))
+            bar((np.isnan(k["obj_val"]) == inf_lane).all(),
+                "objective not NaN exactly on the infeasible lanes")
+            if name == "infeasible":
+                lanes = bench_data.infeasible_lanes(B)
+                ok = np.isin(k["status"][lanes],
+                             [int(SolverStatus.PRIMAL_INFEASIBLE),
+                              int(SolverStatus.ALMOST_PRIMAL_INFEASIBLE)])
+                bar(ok.all(), f"infeasible lanes not detected: "
+                    f"{k['status'][lanes][~ok][:10]}")
+                bar(np.delete(k["status"] == SOLVED, lanes).mean() >= 0.99,
+                    "feasible lanes not solved")
+            # the bars must tell a wrong kernel from this one
+            for wname, change in WRONG_KERNELS.items():
+                wspec = dataclasses.replace(spec,
+                                            st=spec.st.replace(**change))
+                w = outputs(*kern(*flats, wspec, B), spec)
+                rw = readings(w, p, P, q, A, b)
+                rejected = violations(rw, bars, B)
+                print(f"{tag}: wrong kernel ({wname}) vs plain: "
+                      f"{describe(rw)}; rejected by: "
+                      f"{', '.join(rejected) or 'none'}", flush=True)
+                bar(rejected, f"the bars pass the wrong kernel ({wname})")
+            if (src == "megakernel_group.cu"
+                    and _cuda.shape_of(spec) in wrong_shapes):
+                # the group kernel without its last butterfly step
+                w = outputs(*wrong_group(*flats, spec, B), spec)
+                rw = readings(w, p, P, q, A, b)
+                rejected = violations(rw, bars, B)
+                print(f"{tag}: wrong group kernel (last butterfly step "
+                      f"dropped) vs plain: {describe(rw)}; rejected by: "
+                      f"{', '.join(rejected) or 'none'}", flush=True)
+                bar(rejected, "the bars pass the wrong group kernel")
+            out[src] = dict(ms=k_ms, plain_ms=p_ms,
+                            max_abs_err=max(r["dx"], r["dobj"]),
+                            iters=k["iterations"], spec=spec, B=B,
+                            flats=flats)
+        return out
 
     results = {name: check(name) for name in cases}
 
@@ -1181,6 +1214,7 @@ def main():
     torch.cuda.synchronize()
 
     _cuda.megakernel.launches = 0          # the main path's run starts here
+    _cuda.megakernel.group_launches = 0
     batched_ldl.kernel.launches = 0
     lines = []
     for B in THROUGHPUT_BATCHES:
@@ -1201,15 +1235,22 @@ def main():
             f"{out.iterations.mean():.3f}; not SOLVED {B - solved}; "
             f"card {card}")
     launches = _cuda.megakernel.launches   # ... and ends here
+    k1a_launches = {"megakernel_group.cu": _cuda.megakernel.group_launches}
+    k1a_launches["megakernel.cu"] = launches - k1a_launches[
+        "megakernel_group.cu"]
     k2_on_k1a_path = batched_ldl.kernel.launches
     for line in lines:
         print(line, flush=True)
-    print(f"[4] megakernel launches on the main path: {launches} (K2: "
+    print(f"[4] megakernel launches on the main path: {launches}, of which "
+          f"{k1a_launches['megakernel_group.cu']} megakernel_group.cu and "
+          f"{k1a_launches['megakernel.cu']} megakernel.cu (K2: "
           f"{k2_on_k1a_path})")
-    if launches <= 0:
-        fail("BatchSolver.solve did not launch the CUDA kernel")
+    for src, n_launched in k1a_launches.items():
+        if n_launched <= 0:
+            fail(f"BatchSolver.solve did not launch {src} on the main path")
     print(f"[4] plain version on the card, bench B=4096: "
-          f"{results['bench']['plain_ms']:.1f} ms (no yardstick); card {card}")
+          f"{results['bench']['megakernel.cu']['plain_ms']:.1f} ms (no "
+          f"yardstick); card {card}")
 
     # where one solve's wall time goes at the largest batch: packing on the
     # host, packing plus the copy to the card, the kernel, and the copy
@@ -1233,18 +1274,23 @@ def main():
           f"copy back + unpack {steps[3]:.2f}; card {card}")
 
     # bound: the larger of bytes over HBM bandwidth and FP64 operations of
-    # this run's iterations over the FP64 rate (bench shape, B=4096)
-    r = results["bench"]
-    spec, B = r["spec"], r["B"]
-    in_bytes = sum(t.numel() * 8 for t in r["flats"])
-    out_bytes = B * (spec.outd * 8 + 3 * 4)
-    passes = 0   # a lower bound: refinement passes taken would add work
-    flops = int(r["iters"].sum()) * flops_per_iteration(
-        spec.n, spec.m, spec.segs, passes)
-    bytes_ms = (in_bytes + out_bytes) / HBM_RATE * 1e3
-    ops_ms = flops / FP64_RATE * 1e3
-    print(f"[4] bound at bench B={B}: {flops:.3e} FP64 ops -> {ops_ms:.4f} ms,"
-          f" {in_bytes + out_bytes} bytes -> {bytes_ms:.4f} ms")
+    # this run's iterations over the FP64 rate (bench shape, B=4096), for
+    # each of K1a's sources (their iteration counts may differ)
+    k1a_bounds = {}
+    for src, r in results["bench"].items():
+        spec, B = r["spec"], r["B"]
+        in_bytes = sum(t.numel() * 8 for t in r["flats"])
+        out_bytes = B * (spec.outd * 8 + 3 * 4)
+        passes = 0   # a lower bound: refinement passes taken would add work
+        flops = int(r["iters"].sum()) * flops_per_iteration(
+            spec.n, spec.m, spec.segs, passes)
+        bytes_ms = (in_bytes + out_bytes) / HBM_RATE * 1e3
+        ops_ms = flops / FP64_RATE * 1e3
+        k1a_bounds[src] = (max(bytes_ms, ops_ms),
+                           "operations" if ops_ms >= bytes_ms else "bytes")
+        print(f"[4] bound of {src} at bench B={B}: {flops:.3e} FP64 ops -> "
+              f"{ops_ms:.4f} ms, {in_bytes + out_bytes} bytes -> "
+              f"{bytes_ms:.4f} ms")
 
     # ---- phases 5-7: K2, the loop solver and the rescue cascade ----
     clock.start("[5]")
@@ -1700,19 +1746,24 @@ def main():
     if failures:
         fail("; ".join(failures))
     k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
+    # K1a, one entry per source: launches from the main path's run; ms,
+    # the plain version's ms and the bound at bench B = 4096; max_abs_err
+    # over the batches of [2]-[3]
     kernels = [{
-        "name": "megakernel",
+        "name": name,
         "route": "cuda",
-        "source": "clarabel_tpu_torch/csrc/megakernel_group.cu",
+        "source": f"clarabel_tpu_torch/csrc/{src}",
         "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
-        "launches": launches,
-        "max_abs_err": max(v["max_abs_err"] for v in results.values()),
-        "ms": r["ms"],
-        "plain_ms": r["plain_ms"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "launches": k1a_launches[src],
+        "max_abs_err": max(v[src]["max_abs_err"] for v in results.values()),
+        "ms": results["bench"][src]["ms"],
+        "plain_ms": results["bench"][src]["plain_ms"],
+        "bound_ms": k1a_bounds[src][0],
+        "bound_by": k1a_bounds[src][1],
+        # no PyTorch call computes the IPM
         "library_ms": None,
-    }, {
+    } for name, src in (("megakernel_group", "megakernel_group.cu"),
+                        ("megakernel", "megakernel.cu"))] + [{
         "name": "ldl_inverse",
         "route": "cuda",
         "source": "clarabel_tpu_torch/csrc/ldl_inverse.cu",

@@ -13,7 +13,8 @@ Newton-Raphson and the backtracking search) run under `jax.vmap`: the loop
 goes on while any lane is active and a finished cone keeps its value.
 Here each is a loop over the whole batch that masks the update per cone
 and runs while any cone of any lane is active, checked on the host once
-every few trips (`trips.run_trips`).
+every `trips.TRIPS_PER_CHECK` trips, or run to its cap inside a CUDA graph
+(`trips.run_trips`).
 
 Cone math provenance (the reference's reference):
 * exponential cone — src/cones/coneops_expcone.jl

@@ -11,9 +11,9 @@
 // against the true augmented operator), the termination machine with the
 // gap-aware stall check, and finalization.  Its inputs, outputs, MkParams
 // and C interface are megakernel.cu's; ipm/_cuda.py launches it in its
-// place on single-phase layouts of zero, nn and SOC segments up to 48
-// lanes an SM (`variant_of`; from 8192 lanes on megakernel.cu measured
-// faster on the LP batch, PERF.md section 5).  The code is written over the
+// place on single-phase layouts of zero, nn and SOC segments up to 54
+// lanes an SM (`variant_of`; at 62 lanes an SM, 8192 on the H100,
+// megakernel.cu measured faster on the LP batch, PERF.md section 5).  The code is written over the
 // scalar type R, as megakernel.cu's is; double is its one instance here.
 //
 // What held megakernel.cu back on this card: one lane per thread keeps a
@@ -24,12 +24,11 @@
 // holds 8 warps, and their stacks leave L1 for L2 on every access.
 //
 // The design: one lane per group of G threads (G = 8 while m <= 8, 16
-// while m <= 16, else 32; MK_G overrides it), each owning rows of the
-// lane's data.  Thread t of a group owns cone rows t, t+G, ... (RPT of
-// them) and variable entries t,
-// t+G, ... (CPT of them): for a cone row, its row of the scaled A, b, e,
-// s, z, the scaling, the residual and the directions; for a variable, x, q,
-// d, its row of P.  Each array has compile-time extents (MK_N, MK_M, G)
+// while m <= 16, else 32), each owning rows of the lane's data.  Thread
+// t of a group owns cone rows t, t+G, ... (RPT of them) and variable
+// entries t, t+G, ... (CPT of them): for a cone row, its row of the
+// scaled A, b, e, s, z, the scaling, the residual and the directions; for
+// a variable, x, q, d, its row of P.  Each array has compile-time extents (MK_N, MK_M, G)
 // and is indexed only by compile-time indices after unrolling, so it stays
 // in registers.  What the rows share is reduced over the group with
 // butterfly shuffles (__shfl_xor_sync of width G): the dot products, the
@@ -96,11 +95,7 @@ constexpr int M = MK_M;
 constexpr int S = MK_S;
 constexpr int NT = N * (N + 1) / 2;
 constexpr int OUTD = N + 2 * M + 13;
-#ifdef MK_G
-constexpr int G = MK_G;
-#else
 constexpr int G = M <= 8 ? 8 : M <= 16 ? 16 : 32;
-#endif
 static_assert(G == 8 || G == 16 || G == 32, "a group is 8, 16 or 32 threads");
 constexpr int RPT = (M + G - 1) / G;   // cone rows a thread owns
 constexpr int CPT = (N + G - 1) / G;   // variable entries a thread owns

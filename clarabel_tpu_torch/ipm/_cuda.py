@@ -16,7 +16,8 @@ loaded with ctypes).
 
 `megakernel(Ptri, q, A, b, spec, B)` checks its inputs, allocates the outputs
 with `torch.empty`, launches on the current stream and counts the launch
-(and, for a two-phase library, the launch of K1e).  It never falls back to
+(and, for a group library, the launch of `megakernel_group.cu`; for a
+two-phase library, the launch of K1e).  It never falls back to
 the plain version or to the single phase: a failed build or launch raises.
 """
 
@@ -145,10 +146,10 @@ def shape_of(spec) -> Shape:
 Variant = Tuple[int, int, int, int, int, int, int, int]
 
 # The group kernel runs while the batch has at most this many lanes for
-# each SM of the card: at 31 lanes an SM it was faster on every batch, at
-# 62 slower on the LP batch (the H100; PERF.md section 5,
+# each SM of the card: up to 54.3 lanes an SM it was faster on every batch
+# (bench, lp, qp_eq), at 62.1 slower on lp (the H100; PERF.md section 5,
 # `tools/megakernel_probe.py sweep --parts gsweep`).
-GROUP_LANES_PER_SM = 48
+GROUP_LANES_PER_SM = 54
 
 
 def group_eligible(shape: Shape) -> bool:
@@ -181,8 +182,8 @@ def source_for(variant) -> str:
 
 class Megakernel(CudaLibrary):
     """The built libraries, one per variant (the shape and its source),
-    and the launch counts: every launch, and the launches of two-phase
-    libraries (K1e)."""
+    and the launch counts: every launch, the launches of group libraries
+    (`megakernel_group.cu`) and those of two-phase libraries (K1e)."""
 
     def __init__(self):
         super().__init__("megakernel.cu",
@@ -191,6 +192,7 @@ class Megakernel(CudaLibrary):
                                  "MK_GROUP"),
                          tags=("n", "m", "s", "ns", "psd", "gp", "tp", "grp"))
         self.launches = 0
+        self.group_launches = 0
         self.two_phase_launches = 0
         self._sms = {}
 
@@ -262,7 +264,8 @@ class Megakernel(CudaLibrary):
         ints = torch.empty((4, B), dtype=torch.int32, device=device)
         if not spec.two_phase:
             ints[3].zero_()     # a single-phase library leaves this row
-        lib = self.load(self.variant(spec, B, device))
+        variant = self.variant(spec, B, device)
+        lib = self.load(variant)
         args = []
         for t, (ld, ls) in zip((Ptri, q, A, b), strides):
             args += [t.data_ptr(), ld, ls]
@@ -273,6 +276,7 @@ class Megakernel(CudaLibrary):
         if rc != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
         self.launches += 1
+        self.group_launches += int(source_for(variant) != "megakernel.cu")
         self.two_phase_launches += int(spec.two_phase)
         return vals, ints
 

@@ -18,10 +18,11 @@ What `vmap` does to the reference's control flow is written out:
   merge is a select and never a product with a mask.
 * Refinement is masked per lane (`kkt.refine`).
 * The inner loops (refinement, the backtracks, the one-sided Newton
-  solves) ask the host whether a lane still runs once every few trips
-  (`trips.run_trips`).  On a card the IPM pass of a zero/nn/SOC/exp layout
-  is captured once as a CUDA graph and replayed, with one host check per
-  pass (`_replay`).
+  solves) ask the host whether a lane still runs once every
+  `trips.TRIPS_PER_CHECK` trips (`trips.run_trips`).  On a card the IPM
+  pass of an exp layout, and of a zero/nn/SOC layout over at most
+  GRAPH_MAX_LANES lanes, is captured once as a CUDA graph and replayed,
+  with one host check per pass (`_replay`).
 * Layouts with a nonsymmetric cone take the asymmetric IPM: the
   unit-initialization start, and per lane the PrimalDual→Dual strategy
   machine with the barrier backtrack of Dual lanes (reference:
@@ -219,6 +220,15 @@ def check_convergence(info: Info, res: Residuals, tols) -> torch.Tensor:
 # which inside a graph would run to their 100-trip cap (`trips.run_trips`)
 # in every scaling and in every trial of the barrier backtrack.
 GRAPH_KINDS = frozenset({"zero", "nn", "soc", "exp"})
+
+# The most lanes of a zero/nn/SOC layout whose IPM pass runs as a CUDA
+# graph; above it the pass runs eager.  A replay runs the pass's inner
+# loops to their caps: on the throughput loop that costs as much device
+# time as the launches it saves at 16384 lanes, and more at 65536.  An exp
+# layout's pass launches many more small kernels and replayed faster at
+# every B measured, up to 65536, so it has no limit (H100: PERF.md
+# section 5, `tools/megakernel_probe.py graphs`).
+GRAPH_MAX_LANES = 8192
 
 
 def backtrack_to_barrier(barrier, alpha_init, active, step, max_iter):
@@ -671,8 +681,10 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         """The IPM while-loop over the batch: each pass runs the body for
         every lane and keeps it only on the lanes whose loop condition
         holds; the loop ends when it holds on none.  On a card, where the
-        layout's cones allow it (`GRAPH_KINDS`), the first pass runs as
-        it is and the rest replay it as a CUDA graph (`_replay`)."""
+        layout's cones allow it (`GRAPH_KINDS`) and, for a zero/nn/SOC
+        layout, the batch has at most GRAPH_MAX_LANES lanes, the first
+        pass runs as it is and the rest replay it as a CUDA graph
+        (`_replay`)."""
 
         def active_of(c):
             active = c.status == UNSOLVED
@@ -687,7 +699,8 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         if not bool(active_of(carry).any()):
             return carry
         carry = step(carry)
-        if graphed and carry.x.device.type == "cuda":
+        if (graphed and carry.x.device.type == "cuda"
+                and (not is_symmetric or carry.x.shape[0] <= GRAPH_MAX_LANES)):
             return _replay(step, active_of, carry)
         while bool(active_of(carry).any()):
             carry = step(carry)

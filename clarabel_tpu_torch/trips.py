@@ -11,16 +11,19 @@ still runs.  `run_trips` asks before its first trip and then once every
 loop to its cap.  Every lane gets the bits the loop that asks after each
 trip gives it.
 
-TRIPS_PER_CHECK is chosen from the trip counts of chip_smoke.py's loop
-batches (`tools/search_trips.py loops`, PERF.md section 5): most of these
-loops end within four trips, so a check every four trips saves the syncs
-of the short loops and wastes at most three trips of a lane-masked loop
-that ends earlier.
+TRIPS_PER_CHECK is chosen on the card (H100, PERF.md section 5: `tools/
+megakernel_probe.py loops`, with the trip counts of `tools/search_trips.py
+loops`): on the eager paths a check after every trip was as fast as a check
+every 2 trips or faster (genpow: 1,612 against 1,879 ms at 4096 lanes),
+and every 4 trips was slower on every path.  An eager host check costs
+little, because the card waits for launches anyway, while every extra
+masked trip costs its launches.  The syncs go where the IPM pass runs as a
+CUDA graph: there no inner loop asks the host at all.
 """
 
 import torch
 
-TRIPS_PER_CHECK = 2
+TRIPS_PER_CHECK = 1
 
 
 def run_trips(trip, state, finished, cap):

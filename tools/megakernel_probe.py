@@ -30,6 +30,10 @@ output value are equal lane for lane.  It fails when they are not.
 
 `sweep --parts bsweep` times K1a and K1e on bench at every B of SIZES
 with the library's own launch and prints the warps each SM holds there.
+`sweep --parts gsweep [--sizes B,B,...] [--turns T]` times the group
+kernel (`megakernel_group.cu`, and a copy with G = 8 at the bench shape)
+against the one-lane-per-thread kernel on K1a bench, lp, qp_eq and K1e
+bench, in turns: where `ipm/_cuda.GROUP_LANES_PER_SM` comes from.
 
 `sass [--src DIR]` builds the K1a and K1e bench libraries of a tree and
 counts, in `cuobjdump -sass` of each, the local loads and stores (`LDL`,
@@ -38,13 +42,18 @@ counts, in `cuobjdump -sass` of each, the local loads and stores (`LDL`,
 `loops --parent DIR` times the loop solver's paths of chip_smoke.py on the
 card, the tree at DIR (imported under another package name) against this
 checkout in turns: `Settings.throughput()` on bench at B = 65536 and 4096 and the
-condensed loop on exp, psd3 and genpow at B = 4096; on the first two this
-checkout also runs with its IPM pass left eager (`ipm.loop.GRAPH_KINDS`
-emptied) and with its inner loops checking after every trip
-(`trips.TRIPS_PER_CHECK` set to 1 or 4 in place of its own, eager
-too).  Statuses
-and iterations must equal the parent's lane for lane.  Then the genpow
-rescue at B = 131072, this checkout only.
+condensed loop on exp, psd3 and genpow at B = 4096; on the first three
+this checkout also runs with its IPM pass left eager (`ipm.loop.GRAPH_KINDS`
+emptied), and every path with its inner loops checking the host every
+k trips (`trips.TRIPS_PER_CHECK` set to each of 1, 2 and 4 but its own,
+eager too), the order of turns run --turns times.  Statuses and iterations
+must equal the parent's lane for lane.  Then the genpow rescue at
+B = 131072, this checkout only.
+
+`graphs [--sizes B,B,...] [--turns T]` times this checkout's loop solver
+with its IPM pass replayed as a CUDA graph against the pass left eager,
+on `Settings.throughput()` bench and the condensed exp loop, in turns:
+where `ipm/loop.GRAPH_MAX_LANES` comes from.
 
 Each prints one line per reading, with the card's name and power limit,
 and with --out writes the readings to a JSON file.  None imports JAX or
@@ -247,6 +256,25 @@ def patched_kernel(src_tree):
 
 
 
+GROUP_SIZE_RULE = "constexpr int G = M <= 8 ? 8 : M <= 16 ? 16 : 32;"
+
+
+def group_source_with(g):
+    """A copy of this checkout's megakernel_group.cu under build/ with its
+    group size fixed at g threads (the rule line replaced); its path."""
+    with open(os.path.join(HERE, "clarabel_tpu_torch", "csrc",
+                           "megakernel_group.cu")) as f:
+        text = f.read()
+    if GROUP_SIZE_RULE not in text:
+        raise SystemExit("megakernel_group.cu has no group-size rule this "
+                         "probe patches")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(cuda_build.BUILD_DIR, f"megakernel_group_g{g}.cu")
+    with open(path, "w") as f:
+        f.write(text.replace(GROUP_SIZE_RULE, f"constexpr int G = {g};"))
+    return path
+
+
 def ptxas_lines(kern):
     for variant, log in kern.build_logs.items():
         for line in log.splitlines():
@@ -257,7 +285,7 @@ def ptxas_lines(kern):
 
 def sweep(args, card, out):
     if args.parts == "gsweep":
-        return group_sweep(card, out)
+        return group_sweep(args, card, out)
     kern, default_threads = patched_kernel(args.src)
     all_cases = cases()
     names = [nm for nm in ("K1a bench", "K1b exp", "K1d psd3", "K1c genpow",
@@ -317,62 +345,64 @@ def sweep(args, card, out):
                       f"an SM if every block is resident at once", flush=True)
                 run(nm, B, default_threads)
     if "gsweep" in parts:
-        group_sweep(card, out)
+        group_sweep(args, card, out)
     if "lsi" in parts:
         for B in ENDS:
             for lsi in (50, 0):
                 run("K1c genpow", B, linesearch_max_iter=lsi)
 
 
-def group_sweep(card, out):
+def group_sweep(args, card, out):
     """This checkout's one-lane-per-thread kernel (megakernel.cu) against
     its group kernel (megakernel_group.cu, and the group kernel with G = 8
-    on bench) on K1a bench, lp, qp_eq and K1e bench at every B of SIZES,
-    in turns (thread, group, group, thread)."""
+    on bench) on K1a bench, lp, qp_eq and K1e bench (those --only matches)
+    at every B of --sizes, in turns (thread, group, group, thread, --turns
+    times over); prints each kernel's times and their median."""
     csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
     thread = TreeKernel(os.path.join(csrc, "megakernel.cu"), "gs_thread")
     group = TreeKernel(os.path.join(csrc, "megakernel_group.cu"), "gs_group",
                        group=1)
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    g8_path = os.path.join(cuda_build.BUILD_DIR, "megakernel_group_g8.cu")
-    with open(os.path.join(csrc, "megakernel_group.cu")) as f:
-        text = f.read()
-    with open(g8_path, "w") as f:
-        f.write("#define MK_G 8\n" + text)
-    g8 = TreeKernel(g8_path, "gs_group_g8", group=1)
+    g8 = TreeKernel(group_source_with(8), "gs_group_g8", group=1)
     all_cases = cases()
-    names = ("K1a bench", "K1a lp", "K1a qp_eq", "K1e bench")
+    names = [nm for nm in ("K1a bench", "K1a lp", "K1a qp_eq", "K1e bench")
+             if re.search(args.only, nm)]
+    sizes = [int(b) for b in args.sizes.split(",")]
     specs = {nm: spec_of(all_cases[nm]) for nm in names}
     shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
-    bench_shapes = [_cuda.shape_of(specs["K1a bench"]),
-                    _cuda.shape_of(specs["K1e bench"])]
+    bench_shapes = [_cuda.shape_of(spec_of(all_cases[nm]))
+                    for nm in ("K1a bench", "K1e bench")]
     t0 = time.perf_counter()
-    cuda_build.build_together((thread, thread.variants(shapes)),
-                              (group, group.variants(shapes)),
-                              (g8, g8.variants(bench_shapes)))
+    cuda_build.build_together(
+        (thread, thread.variants(shapes)), (group, group.variants(shapes)),
+        (g8, g8.variants([sh for sh in shapes if sh in bench_shapes])))
     print(f"gsweep: built in {time.perf_counter() - t0:.1f} s; card {card}",
           flush=True)
     for k in (group, g8):
         ptxas_lines(k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for nm in names:
         spec = specs[nm]
         kerns = {"thread": thread, "group": group}
         if _cuda.shape_of(spec) in bench_shapes:
             kerns["group G=8"] = g8
-        for B in SIZES:
+        for B in sizes:
             flats = flats_of(nm, all_cases[nm], spec, B)
-            order = list(kerns) + list(kerns)[::-1]
+            order = (list(kerns) + list(kerns)[::-1]) * args.turns
             times = {k: [] for k in kerns}
             solved = {}
             for who in order:
                 ms, (v, i) = events_ms(lambda: kerns[who](*flats, spec, B))
                 times[who].append(ms)
                 solved[who] = int((i[0] == 1).sum())
-            rec = dict(kernel=nm, B=B, times=times, solved=solved)
-            print(f"gsweep {nm} B={B}: " + "; ".join(
-                f"{k} {t[0]:.3f} / {t[1]:.3f} ms (SOLVED {solved[k]})"
-                for k, t in times.items()) + f" (turns {', '.join(order)});"
-                f" card {card}", flush=True)
+            med = {k: float(np.median(t)) for k, t in times.items()}
+            rec = dict(kernel=nm, B=B, times=times, median_ms=med,
+                       solved=solved)
+            print(f"gsweep {nm} B={B} ({B / sms:.1f} lanes an SM): " +
+                  "; ".join(f"{k} {' / '.join(f'{x:.3f}' for x in t)} ms, "
+                            f"median {med[k]:.3f} (SOLVED {solved[k]})"
+                            for k, t in times.items()) +
+                  f" (turns {', '.join(list(kerns) + list(kerns)[::-1])}, "
+                  f"{args.turns} times); card {card}", flush=True)
             out.append(rec)
             del flats
             torch.cuda.empty_cache()
@@ -506,17 +536,11 @@ def bars(args, card, out):
     from clarabel_tpu_torch.ipm import megakernel_ref
 
     csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    with open(os.path.join(csrc, "megakernel_group.cu")) as f:
-        text = f.read()
-    g16 = os.path.join(cuda_build.BUILD_DIR, "megakernel_group_g16.cu")
-    with open(g16, "w") as f:
-        f.write("#define MK_G 16\n" + text)
-    group = os.path.join(csrc, "megakernel_group.cu")
+    g8, g16 = group_source_with(8), group_source_with(16)
     kerns = {
         "thread": TreeKernel(os.path.join(csrc, "megakernel.cu"), "b_thread"),
-        "group G=8": TreeKernel(group, "b_g8", 1),
-        "group G=8 nofma": FlagKernel(group, "b_g8nf", 1, ("-fmad=false",)),
+        "group G=8": TreeKernel(g8, "b_g8", 1),
+        "group G=8 nofma": FlagKernel(g8, "b_g8nf", 1, ("-fmad=false",)),
         "group G=16": TreeKernel(g16, "b_g16", 1),
         "group G=16 nofma": FlagKernel(g16, "b_g16nf", 1, ("-fmad=false",)),
     }
@@ -595,14 +619,16 @@ def parent_package(tree):
     return clarabel_tpu_torch_parent
 
 
-def loop_case(pkg, name):
-    """(solver, data) of a loop path, built from package `pkg`."""
+def loop_case(pkg, name, B=None):
+    """(solver, data) of a loop path, built from package `pkg`, at the
+    path's own B or at B lanes."""
     import importlib
     bd = importlib.import_module(pkg.__name__ + ".bench_data")
     if name.startswith("throughput bench"):
         cones = [pkg.NonnegativeConeT(6), pkg.SecondOrderConeT(7)]
-        B = 4096 if name.endswith("4096") else 65536
-        data = tuple(a[:B] for a in bd.make_batch(65536, 6, 0))
+        if B is None:
+            B = 4096 if name.endswith("4096") else 65536
+        data = tuple(a[:B] for a in bd.make_batch(max(B, 65536), 6, 0))
         return pkg.BatchSolver(cones, 6, pkg.Settings.throughput(),
                                device="cuda"), data
     kind = name.split()[1]
@@ -616,7 +642,7 @@ def loop_case(pkg, name):
         cones = [pkg.NonnegativeConeT(2), pkg.GenPowerConeT((0.3, 0.7), 2)]
         n, big = 4, bd.make_genpow_batch(131072)
     return pkg.BatchSolver(cones, n, pkg.Settings(kkt_backend="condensed"),
-                           device="cuda"), tuple(a[:4096] for a in big)
+                           device="cuda"), tuple(a[:B or 4096] for a in big)
 
 
 def loops(args, card, out):
@@ -653,13 +679,13 @@ def loops(args, card, out):
         if not re.search(args.only, name):
             continue
         ps, pdata = loop_case(parent, name)
-        labels = ["change", "k=1", "k=4"]
+        labels = ["change"] + [f"k={k}" for k in (1, 2, 4) if k != k_own]
         if name in ("throughput bench", "throughput bench 4096",
                     "condensed exp"):
             labels.insert(1, "eager")
         solvers = {lb: variant(name, lb)[0] for lb in labels}
         data = pdata
-        order = ["parent"] + labels + labels[::-1] + ["parent"]
+        order = (["parent"] + labels + labels[::-1] + ["parent"]) * args.turns
         walls = {lb: [] for lb in ["parent"] + labels}
         sols = {}
         for lb in order:
@@ -681,10 +707,12 @@ def loops(args, card, out):
                        statuses=np.bincount(sol.status,
                                             minlength=11).tolist())
             print(f"loops {name} B={len(data[1])} {lb}: parent "
-                  f"{walls['parent'][0] * 1e3:.1f} / "
-                  f"{walls['parent'][1] * 1e3:.1f} ms, {lb} "
-                  f"{walls[lb][0] * 1e3:.1f} / {walls[lb][1] * 1e3:.1f} ms "
-                  f"(turns {', '.join(order)}); statuses equal to the "
+                  f"{' / '.join(f'{w * 1e3:.1f}' for w in walls['parent'])}"
+                  f" ms (median {np.median(walls['parent']) * 1e3:.1f}), "
+                  f"{lb} {' / '.join(f'{w * 1e3:.1f}' for w in walls[lb])} "
+                  f"ms (median {np.median(walls[lb]) * 1e3:.1f}) (turns "
+                  f"{', '.join(order[:len(order) // args.turns])}, "
+                  f"{args.turns} times); statuses equal to the "
                   f"parent's lane for lane: {same_st}, iterations {same_it},"
                   f" x bit-equal {same_x}; K2 launches {l2} (parent "
                   f"{sols['parent'][1]}); statuses {rec['statuses']}; card "
@@ -725,20 +753,78 @@ def loops(args, card, out):
     return bad
 
 
+def graphs(args, card, out):
+    """This checkout's loop solver with its IPM pass replayed as a CUDA
+    graph against the same pass left eager (`ipm.loop.GRAPH_KINDS`
+    emptied), on `Settings.throughput()` bench and the condensed exp loop
+    at every B of --sizes, in turns (graph, eager, eager, graph, --turns
+    times over).  Statuses and iterations must be equal between the two."""
+    import importlib
+    loop_mod = importlib.import_module("clarabel_tpu_torch.ipm.loop")
+    graph_kinds, max_lanes = loop_mod.GRAPH_KINDS, loop_mod.GRAPH_MAX_LANES
+    loop_mod.GRAPH_MAX_LANES = 1 << 62      # every B of --sizes may replay
+    bad = []
+    for name in ("throughput bench", "condensed exp"):
+        if not re.search(args.only, name):
+            continue
+        for B in (int(b) for b in args.sizes.split(",")):
+            solvers = {}
+            for label in ("graph", "eager"):
+                loop_mod.GRAPH_KINDS = (graph_kinds if label == "graph"
+                                        else frozenset())
+                solvers[label], data = loop_case(ctt, name, B)
+            walls, sols = {"graph": [], "eager": []}, {}
+            for label in ("graph", "eager", "eager", "graph") * args.turns:
+                loop_mod.GRAPH_KINDS = (graph_kinds if label == "graph"
+                                        else frozenset())
+                solvers[label].solve(*(a[:256] for a in data))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sols[label] = solvers[label].solve(*data)
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+            loop_mod.GRAPH_KINDS = graph_kinds
+            g, e = sols["graph"], sols["eager"]
+            same = bool(np.array_equal(g.status, e.status)
+                        and np.array_equal(g.iterations, e.iterations))
+            med = {k: float(np.median(w)) for k, w in walls.items()}
+            out.append(dict(path=name, B=B, walls_s=walls, median_s=med,
+                            statuses_equal=same))
+            print(f"graphs {name} B={B}: " + "; ".join(
+                f"{k} {' / '.join(f'{w * 1e3:.1f}' for w in ws)} ms, median "
+                f"{med[k] * 1e3:.1f}" for k, ws in walls.items()) +
+                f" (turns graph, eager, eager, graph, {args.turns} times); "
+                f"statuses and iterations equal: {same}; card {card}",
+                flush=True)
+            if not same:
+                bad.append(f"{name} B={B}")
+            del solvers, sols, g, e
+            torch.cuda.empty_cache()
+    loop_mod.GRAPH_MAX_LANES = max_lanes
+    return bad
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "compare", "sass", "loops",
-                                     "bars"))
+                                     "bars", "graphs"))
     ap.add_argument("--src", default=HERE)
     ap.add_argument("--parent")
     ap.add_argument("--only", default="",
                     help="a regular expression: the kernels whose name "
                     "(as 'K1c genpow') it matches")
     ap.add_argument("--out", help="a JSON file for the readings")
+    ap.add_argument("--sizes", default=",".join(map(str, SIZES)),
+                    help="sweep --parts gsweep and graphs: the batch sizes, "
+                    "comma-separated")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="gsweep, loops and graphs: how many times the "
+                    "order of turns runs")
     ap.add_argument("--parts", default="tpb,carveout,lsi",
                     help="sweep: which of tpb (block sizes), carveout and "
-                    "lsi (K1c's barrier backtrack) and bsweep (K1a and K1e "
-                    "bench over B) to run")
+                    "lsi (K1c's barrier backtrack), bsweep (K1a and K1e "
+                    "bench over B) and gsweep (the group kernel against "
+                    "one lane per thread over --sizes) to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -749,7 +835,7 @@ def main():
           f"{torch.version.cuda}", flush=True)
     out = []
     bad = dict(sweep=sweep, compare=compare, sass=sass, loops=loops,
-               bars=bars)[args.mode](args, card, out)
+               bars=bars, graphs=graphs)[args.mode](args, card, out)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, readings=out), f, indent=1)
