@@ -5,11 +5,15 @@ Builds the CUDA kernels from the sources beside this script, in parallel:
 the batched IPM megakernel as K1a (zero/nn/SOC layouts: one lane per
 group of threads, clarabel_tpu_torch/csrc/megakernel_group.cu, up to 54
 lanes an SM, and one lane per thread, csrc/megakernel.cu, above), as K1b
-(exponential and power cones), as K1d (PSD cones of side at most 3), as
-K1c (generalized power cones) and as K1e (its float32 first phase, on the
-bench and psd3 shapes; these four from csrc/megakernel.cu), a wrong group
-kernel (its butterfly sums without their last step), and the float32
-LDL-inverse kernel K2 (csrc/ldl_inverse.cu).  Phase [1] prints each
+(exponential and power cones: the group kernel up to
+_cuda.NONSYM_GROUP_LANES_PER_SM lanes an SM, csrc/megakernel.cu above), as
+K1d (PSD cones of side at most 3), as K1c (generalized power cones) and as
+K1e (its float32 first phase, on the bench and psd3 shapes; these three
+from csrc/megakernel.cu), two wrong group kernels (K1a's butterfly sums
+without their last step; K1b's searches taking the last passing trial of
+a round), and the float32 LDL-inverse kernel K2 (csrc/ldl_inverse_rows.cu
+built for N = 19, the rows of an instance in registers, and
+csrc/ldl_inverse.cu, which serves N > 32).  Phase [1] prints each
 library's ptxas line and the local loads and stores in its SASS; every
 phase prints its seconds.
 Holds each against its plain PyTorch version on the card, drives the
@@ -21,16 +25,19 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   the group source), and the main path
   (the megakernel on the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8
   tolerances) at B = 4096, 65536 and 131072;
-* [5] K2 against its plain version at N = 19 and 80, B = 65536, and a
-  wrong K2 (dynamic regularization off) that its bars must reject;
+* [5] K2 against its plain version at N = 19 (the rows kernel) and 80,
+  B = 65536, a wrong K2 (dynamic regularization off) that its bars must
+  reject, and at N = 19 the shared-memory kernel pinned beside the rows
+  kernel, with the count of ok lanes whose d or L^-1 differ between them;
 * [6] the loop solver on the card: `Settings.throughput()` (float32, K2
   once per IPM iteration) at B = 4096 and 65536, and the ldl backend with
   mixed precision at 4096, each with the kernel and with the plain K2;
 * [7] the rescue cascade behind the megakernel on the LP batch;
-* [8] K1b: the megakernel against its plain version on the exponential-cone
-  batch of `bench.py` (n=3, cones [NN(2), Exp()]), a power-cone batch and
-  the exponential batch with the PrimalDual->Dual switch forced, wrong
-  kernels its bars must reject, `BatchSolver.solve` on the exponential
+* [8] K1b: each source the exp path launches against its plain version on
+  the exponential-cone batch of `bench.py` (n=3, cones [NN(2), Exp()]), a
+  power-cone batch and the exponential batch with the PrimalDual->Dual
+  switch forced, wrong kernels its bars must reject (and the wrong group
+  kernel on the group source), `BatchSolver.solve` on the exponential
   batch at B = 4096, 65536 and 131072, the condensed loop on the card, and
   the rescue cascade behind the megakernel;
 * [9] K1d: the megakernel against its plain version on the small-SDP
@@ -376,11 +383,13 @@ def pinned_kernel(group):
     return Pinned()
 
 
-def wrong_group_kernel():
-    """K1a's group kernel (csrc/megakernel_group.cu) built with
-    MK_WRONG_BUTTERFLY=1: every butterfly sum drops its last step and
-    takes thread 0's partial sum, a sum over half of the group's rows.
-    The bars of [2] and [3] must reject it."""
+def wrong_group_kernel(macro="MK_WRONG_BUTTERFLY"):
+    """The group kernel (csrc/megakernel_group.cu) built with `macro`=1:
+    MK_WRONG_BUTTERFLY (K1a), every butterfly sum drops its last step and
+    takes thread 0's partial sum, a sum over half of the group's rows, which
+    the bars of [2] and [3] must reject; MK_WRONG_SEARCH (K1b), the shared
+    searches take the last passing trial of a round, not the first, which
+    the bars of [8] must reject."""
     import os as _os
     from clarabel_tpu_torch.ipm import _cuda
 
@@ -390,8 +399,8 @@ def wrong_group_kernel():
             self.source = _os.path.join(_os.path.dirname(self.source),
                                         "megakernel_group.cu")
             self.stem = "megakernel_group_wrong"
-            self.macros += ("MK_WRONG_BUTTERFLY",)
-            self.tags += ("wb",)
+            self.macros += (macro,)
+            self.tags += ("wb" if macro == "MK_WRONG_BUTTERFLY" else "ws",)
 
         def source_for(self, variant):
             return self.source
@@ -400,6 +409,21 @@ def wrong_group_kernel():
             return _cuda.shape_of(spec) + (1, 1)
 
     return WrongGroup()
+
+
+def pinned_k2(rows):
+    """The K2 wrapper held to one kernel whatever N is: the rows kernel
+    (csrc/ldl_inverse_rows.cu) for rows=True, the shared-memory kernel
+    (csrc/ldl_inverse.cu, the design the rows kernel replaced at N <= 32)
+    for False.  It loads the libraries the port's own wrapper builds, and
+    its launches are not the port's."""
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    class Pinned(batched_ldl.LdlInverseKernel):
+        def variant(self, n):
+            return (n,) if rows else ()
+
+    return Pinned()
 
 
 def sass_counts(path):
@@ -500,8 +524,11 @@ def k2_violations(r):
 
 
 def k2_phase(card, failures):
-    """[5] K2 against its plain version at N = 19 and 80, and the wrong K2
-    that the bars must reject.  Returns the N = 19 numbers."""
+    """[5] K2 against its plain version at N = 19 (the rows kernel) and 80
+    (the shared-memory kernel), and the wrong K2 that the bars must reject;
+    at N = 19 also the shared-memory kernel pinned there, and the count of
+    ok lanes whose d or L^-1 differ between the two designs.  Returns the
+    numbers of each N."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch.linalg import batched_ldl
@@ -509,12 +536,15 @@ def k2_phase(card, failures):
     st = ctt.Settings.throughput()   # the main path's regularization
     eps, delta = st.dynamic_regularization_eps, \
         st.dynamic_regularization_delta
+    shared = pinned_k2(False)
     out = {}
     for n, m in K2_SHAPES:
         N = n + m
         K, signs = k2_inputs(n, m, K2_B, seed=N)
         K = torch.tensor(K, dtype=torch.float32, device=DEVICE)
         signs = torch.tensor(signs, dtype=torch.float32, device=DEVICE)
+        variant = batched_ldl.kernel.variant(N)
+        src = os.path.basename(batched_ldl.kernel.source_for(variant))
         k_ms, got = events_ms(
             lambda: batched_ldl.kernel(K, signs, eps, delta, True), 20)
         p_ms, plain = events_ms(
@@ -525,9 +555,30 @@ def k2_phase(card, failures):
                             plain)
         bound, by, nbytes, ops = k2_bound_ms(N, K2_B)
         tag = f"[5] K2 N={N} B={K2_B}"
-        print(f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-              f"{bound:.4f} ms by {by} ({nbytes} bytes, {ops:.3e} FP32 "
+        print(f"{tag}: kernel ({src}) {k_ms:.4f} ms, plain {p_ms:.2f} ms, "
+              f"bound {bound:.4f} ms by {by} ({nbytes} bytes, {ops:.3e} FP32 "
               f"ops); card {card}", flush=True)
+        log = batched_ldl.kernel.build_logs.get(variant, "")
+        for line in log.splitlines():
+            if "registers" in line or "stack" in line:
+                print(f"{tag}: ptxas {src}: {line.strip()}", flush=True)
+        c = sass_counts(batched_ldl.kernel.lib_path(variant))
+        print(f"{tag}: sass {src}: {c['instructions']} instructions, "
+              f"{c['LDL']} local loads (LDL), {c['STL']} local stores (STL),"
+              f" {c['LD']} and {c['ST']} generic (LD.E, ST.E)", flush=True)
+        if variant:
+            # the shared-memory kernel the rows kernel replaced here
+            s_ms, sh = events_ms(
+                lambda: shared(K, signs, eps, delta, True), 20)
+            both = got[2] & sh[2]
+            uneq = ((got[0] != sh[0]).flatten(1).any(1)
+                    | (got[1] != sh[1]).any(1))[both]
+            print(f"{tag}: the shared-memory design (ldl_inverse.cu, pinned)"
+                  f" {s_ms:.4f} ms; ok equal to the rows kernel's: "
+                  f"{bool(torch.equal(got[2], sh[2]))}; ok lanes whose d or "
+                  f"L^-1 differ from it: {int(uneq.sum())} of "
+                  f"{int(both.sum())}", flush=True)
+            del sh
         for what, rd in (("kernel", r), ("wrong K2 (no dynamic "
                                           "regularization)", wrong)):
             bad = k2_violations(rd)
@@ -542,7 +593,7 @@ def k2_phase(card, failures):
         if not k2_violations(wrong):
             failures.append(f"{tag}: the bars pass the wrong K2")
         out[N] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                      max_abs_err=r["abs"])
+                      max_abs_err=r["abs"], source=src)
         del K, got, plain
         torch.cuda.empty_cache()
     return out
@@ -584,8 +635,8 @@ def loop_readings(k, p, B):
 def loop_phase(card, failures):
     """[6] Settings.throughput() and ldl with mixed precision through
     BatchSolver.solve on the card, each with the kernel and with the plain
-    K2.  Returns the K2 launch count of the kernel runs and the lines of
-    the throughput table."""
+    K2.  Returns the K2 launch count of the kernel runs and that of its
+    rows kernel (csrc/ldl_inverse_rows.cu)."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch import bench_data
@@ -601,14 +652,17 @@ def loop_phase(card, failures):
     warm = tuple(a[:256] for a in big)
     for st in settings.values():
         ctt.BatchSolver(cones, BENCH_N, st, device=DEVICE).solve(*warm)
-    launches = 0
+    launches = rows_launches = 0
     for name, B in LOOP_BATCHES:
         bs = ctt.BatchSolver(cones, BENCH_N, settings[name], device=DEVICE)
         data = tuple(a[:B] for a in big)
         batched_ldl.kernel.launches = 0     # this path's run starts here
+        batched_ldl.kernel.rows_launches = 0
         _cuda.megakernel.launches = 0
         wall, k = synced_wall(lambda: bs.solve(*data))
         run_launches = batched_ldl.kernel.launches  # ... and ends here
+        run_rows = batched_ldl.kernel.rows_launches
+        rows_launches += run_rows
         launches += run_launches
         with plain_k2_route():
             p_wall, p = synced_wall(lambda: bs.solve(*data))
@@ -631,7 +685,9 @@ def loop_phase(card, failures):
               f"ms), mean iters {k.iterations.mean():.3f}, not SOLVED "
               f"{B - solved}, statuses "
               f"{np.bincount(k.status, minlength=11).tolist()}; K2 "
-              f"launches {run_launches}, K2 {k2_ms:.4f} ms per launch at "
+              f"launches {run_launches} (rows kernel {run_rows}), K2 "
+              f"{k2_ms:.4f} ms per "
+              f"launch at "
               f"this B; megakernel launches {_cuda.megakernel.launches}; "
               f"card {card}", flush=True)
         for what, rd in (("kernel", r), (f"plain(q*(1+{bars['jitter']:.0e}"
@@ -657,7 +713,7 @@ def loop_phase(card, failures):
             bad.append("non-finite x")
         for v in bad:
             failures.append(f"{tag}: {v}")
-    return launches
+    return launches, rows_launches
 
 
 def rescue_phase(card, failures):
@@ -1068,40 +1124,55 @@ def main():
                   for c, n in ((nn_soc, BENCH_N),
                                ([ctt.NonnegativeConeT(6),
                                  ctt.PSDTriangleConeT(3)], 3))]
-    # the wrong group kernel on the bench shape
+    # the wrong group kernels: K1a's on the bench shape, K1b's on the exp
+    # shape
     wrong_group = wrong_group_kernel()
     wrong_shapes = [_cuda.shape_of(solvers["bench"]._mega_fn.spec)]
+    wrong_search = wrong_group_kernel("MK_WRONG_SEARCH")
     t0 = time.perf_counter()
     all_shapes = shapes + [k1b_shape] + k1d_shapes + [k1c_shape] + k1e_shapes
-    # the libraries this run launches: a zero/nn/SOC shape takes the group
-    # kernel or the one-lane-per-thread kernel by B; the bench shapes run
-    # at every B of THROUGHPUT_BATCHES, the other shapes at 4096
+    # the libraries this run launches: a zero/nn/SOC or exp/pow shape takes
+    # the group kernel or the one-lane-per-thread kernel by B; the bench
+    # shapes run at every B of THROUGHPUT_BATCHES, the exp shape at every B
+    # of NONSYM_THROUGHPUT, the other shapes at 4096
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bench_shapes = {_cuda.shape_of(solvers["bench"]._mega_fn.spec),
                     k1e_shapes[0]}
+    k1b_variants = sorted({_cuda.variant_of(k1b_shape, B, sms)
+                           for B in NONSYM_THROUGHPUT})
     variants = sorted({_cuda.variant_of(sh, B, sms) for sh in all_shapes
                        for B in (THROUGHPUT_BATCHES if sh in bench_shapes
                                  else (4096,))}
-                      | {v for sh in shapes for v in _cuda.variants_of(sh)})
+                      | {v for sh in shapes for v in _cuda.variants_of(sh)}
+                      | set(k1b_variants))
+    k2_variants = sorted({batched_ldl.kernel.variant(n + m)
+                          for n, m in K2_SHAPES})
     cuda_build.build_together(
-        (_cuda.megakernel, variants), (batched_ldl.kernel, [()]),
-        (wrong_group, [sh + (1, 1) for sh in wrong_shapes]))
+        (_cuda.megakernel, variants), (batched_ldl.kernel, k2_variants),
+        (wrong_group, [sh + (1, 1) for sh in wrong_shapes]),
+        (wrong_search, [k1b_shape + (1, 1)]
+         if any(v[7] for v in k1b_variants) else []))
     print(f"[1] built K1a for {len(shapes)} shapes {shapes}, K1b for "
-          f"{k1b_shape}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e for "
-          f"{k1e_shapes} (zero/nn/SOC shapes from both sources: "
-          f"{[v for v in variants if _cuda.group_eligible(v)]}), K2, and "
-          f"the wrong group kernel for {wrong_shapes} "
-          f"in {time.perf_counter() - t0:.1f} s (one nvcc each, in "
-          f"parallel)", flush=True)
+          f"{k1b_variants}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e "
+          f"for {k1e_shapes} (zero/nn/SOC shapes from both sources: "
+          f"{[v for v in variants if not v[3] and _cuda.group_eligible(v)]})"
+          f", K2 {k2_variants} ((N,): ldl_inverse_rows.cu for that N; (): "
+          f"ldl_inverse.cu), and the wrong group kernels in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
+          flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
             src = os.path.basename(lib.source_for(variant))
             for line in log.splitlines():
                 if "registers" in line or "spill" in line or "stack" in line:
                     print(f"[1] ptxas {src} {variant}: {line.strip()}")
-    for v in variants:
-        c = sass_counts(_cuda.megakernel.lib_path(v))
-        print(f"[1] sass {_cuda.source_for(v)} {v}: {c['instructions']} "
+    libs = ([(_cuda.source_for(v), _cuda.megakernel.lib_path(v), v)
+             for v in variants]
+            + [(os.path.basename(batched_ldl.kernel.source_for(v)),
+                batched_ldl.kernel.lib_path(v), v) for v in k2_variants])
+    for src, path, v in libs:
+        c = sass_counts(path)
+        print(f"[1] sass {src} {v}: {c['instructions']} "
               f"instructions, {c['LDL']} local loads (LDL), {c['STL']} local "
               f"stores (STL), {c['LD']} and {c['ST']} generic (LD.E, ST.E)")
 
@@ -1296,73 +1367,92 @@ def main():
     clock.start("[5]")
     k2 = k2_phase(card, failures)
     clock.start("[6]")
-    k2_launches = loop_phase(card, failures)
-    print(f"[6] K2 launches on the loop paths: {k2_launches}", flush=True)
-    if k2_launches <= 0:
-        failures.append("[6] the Settings.throughput() path did not launch K2")
+    k2_launches, k2_rows_launches = loop_phase(card, failures)
+    print(f"[6] K2 launches on the loop paths: {k2_launches}, of which "
+          f"{k2_rows_launches} ldl_inverse_rows.cu", flush=True)
+    if k2_rows_launches <= 0:
+        failures.append("[6] the loop paths did not launch K2's rows kernel")
     clock.start("[7]")
     rescue_phase(card, failures)
 
     # ---- phase 8: K1b (exponential and power cones) ----
     clock.start("[8]")
+    # every K1b source the exp path launches (the group kernel up to
+    # _cuda.NONSYM_GROUP_LANES_PER_SM lanes an SM, one lane per thread
+    # above), each held to the bars
+    k1b_kernels = {_cuda.source_for(v): pinned_kernel(v[7])
+                   for v in k1b_variants}
+
     def check_nonsym(name, cones, data, st):
-        """K1b against its plain version on one batch at NONSYM_B, the
-        plain version against itself under a 1e-15 change of q, and the
-        wrong kernels."""
+        """K1b against its plain version on one batch at NONSYM_B, for each
+        of its sources; the plain version against itself under a 1e-15
+        change of q; the wrong kernels, and on the group source the wrong
+        group kernel (its searches take the last passing trial of a
+        round)."""
         P, q, A, b = data
         spec = ctt.BatchSolver(cones, NONSYM_N, st)._mega_fn.spec
         bars = NONSYM_BARS[name]
         B, flats = megakernel.prepare(P, q, A, b, spec, dev)
-        k_ms, (kv, ki) = events_ms(
-            lambda: _cuda.megakernel(*flats, spec, B), 3)
         trips = {}
         p_ms, (pv, pi) = events_ms(
             lambda: megakernel_ref.mega_solve_plain(*flats, spec, B,
                                                     trips=trips), 1)
-        k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
+        p = outputs(pv, pi, spec)
         qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
             q.shape))
         _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
         pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
                      spec)
-        tag = f"[8] {name} B={B}"
-        print(f"{tag}: searches (plain version's trips): "
+        phase = f"[8] {name} B={B}"
+        print(f"{phase}: searches (plain version's trips): "
               f"{describe_searches(search_costs(trips))}", flush=True)
-        r = readings(k, p, P, q, A, b)
-        dual_k, dual_p = int(ki[2].sum()), int(pi[2].sum())
-        print(f"{tag}: kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; kernel "
-              f"statuses {np.bincount(k['status'], minlength=11).tolist()};"
-              f" lanes ending on the Dual strategy: kernel {dual_k}, plain "
-              f"{dual_p}; card {card}", flush=True)
-        print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
-        print(f"{tag}: plain(q*(1+1e-15*xi)) vs plain: "
-              f"{describe(readings(pj, p, P, qj, A, b))}", flush=True)
-        print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
+        print(f"{phase}: plain {p_ms:.1f} ms; plain(q*(1+1e-15*xi)) vs "
+              f"plain: {describe(readings(pj, p, P, qj, A, b))}", flush=True)
+        print(f"{phase}: bars: x {bars['x']:.1e}, iters within 1 on "
               f"{bars['within1']} and within {bars['it_max']} on all, "
               f"objective {OBJ_TOL:.0e}, true KKT {KKT_TOL:.0e}, |s'z| "
               f"{SZ_TOL:.0e}, SOLVED at least plain less 0.1 % of B",
               flush=True)
-        for v in violations(r, bars, B):
-            failures.append(f"{tag}: the kernel fails the {v} bar")
-        if not all(np.isfinite(k[f][k["status"] == SOLVED]).all()
-                   for f in ("x", "z", "s")):
-            failures.append(f"{tag}: non-finite x/z/s on SOLVED lanes")
-        if name == "switch" and dual_k < B // 2:
-            failures.append(f"{tag}: only {dual_k} lanes took the switch")
-        for wname, change in WRONG_NONSYM.items():
-            wspec = dataclasses.replace(spec, st=spec.st.replace(**change))
-            w = outputs(*_cuda.megakernel(*flats, wspec, B), spec)
-            rw = readings(w, p, P, q, A, b)
-            rejected = violations(rw, bars, B)
-            print(f"{tag}: wrong kernel ({wname}) vs plain: {describe(rw)};"
-                  f" rejected by: {', '.join(rejected) or 'none'}",
-                  flush=True)
-            if not rejected:
-                failures.append(f"{tag}: the bars pass the wrong kernel "
-                                f"({wname})")
-        return dict(ms=k_ms, plain_ms=p_ms, iters=k["iterations"],
-                    max_abs_err=max(r["dx"], r["dobj"]), spec=spec, B=B,
-                    flats=flats)
+        out = {}
+        for src, kern in k1b_kernels.items():
+            tag = f"{phase} {src}"
+            k_ms, (kv, ki) = events_ms(lambda: kern(*flats, spec, B), 3)
+            k = outputs(kv, ki, spec)
+            r = readings(k, p, P, q, A, b)
+            dual_k, dual_p = int(ki[2].sum()), int(pi[2].sum())
+            print(f"{tag}: kernel {k_ms:.3f} ms; kernel statuses "
+                  f"{np.bincount(k['status'], minlength=11).tolist()}; lanes"
+                  f" ending on the Dual strategy: kernel {dual_k}, plain "
+                  f"{dual_p}; card {card}", flush=True)
+            print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
+            for v in violations(r, bars, B):
+                failures.append(f"{tag}: the kernel fails the {v} bar")
+            if not all(np.isfinite(k[f][k["status"] == SOLVED]).all()
+                       for f in ("x", "z", "s")):
+                failures.append(f"{tag}: non-finite x/z/s on SOLVED lanes")
+            if name == "switch" and dual_k < B // 2:
+                failures.append(f"{tag}: only {dual_k} lanes took the "
+                                f"switch")
+            wrong = {w: kern for w in WRONG_NONSYM}
+            if src == "megakernel_group.cu":
+                wrong["group searches take the last passing trial"] = \
+                    wrong_search
+            for wname, wkern in wrong.items():
+                wspec = dataclasses.replace(
+                    spec, st=spec.st.replace(**WRONG_NONSYM.get(wname, {})))
+                w = outputs(*wkern(*flats, wspec, B), spec)
+                rw = readings(w, p, P, q, A, b)
+                rejected = violations(rw, bars, B)
+                print(f"{tag}: wrong kernel ({wname}) vs plain: "
+                      f"{describe(rw)}; rejected by: "
+                      f"{', '.join(rejected) or 'none'}", flush=True)
+                if not rejected:
+                    failures.append(f"{tag}: the bars pass the wrong kernel "
+                                    f"({wname})")
+            out[src] = dict(ms=k_ms, plain_ms=p_ms, iters=k["iterations"],
+                            max_abs_err=max(r["dx"], r["dobj"]), spec=spec,
+                            B=B, flats=flats)
+        return out
 
     mega_st = ctt.Settings(kkt_backend="megakernel")
     exp_big = bench_data.make_exp_batch(max(NONSYM_THROUGHPUT))
@@ -1388,6 +1478,7 @@ def main():
     lines = []
     exp_out = {}
     _cuda.megakernel.launches = 0          # the exp path's run starts here
+    _cuda.megakernel.group_launches = 0
     for B in NONSYM_THROUGHPUT:
         data = tuple(a[:B] for a in exp_big)
         exp_solver.solve(*data)            # warm-up
@@ -1406,13 +1497,18 @@ def main():
             f"{out.iterations.mean():.3f}; not SOLVED {B - solved}, "
             f"statuses {np.bincount(out.status, minlength=11).tolist()}; "
             f"card {card}")
-    k1b_launches = _cuda.megakernel.launches   # ... and ends here
+    k1b_launches = {"megakernel_group.cu":   # ... and ends here
+                    _cuda.megakernel.group_launches}
+    k1b_launches["megakernel.cu"] = (_cuda.megakernel.launches
+                                     - k1b_launches["megakernel_group.cu"])
     for line in lines:
         print(line, flush=True)
-    print(f"[8] megakernel launches on the exp path: {k1b_launches}",
-          flush=True)
-    if k1b_launches <= 0:
-        failures.append("[8] BatchSolver.solve did not launch K1b")
+    print(f"[8] megakernel launches on the exp path, by source: "
+          f"{k1b_launches}", flush=True)
+    for src in k1b_kernels:
+        if k1b_launches[src] <= 0:
+            failures.append(f"[8] BatchSolver.solve did not launch K1b's "
+                            f"{src} on the exp path")
     # where one exp solve's wall time goes at the largest batch (as [4])
     data = tuple(a[:max(NONSYM_THROUGHPUT)] for a in exp_big)
     marks = [time.perf_counter()]
@@ -1481,17 +1577,22 @@ def main():
                 failures.append(f"[8] {name} rescue B={B}: SOLVED lanes "
                                 f"lost or changed")
 
-    # K1b's bound: bytes and FP64 operations of this run's exp batch
-    rn = nonsym["exp"]
-    ns_in = sum(t.numel() * 8 for t in rn["flats"])
-    ns_out = rn["B"] * (rn["spec"].outd * 8 + 3 * 4)
-    ns_flops = int(rn["iters"].sum()) * flops_per_iteration(
-        rn["spec"].n, rn["spec"].m, rn["spec"].segs, 0)
-    ns_bytes_ms = (ns_in + ns_out) / HBM_RATE * 1e3
-    ns_ops_ms = ns_flops / FP64_RATE * 1e3
-    print(f"[8] K1b bound at exp B={rn['B']}: {ns_flops:.3e} FP64 ops -> "
-          f"{ns_ops_ms:.4f} ms, {ns_in + ns_out} bytes -> {ns_bytes_ms:.4f} "
-          f"ms", flush=True)
+    # K1b's bound, for each source: bytes and FP64 operations of this run's
+    # exp batch (their iteration counts may differ)
+    k1b_bounds = {}
+    for src, rn in nonsym["exp"].items():
+        ns_in = sum(t.numel() * 8 for t in rn["flats"])
+        ns_out = rn["B"] * (rn["spec"].outd * 8 + 3 * 4)
+        ns_flops = int(rn["iters"].sum()) * flops_per_iteration(
+            rn["spec"].n, rn["spec"].m, rn["spec"].segs, 0)
+        ns_bytes_ms = (ns_in + ns_out) / HBM_RATE * 1e3
+        ns_ops_ms = ns_flops / FP64_RATE * 1e3
+        k1b_bounds[src] = (max(ns_bytes_ms, ns_ops_ms),
+                           "operations" if ns_ops_ms >= ns_bytes_ms
+                           else "bytes")
+        print(f"[8] K1b bound of {src} at exp B={rn['B']}: {ns_flops:.3e} "
+              f"FP64 ops -> {ns_ops_ms:.4f} ms, {ns_in + ns_out} bytes -> "
+              f"{ns_bytes_ms:.4f} ms", flush=True)
 
     # ---- phases 9-10: K1d (PSD cones) and K1c (generalized power cones)
     def psd_min_eig(spec, s):
@@ -1745,7 +1846,7 @@ def main():
     clock.start(None)
     if failures:
         fail("; ".join(failures))
-    k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]
+    k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]   # the rows kernel
     # K1a, one entry per source: launches from the main path's run; ms,
     # the plain version's ms and the bound at bench B = 4096; max_abs_err
     # over the batches of [2]-[3]
@@ -1764,12 +1865,14 @@ def main():
         "library_ms": None,
     } for name, src in (("megakernel_group", "megakernel_group.cu"),
                         ("megakernel", "megakernel.cu"))] + [{
+        # K2 at N = 19, the only N a main path launches (the shared-memory
+        # kernel, csrc/ldl_inverse.cu, serves N > 32; [5] holds it at 80)
         "name": "ldl_inverse",
         "route": "cuda",
-        "source": "clarabel_tpu_torch/csrc/ldl_inverse.cu",
+        "source": f"clarabel_tpu_torch/csrc/{k2_main['source']}",
         "replaces": "clarabel_tpu/linalg/pallas_ldl.py:99",
-        "launches": k2_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in k2.values()),
+        "launches": k2_rows_launches,
+        "max_abs_err": k2_main["max_abs_err"],
         "ms": k2_main["ms"],
         "plain_ms": k2_main["plain_ms"],
         "bound_ms": k2_main["bound_ms"],
@@ -1777,19 +1880,23 @@ def main():
         # torch.linalg.ldl_factor pivots (Bunch-Kaufman) and has no
         # sign-aware regularization: no PyTorch call computes this function
         "library_ms": None,
-    }, {
-        "name": "megakernel_nonsym",
+    }] + [{
+        # K1b, one entry per source the exp path launches: ms, the plain
+        # version's ms and the bound at exp B = 4096; max_abs_err over exp,
+        # pow and switch
+        "name": ("megakernel_nonsym_group" if src == "megakernel_group.cu"
+                 else "megakernel_nonsym"),
         "route": "cuda",
-        "source": "clarabel_tpu_torch/csrc/megakernel.cu",
+        "source": f"clarabel_tpu_torch/csrc/{src}",
         "replaces": "clarabel_tpu/ipm/megakernel.py:3523",
-        "launches": k1b_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in nonsym.values()),
-        "ms": rn["ms"],
-        "plain_ms": rn["plain_ms"],
-        "bound_ms": max(ns_bytes_ms, ns_ops_ms),
-        "bound_by": "operations" if ns_ops_ms >= ns_bytes_ms else "bytes",
+        "launches": k1b_launches[src],
+        "max_abs_err": max(v[src]["max_abs_err"] for v in nonsym.values()),
+        "ms": nonsym["exp"][src]["ms"],
+        "plain_ms": nonsym["exp"][src]["plain_ms"],
+        "bound_ms": k1b_bounds[src][0],
+        "bound_by": k1b_bounds[src][1],
         "library_ms": None,
-    }, {
+    } for src in k1b_kernels] + [{
         "name": "megakernel_psd",
         "route": "cuda",
         "source": "clarabel_tpu_torch/csrc/megakernel.cu",

@@ -1,8 +1,10 @@
 // The batched conic IPM as one CUDA kernel, one instance per group of G
-// threads (K1a on zero, nonnegative and second-order cone layouts).
+// threads (K1a on zero, nonnegative and second-order cone layouts; K1b
+// where the build sets MK_NONSYM=1, with exponential and power cones).
 //
 // Replaces: clarabel_tpu/ipm/megakernel.py `kernel` / `compute` (the Pallas
-// megakernel launched by `_pallas_fn`) on zero/nn/SOC layouts.  It
+// megakernel launched by `_pallas_fn`) on zero/nn/SOC layouts and on
+// layouts with exp/pow segments (no genpow or PSD segment).  It
 // computes what csrc/megakernel.cu and the plain PyTorch version
 // clarabel_tpu_torch/ipm/megakernel_ref.py compute, formula for formula:
 // Ruiz equilibration (scalings in float32, applied in float64), the
@@ -13,8 +15,30 @@
 // and C interface are megakernel.cu's; ipm/_cuda.py launches it in its
 // place on single-phase layouts of zero, nn and SOC segments up to 54
 // lanes an SM (`variant_of`; at 62 lanes an SM, 8192 on the H100,
-// megakernel.cu measured faster on the LP batch, PERF.md section 5).  The code is written over the
-// scalar type R, as megakernel.cu's is; double is its one instance here.
+// megakernel.cu measured faster on the LP batch, PERF.md section 5), and
+// on exp/pow layouts up to `_cuda.NONSYM_GROUP_LANES_PER_SM`.  The code is
+// written over the scalar type R, as megakernel.cu's is; double is its
+// one instance here.
+//
+// K1b (MK_NONSYM=1): the unit-initialization start, the dual and
+// primal-dual (BFGS) 3x3 scalings with their Cholesky factors, the
+// Wright-omega and one-sided Newton primal gradients, the third-order
+// corrections, the joint feasibility backtrack, and per lane the
+// PrimalDual->Dual strategy machine with the barrier backtrack of Dual
+// lanes (megakernel.cu's K1b, formula for formula).  An exp or pow
+// segment's three rows are gathered into every thread of the group by
+// shuffles, and its 3x3 work runs there replicated on bit-equal operands,
+// as the n x n Cholesky does, so the strategy switch, the step lengths
+// and the stops stay uniform over the group.  What one thread of
+// megakernel.cu does serially in its backtracking searches, the group
+// shares: its G threads try G consecutive candidate steps side by side
+// and the lane takes the first that passes, the serial loop's step
+// (`feas_search`, `barrier_search`).  What bounds K1b at the exp shape
+// (n = 3, m = 5): nearly all of a lane's work is this replicated 3x3 and
+// n x n work, so the group issues about G times the instructions of one
+// lane per thread; it gains where a batch leaves the card's SMs short of
+// warps and where lanes' searches diverge, and loses where the thread
+// kernel's lanes fill the card (PERF.md section 5: hence the cap).
 //
 // What held megakernel.cu back on this card: one lane per thread keeps a
 // working set of about 1,200 words a lane (the scaled problem, the
@@ -24,7 +48,9 @@
 // holds 8 warps, and their stacks leave L1 for L2 on every access.
 //
 // The design: one lane per group of G threads (G = 8 while m <= 8, 16
-// while m <= 16, else 32), each owning rows of the lane's data.  Thread
+// while m <= 16, else 32; 8 on exp/pow layouts, where 2 and 4 measured
+// slower or failed a bar, PERF.md section 5), each owning rows of the
+// lane's data.  Thread
 // t of a group owns cone rows t, t+G, ... (RPT of them) and variable
 // entries t, t+G, ... (CPT of them): for a cone row, its row of the
 // scaled A, b, e, s, z, the scaling, the residual and the directions; for
@@ -44,13 +70,15 @@
 // initial point's shift) reduces with max, or gathers the row values and
 // sums them in megakernel.cu's order, and matches it.
 //
-// What bounds it: FP64 operations, as megakernel.cu (a lane reads about
+// What bounds K1a: FP64 operations, as megakernel.cu (a lane reads about
 // 0.9 KB and writes 0.37 KB at the bench shape; an IPM iteration is on the
 // order of 10^4 FP64 operations).  The group adds shuffles: a butterfly of
-// K doubles costs 2 K log2(G) shuffles a thread.  In blocks of 256 threads
-// with at most 128 registers (2 blocks an SM), an SM holds 16 warps: at
-// the bench shape (G = 16) 128 lanes at once, with 1,104 bytes of stack a
-// thread left by ptxas (spilled temporaries of the refinement; PERF.md).
+// K doubles costs 2 K log2(G) shuffles a thread.  K1a: in blocks of 256
+// threads with at most 128 registers (2 blocks an SM), an SM holds 16
+// warps: at the bench shape (G = 16) 128 lanes at once, with 1,104 bytes
+// of stack a thread left by ptxas (spilled temporaries of the refinement;
+// PERF.md).  K1b: in blocks of 64 with up to 255 registers, 8 warps an SM,
+// 32 lanes at G = 8, with 656 bytes of stack.
 //
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -73,8 +101,8 @@
 #ifndef MK_GENPOW
 #define MK_GENPOW 0
 #endif
-#if MK_NONSYM || MK_PSD || MK_GENPOW
-#error "megakernel_group.cu takes zero, nonnegative and second-order cones"
+#if MK_PSD || MK_GENPOW
+#error "megakernel_group.cu takes zero, nonnegative, second-order, exponential and power cones"
 #endif
 #ifndef MK_TWO_PHASE
 #define MK_TWO_PHASE 0
@@ -82,10 +110,15 @@
 #if MK_TWO_PHASE
 #error "the float32 first phase (K1e) is built from megakernel.cu"
 #endif
-// chip_smoke.py's wrong group kernel: every butterfly sum drops its last
-// step and takes thread 0's partial sum (a sum over half the group's rows)
+// chip_smoke.py's wrong group kernels: every butterfly sum drops its last
+// step and takes thread 0's partial sum (a sum over half the group's rows);
+// the shared searches of K1b take the last passing trial of a round, not
+// the first
 #ifndef MK_WRONG_BUTTERFLY
 #define MK_WRONG_BUTTERFLY 0
+#endif
+#ifndef MK_WRONG_SEARCH
+#define MK_WRONG_SEARCH 0
 #endif
 
 namespace {
@@ -95,30 +128,56 @@ constexpr int M = MK_M;
 constexpr int S = MK_S;
 constexpr int NT = N * (N + 1) / 2;
 constexpr int OUTD = N + 2 * M + 13;
+#if MK_NONSYM
+constexpr int G = 8;   // exp/pow layouts (K1b)
+#else
 constexpr int G = M <= 8 ? 8 : M <= 16 ? 16 : 32;
-static_assert(G == 8 || G == 16 || G == 32, "a group is 8, 16 or 32 threads");
+#endif
+static_assert(G == 2 || G == 4 || G == 8 || G == 16 || G == 32,
+              "a group is 2, 4, 8, 16 or 32 threads");
 constexpr int RPT = (M + G - 1) / G;   // cone rows a thread owns
 constexpr int CPT = (N + G - 1) / G;   // variable entries a thread owns
+#if MK_NONSYM
+// K1b: blocks of 64 threads, so that a batch of 4096 lanes spreads over
+// the card (512 blocks of 8 lanes over 132 SMs), with up to 255 registers
+// a thread (at 128 its stack was 1,168 bytes against 656, and it ran
+// slower at 4096 lanes: PERF.md section 5)
+constexpr int THREADS = 64;
+constexpr int MIN_BLOCKS = 4;          // 4 blocks of 64: <= 255 registers
+#else
 constexpr int THREADS = 256;
 constexpr int MIN_BLOCKS = 2;          // 2 blocks of 256: <= 128 registers
+#endif
 constexpr int LANES_PER_BLOCK = THREADS / G;
 constexpr double BIG = 1e30;
 constexpr double TINY32 = 1.1754943508222875e-38;   // float32 tiny
 constexpr double EPS64 = 2.220446049250313e-16;
+#if MK_NONSYM
+constexpr double SQRT_EPS64 = 1.4901161193847656e-08;
+constexpr double PI = 3.141592653589793;
+// the nonsymmetric step cap (reference l.2169-2172) and the trip limits of
+// the joint feasibility backtrack and of the pow Newton iteration
+constexpr double STEP_CAP = 1.0 - 1.0 / 4096.0;
+constexpr int FEAS_TRIPS = 60, NR_TRIPS = 50;
+// exp and pow segments a layout can hold (three rows each)
+constexpr int NSL = S < M / 3 ? S : M / 3;
+static_assert(NSL >= 1, "an exp or pow segment has three rows");
+enum Strategy { PRIMAL_DUAL = 0, DUAL = 1 };
+#endif
 
 enum Status {
   UNSOLVED = 0, SOLVED = 1, PINF = 2, DINF = 3, ALMOST_SOLVED = 4,
   ALMOST_PINF = 5, ALMOST_DINF = 6, MAX_ITERATIONS = 7,
   NUMERICAL_ERROR = 9, INSUFFICIENT_PROGRESS = 10
 };
-enum SegKind { SEG_ZERO = 0, SEG_NN = 1, SEG_SOC = 2, NO_ROW = -1 };
+enum SegKind { SEG_ZERO = 0, SEG_NN = 1, SEG_SOC = 2, SEG_EXP = 3,
+               SEG_POW = 4, NO_ROW = -1 };
 
 }  // namespace
 
 extern "C" {
-// megakernel.cu's MkParams for single-phase layouts without exp, pow,
-// genpow or PSD segments, field for field (ipm/_cuda.py mirrors it and
-// checks its size).
+// megakernel.cu's MkParams for single-phase layouts without genpow or PSD
+// segments, field for field (ipm/_cuda.py mirrors it and checks its size).
 struct MkParams {
   double eq_min_scaling, eq_max_scaling;
   double static_reg_constant, static_reg_proportional;
@@ -172,6 +231,14 @@ struct Grp {
   int kind[RPT];    // SegKind of each owned cone row (NO_ROW past m)
   int seg[RPT];     // its segment
   bool head[RPT];   // the first row of a SOC segment
+#if MK_NONSYM
+  // the exp and pow segments in order, one slot each: kind (NO_ROW for an
+  // empty slot), first row and a pow segment's exponent; and the slot of
+  // each owned row (-1 for rows of other kinds)
+  int ns_kind[NSL], ns_lo[NSL];
+  double ns_a[NSL];
+  int ns_of[RPT];
+#endif
 };
 
 __device__ __forceinline__ int row_of(const Grp& g, int r) { return g.t + r * G; }
@@ -279,6 +346,471 @@ __device__ __forceinline__ void gather_m(const Grp& g, const T (&v)[RPT],
   for (int k = 0; k < M; ++k) full[k] = __shfl_sync(g.mask, v[k / G], k % G, G);
 }
 
+#if MK_NONSYM
+// ---- exponential and power segments (K1b): the segment's three rows
+// gathered into every thread of the group, where the 3x3 work runs
+// replicated on bit-equal operands (megakernel.cu's helpers, formula for
+// formula; Hessians are 6-vectors h11 h12 h13 h22 h23 h33) ----
+
+// rows lo, lo+1, lo+2 of a per-row vector, in every thread
+template <typename T>
+__device__ __forceinline__ void seg_gather3(const Grp& g, int lo,
+                                            const T (&v)[RPT], T (&V)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int k = lo + i, slot = k / G;
+    T send = v[0];
+#pragma unroll
+    for (int r = 1; r < RPT; ++r)
+      if (r == slot) send = v[r];
+    V[i] = __shfl_sync(g.mask, send, k % G, G);
+  }
+}
+// the entry of V for owned row r of the segment starting at lo
+template <typename T>
+__device__ __forceinline__ T seg_pick3(const Grp& g, int r, int lo,
+                                       const T (&V)[3]) {
+  const int off = row_of(g, r) - lo;
+  return off == 0 ? V[0] : off == 1 ? V[1] : V[2];
+}
+
+// log, with -BIG where x <= 0 (reference nslogsafe)
+__device__ __forceinline__ double nslog(double x) {
+  return x > 0 ? log(x) : -BIG;
+}
+
+__device__ __forceinline__ double dot3(const double* u, const double* v) {
+  return u[0] * v[0] + u[1] * v[1] + u[2] * v[2];
+}
+
+__device__ __forceinline__ void hmul3(const double* H, const double* v,
+                                      double* out) {
+  out[0] = H[0] * v[0] + H[1] * v[1] + H[2] * v[2];
+  out[1] = H[1] * v[0] + H[3] * v[1] + H[4] * v[2];
+  out[2] = H[2] * v[0] + H[4] * v[1] + H[5] * v[2];
+}
+
+// closed-form 3x3 Cholesky with clamped pivots: F = (l21, l31, l32, 1/l11,
+// 1/l22, 1/l33); returns whether every pivot was positive
+__device__ __forceinline__ bool chol3_fac(const double* H, double* F) {
+  bool ok = H[0] > 0;
+  double l11 = sqrt(nmax(H[0], 0.0));
+  l11 = l11 > 0 ? l11 : 1.0;
+  const double i11 = 1.0 / l11;
+  const double l21 = H[1] * i11, l31 = H[2] * i11;
+  const double d2 = H[3] - l21 * l21;
+  ok = ok && d2 > 0;
+  double l22 = sqrt(nmax(d2, 0.0));
+  l22 = l22 > 0 ? l22 : 1.0;
+  const double i22 = 1.0 / l22;
+  const double l32 = (H[4] - l31 * l21) * i22;
+  const double d3 = H[5] - l31 * l31 - l32 * l32;
+  ok = ok && d3 > 0;
+  double l33 = sqrt(nmax(d3, 0.0));
+  l33 = l33 > 0 ? l33 : 1.0;
+  F[0] = l21; F[1] = l31; F[2] = l32;
+  F[3] = i11; F[4] = i22; F[5] = 1.0 / l33;
+  return ok;
+}
+
+__device__ __forceinline__ void chol3_solve_fac(const double* F,
+                                                const double* b, double* x) {
+  const double y1 = b[0] * F[3];
+  const double y2 = (b[1] - F[0] * y1) * F[4];
+  const double y3 = (b[2] - F[1] * y1 - F[2] * y2) * F[5];
+  const double x3 = y3 * F[5];
+  const double x2 = (y2 - F[2] * x3) * F[4];
+  x[0] = (y1 - F[0] * x2 - F[1] * x3) * F[3];
+  x[1] = x2;
+  x[2] = x3;
+}
+
+// y + log(y) = z (float64; cones/nonsymmetric.py _wright_omega)
+__device__ __forceinline__ double wright_omega(double z) {
+  const double zm1 = z - 1.0;
+  const double p1 = zm1;
+  double w_small = 1.0 + 0.5 * p1;
+  const double p2 = p1 * zm1;
+  w_small = w_small + (1.0 / 16.0) * p2;
+  const double p3 = p2 * zm1;
+  w_small = w_small - (1.0 / 192.0) * p3;
+  const double p4 = p3 * zm1;
+  w_small = w_small - (1.0 / 3072.0) * p4;
+  const double p5 = p4 * zm1;
+  w_small = w_small + (13.0 / 61440.0) * p5;
+  const double z_big = nmax(z, 1.0 + PI);
+  const double logz = log(z_big);
+  const double zinv = 1.0 / z_big;
+  double w_big = z_big - logz;
+  double q = logz * zinv;
+  w_big = w_big + q;
+  q = q * zinv;
+  w_big = w_big + q * (logz / 2.0 - 1.0);
+  q = q * zinv;
+  w_big = w_big + q * (logz * logz / 3.0 - 1.5 * logz + 1.0);
+  double w = z < 1.0 + PI ? w_small : w_big;
+  double r = z - w - log(nmax(w, 1e-300));
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const double wp1 = w + 1.0;
+    const double t = wp1 * (wp1 + (2.0 * r) / 3.0);
+    w = w * (1.0 + (r / wp1) * (t - 0.5 * r) / (t - r));
+    r = (2.0 * w * w - 8.0 * w - 1.0) / (72.0 * pow(wp1, 6.0)) * pow(r, 4.0);
+  }
+  return w;
+}
+
+__device__ __forceinline__ bool exp_feas_dual(const double* Z) {
+  const double zsafe = Z[0] < 0 ? Z[0] : -1.0;
+  const double res = Z[1] - Z[0] - Z[0] * nslog(-Z[2] / zsafe);
+  return Z[2] > 0 && Z[0] < 0 && res > 0;
+}
+
+__device__ __forceinline__ bool exp_feas_primal(const double* S) {
+  const double res = S[1] * nslog(S[2] / (S[1] > 0 ? S[1] : 1.0)) - S[0];
+  return S[2] > 0 && S[1] > 0 && res > 0;
+}
+
+// reference: coneops_expcone.jl:370-399
+__device__ __forceinline__ void exp_grad_hess_dual(const double* Z,
+                                                   double* g, double* H) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double l = nslog(-z3 / z1);
+  const double r = -z1 * l - z1 + z2;
+  const double c2 = 1.0 / r;
+  g[0] = c2 * l - 1.0 / z1;
+  g[1] = -c2;
+  g[2] = (c2 * z1 - 1.0) / z3;
+  const double rr = r * r, z1sq = z1 * z1;
+  H[0] = (rr - z1 * r + l * l * z1sq) / (rr * z1sq);
+  H[1] = -l / rr;
+  H[2] = (z2 - z1) / (rr * z3);
+  H[3] = 1.0 / rr;
+  H[4] = -z1 / (rr * z3);
+  H[5] = (rr - z1 * r + z1sq) / (rr * z3 * z3);
+}
+
+// reference: coneops_expcone.jl:284-297
+__device__ __forceinline__ void exp_grad_primal(const double* S, double* g) {
+  const double s1 = S[0], s2 = S[1], s3 = S[2];
+  const double w = wright_omega(1.0 - s1 / s2 - nslog(s2 / s3));
+  const double g1 = 1.0 / ((w - 1.0) * s2);
+  g[0] = g1;
+  g[1] = g1 + g1 * nslog(w * s2 / s3) - 1.0 / s2;
+  g[2] = w / ((1.0 - w) * s3);
+}
+
+__device__ __forceinline__ double pow_phi_dual(double z1, double z2,
+                                               double a) {
+  return exp(nslog(z1 / a) * (2.0 * a) + nslog(z2 / (1.0 - a)) * (2.0 - 2.0 * a));
+}
+
+__device__ __forceinline__ bool pow_feas_dual(const double* Z, double a) {
+  const double res = pow_phi_dual(Z[0], Z[1], a) - Z[2] * Z[2];
+  return Z[0] > 0 && Z[1] > 0 && res > 0;
+}
+
+__device__ __forceinline__ bool pow_feas_primal(const double* S, double a) {
+  const double res =
+      exp(nslog(S[0]) * (2.0 * a) + nslog(S[1]) * (2.0 - 2.0 * a)) - S[2] * S[2];
+  return S[0] > 0 && S[1] > 0 && res > 0;
+}
+
+// reference: coneops_powcone.jl:408-440
+__device__ __forceinline__ void pow_grad_hess_dual(const double* Z, double a,
+                                                   double* g, double* H) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double phi = pow_phi_dual(z1, z2, a);
+  const double ipsi = 1.0 / (phi - z3 * z3);
+  const double g1p = phi * ipsi * (2.0 * a) / z1;
+  const double g2p = phi * ipsi * (2.0 - 2.0 * a) / z2;
+  const double g3p = z3 * ipsi * (-2.0);
+  H[0] = g1p * g1p - phi * ipsi * (2.0 * a * (2.0 * a - 1.0)) / (z1 * z1) +
+         (1.0 - a) / (z1 * z1);
+  H[1] = g1p * g2p - phi * ipsi * (4.0 * a * (1.0 - a)) / (z1 * z2);
+  H[2] = g1p * g3p;
+  H[3] = g2p * g2p -
+         phi * ipsi * (2.0 * (1.0 - a) * (1.0 - 2.0 * a)) / (z2 * z2) +
+         a / (z2 * z2);
+  H[4] = g2p * g3p;
+  H[5] = g3p * g3p + ipsi * 2.0;
+  g[0] = -g1p - (1.0 - a) / z1;
+  g[1] = -g2p - a / z2;
+  g[2] = -g3p;
+}
+
+__device__ __forceinline__ double pow_t0(double a) {
+  return -2.0 * a * log(a) - 2.0 * (1.0 - a) * log(1.0 - a);
+}
+
+// one-sided Newton-Raphson for |g3| of the pow primal gradient (reference
+// _pow_nr32, l.986-1051, in float64); sets big and absf
+__device__ __forceinline__ double pow_nr(double s1, double s2, double s3,
+                                         double a, bool& big, double& absf) {
+  const double phi = exp(2.0 * a * nslog(s1) + (2.0 - 2.0 * a) * nslog(s2));
+  const double abs_s = fabs(s3);
+  big = abs_s > EPS64;
+  absf = big ? abs_s : 1.0;
+  double den = phi - absf * absf;
+  den = fabs(den) > 0 ? den : 1.0;
+  double x = -1.0 / absf +
+             (2.0 * absf + sqrt(nmax(phi * phi / (absf * absf) + 3.0 * phi,
+                                     0.0))) / den;
+  const double t0 = pow_t0(a);
+  for (int k = 0; k < NR_TRIPS; ++k) {
+    const double t1 = x * x, t2 = 2.0 * x / absf;
+    const double f0 = 2.0 * a * nslog(2.0 * a * t1 + (1.0 + a) * t2) +
+                      (2.0 - 2.0 * a) *
+                          nslog((2.0 - 2.0 * a) * t1 + (2.0 - a) * t2) -
+                      nslog(phi) - nslog(t1 + t2) - 2.0 * nslog(t2) + t0;
+    const double d1 = 2.0 * a * a / (a * x + (1.0 + a) / absf) +
+                      (2.0 - 2.0 * a) * (1.0 - a) /
+                          ((1.0 - a) * x + (2.0 - a) / absf) -
+                      2.0 * (x + 1.0 / absf) / (t1 + t2 != 0 ? t1 + t2 : 1.0);
+    const double dx = -f0 / (d1 != 0 ? d1 : 1.0);
+    const bool stop = dx < EPS64 ||
+                      fabs(dx / (x != 0 ? x : 1.0)) < SQRT_EPS64 ||
+                      fabs(d1) < EPS64;
+    if (stop) break;
+    x = x + dx;
+  }
+  return x;
+}
+
+__device__ __forceinline__ void pow_grad_from(double x, bool big,
+                                              const double* S, double a,
+                                              double* g) {
+  const double g3 = big ? x * (S[2] < 0 ? -1.0 : 1.0) : 0.0;
+  g[0] = big ? -(g3 * S[2] * a + (1.0 + a)) / S[0] : -(1.0 + a) / S[0];
+  g[1] = big ? -(g3 * S[2] * (1.0 - a) + (2.0 - a)) / S[1]
+             : -(2.0 - a) / S[1];
+  g[2] = g3;
+}
+
+// reference: coneops_powcone.jl:288-316,449-478 (pow_grad_primal,
+// l.1053-1096): the Newton iteration, then two Newton polish steps
+__device__ __forceinline__ void pow_grad_primal(const double* S, double a,
+                                                double* g) {
+  bool big;
+  double absf;
+  double x = pow_nr(S[0], S[1], S[2], a, big, absf);
+  const double iabs = 1.0 / absf, t0 = pow_t0(a);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const double t1 = x * x, t2 = x * iabs * 2.0;
+    const double f0 = nslog(t1 * (2.0 * a) + t2 * (1.0 + a)) * (2.0 * a) +
+                      nslog(t1 * (2.0 - 2.0 * a) + t2 * (2.0 - a)) *
+                          (2.0 - 2.0 * a) -
+                      (nslog(S[0]) * (2.0 * a) +
+                       nslog(S[1]) * (2.0 - 2.0 * a)) -
+                      nslog(t1 + t2) - nslog(t2) * 2.0 + t0;
+    const double f1 = 1.0 / (x * a + iabs * (1.0 + a)) * (2.0 * a * a) +
+                      1.0 / (x * (1.0 - a) + iabs * (2.0 - a)) *
+                          ((2.0 - 2.0 * a) * (1.0 - a)) -
+                      (x + iabs) * 2.0 *
+                          (1.0 / (t1 + t2 != 0 ? t1 + t2 : 1.0));
+    x = x - f0 / (f1 != 0 ? f1 : 1.0);
+  }
+  pow_grad_from(x, big, S, a, g);
+}
+
+// the primal-dual (BFGS) Hs, with the fallback to mu_local H_dual where it
+// is not usable (reference pd_scaling_3d, l.1282-1334)
+__device__ __forceinline__ void pd_scaling_3d(const double* Hd,
+                                              const double* st,
+                                              const double* zt,
+                                              const double* S,
+                                              const double* Z, double* Hs) {
+  const double dot_sz = dot3(S, Z);
+  const double mu_l = dot_sz * (1.0 / 3.0);
+  const double mut = dot3(zt, st) * (1.0 / 3.0);
+  double dsv[3], dzv[3], Hzt[3], tmp[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    dsv[i] = S[i] + mu_l * st[i];
+    dzv[i] = Z[i] + mu_l * zt[i];
+  }
+  const double dot_dsz = dot3(dsv, dzv);
+  const double de1 = mu_l * mut - 1.0;
+  hmul3(Hd, zt, Hzt);
+  const double de2 = dot3(zt, Hzt) - mut * mut * 3.0;
+  bool usable = fabs(de1) > SQRT_EPS64 && fabs(de2) > EPS64 && dot_sz > 0 &&
+                dot_dsz > 0;
+  const double ide2 = 1.0 / (de2 != 0 ? de2 : 1.0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) tmp[i] = mut * st[i] - Hzt[i];
+  constexpr int I[6] = {0, 0, 0, 1, 1, 2}, J[6] = {0, 1, 2, 1, 2, 2};
+  double w[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    w[k] = Hd[k] - st[I[k]] * st[J[k]] * (1.0 / 3.0) -
+           tmp[I[k]] * tmp[J[k]] * ide2;
+  const double frob = w[0] * w[0] + w[3] * w[3] + w[5] * w[5] +
+                      (w[1] * w[1] + w[2] * w[2] + w[4] * w[4]) * 2.0;
+  const double t = mu_l * sqrt(nmax(frob, 0.0));
+  double ax[3] = {Z[1] * zt[2] - Z[2] * zt[1], Z[2] * zt[0] - Z[0] * zt[2],
+                  Z[0] * zt[1] - Z[1] * zt[0]};
+  const double axn = sqrt(nmax(dot3(ax, ax), 0.0));
+  const double iaxn = 1.0 / (axn > 0 ? axn : 1.0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ax[i] = ax[i] * iaxn;
+  const double isz = 1.0 / (dot_sz != 0 ? dot_sz : 1.0);
+  const double idsz = 1.0 / (dot_dsz != 0 ? dot_dsz : 1.0);
+  double pd[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    pd[k] = S[I[k]] * S[J[k]] * isz + dsv[I[k]] * dsv[J[k]] * idsz +
+            t * ax[I[k]] * ax[J[k]];
+    usable = usable && isfinite(pd[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) Hs[k] = usable ? pd[k] : Hd[k] * mu_l;
+}
+
+// H_dual^{-1} b, or 0 where the factor breaks down or the result is not
+// finite (reference _hd_solve_guarded, l.2464)
+__device__ __forceinline__ void hd_solve_guarded(const double* Hd,
+                                                 const double* b, double* u) {
+  double F[6];
+  const bool okc = chol3_fac(Hd, F);
+  chol3_solve_fac(F, b, u);
+  const bool fin = okc && isfinite(u[0]) && isfinite(u[1]) && isfinite(u[2]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) u[i] = fin ? u[i] : 0.0;
+}
+
+__device__ __forceinline__ void finite_or_zero3(double* eta, bool ok) {
+  const bool fin = ok && isfinite(eta[0]) && isfinite(eta[1]) &&
+                   isfinite(eta[2]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) eta[i] = fin ? eta[i] : 0.0;
+}
+
+// third-order correction (reference exp_higher_corr, l.2493)
+__device__ __forceinline__ void exp_higher_corr(const double* Hd,
+                                                const double* Zc,
+                                                const double* ds3,
+                                                const double* v3,
+                                                double* eta) {
+  double u[3];
+  hd_solve_guarded(Hd, ds3, u);
+  const double z1 = Zc[0], z2 = Zc[1], z3 = Zc[2];
+  const double gpsi3 = -z1 / z3;
+  const double gpsi1 = nslog(gpsi3);
+  double psi = z1 * gpsi1 - z1 + z2;
+  const bool psi_ok = psi > 1e-9 * (fabs(z1 * gpsi1) + fabs(z1) + fabs(z2));
+  psi = psi_ok ? psi : 1.0;
+  const double gpsi[3] = {gpsi1, 1.0, gpsi3};
+  const double dpu = dot3(gpsi, u), dpv = dot3(gpsi, v3);
+  const double ipsi = 1.0 / psi, ipsi2 = ipsi * ipsi;
+  const double iz1 = 1.0 / z1, iz3 = 1.0 / z3;
+  const double coef = ((u[0] * (v3[0] * iz1 - v3[2] * iz3) +
+                        u[2] * (z1 * v3[2] * iz3 - v3[0]) * iz3) * psi -
+                       dpu * dpv * 2.0) * (ipsi2 * ipsi);
+  const double e0 = gpsi[0] * coef, e1 = gpsi[1] * coef, e2 = gpsi[2] * coef;
+  const double eta0 =
+      e0 + ((ipsi - iz1 * 2.0) * u[0] * v3[0] * (iz1 * iz1) -
+            u[2] * v3[2] * (iz3 * iz3) * ipsi +
+            dpu * ipsi2 * (v3[0] * iz1 - v3[2] * iz3) +
+            dpv * ipsi2 * (u[0] * iz1 - u[2] * iz3));
+  const double eta2 =
+      e2 + ((z1 * ipsi - 1.0) * u[2] * v3[2] * (iz3 * iz3 * iz3) * 2.0 -
+            (u[2] * v3[0] + u[0] * v3[2]) * (iz3 * iz3) * ipsi +
+            dpu * ipsi2 * (z1 * v3[2] * (iz3 * iz3) - v3[0] * iz3) +
+            dpv * ipsi2 * (z1 * u[2] * (iz3 * iz3) - u[0] * iz3));
+  eta[0] = eta0 * 0.5;
+  eta[1] = e1 * 0.5;
+  eta[2] = eta2 * 0.5;
+  finite_or_zero3(eta, psi_ok);
+}
+
+// third-order correction (reference pow_higher_corr, l.2535)
+__device__ __forceinline__ void pow_higher_corr(const double* Hd,
+                                                const double* Zc, double a,
+                                                const double* ds3,
+                                                const double* v3,
+                                                double* eta) {
+  double u[3];
+  hd_solve_guarded(Hd, ds3, u);
+  const double z1 = Zc[0], z2 = Zc[1], z3 = Zc[2];
+  const double phi = pow_phi_dual(z1, z2, a);
+  double psi = phi - z3 * z3;
+  const bool psi_ok = psi > 1e-9 * (phi + z3 * z3);
+  psi = psi_ok ? psi : 1.0;
+  const double iz1 = 1.0 / z1, iz2 = 1.0 / z2;
+  const double gpsi[3] = {phi * iz1 * (2.0 * a), phi * iz2 * (2.0 - 2.0 * a),
+                          z3 * (-2.0)};
+  const double Hp11 = phi * (iz1 * iz1) * (2.0 * a * (2.0 * a - 1.0));
+  const double Hp12 = phi * (iz1 * iz2) * (4.0 * a * (1.0 - a));
+  const double Hp22 = phi * (iz2 * iz2) * (2.0 * (1.0 - a) * (1.0 - 2.0 * a));
+  const double dpu = dot3(gpsi, u), dpv = dot3(gpsi, v3);
+  const double Hv[3] = {Hp11 * v3[0] + Hp12 * v3[1],
+                        Hp12 * v3[0] + Hp22 * v3[1], v3[2] * (-2.0)};
+  const double uHv = u[0] * Hv[0] + u[1] * Hv[1] + u[2] * Hv[2];
+  const double ipsi = 1.0 / psi, ipsi2 = ipsi * ipsi;
+  const double coef = (uHv * psi - dpu * dpv * 2.0) * (ipsi2 * ipsi);
+  const double coef2 = phi * (u[0] * iz1 - u[1] * iz2) *
+                       (v3[0] * iz1 - v3[1] * iz2) * ipsi *
+                       (4.0 * a * (2.0 * a - 1.0) * (1.0 - a));
+  const double e1 = coef * gpsi[0] -
+                    u[0] * v3[0] * (iz1 * iz1 * iz1) * (2.0 * (1.0 - a)) +
+                    coef2 * iz1 + Hv[0] * dpu * ipsi2;
+  const double e2 = coef * gpsi[1] -
+                    u[1] * v3[1] * (iz2 * iz2 * iz2) * (2.0 * a) -
+                    coef2 * iz2 + Hv[1] * dpu * ipsi2;
+  const double e3 = coef * gpsi[2] + Hv[2] * dpu * ipsi2;
+  const double Hu[3] = {Hp11 * u[0] + Hp12 * u[1], Hp12 * u[0] + Hp22 * u[1],
+                        u[2] * (-2.0)};
+  eta[0] = (e1 + Hu[0] * dpv * ipsi2) * 0.5;
+  eta[1] = (e2 + Hu[1] * dpv * ipsi2) * 0.5;
+  eta[2] = (e3 + Hu[2] * dpv * ipsi2) * 0.5;
+  finite_or_zero3(eta, psi_ok);
+}
+
+// the dual gradient and Hessian of a segment at Z
+__device__ __forceinline__ void ns_grad_hess_dual(int kind, double a,
+                                                  const double* Z, double* g,
+                                                  double* H) {
+  if (kind == SEG_EXP) exp_grad_hess_dual(Z, g, H);
+  else pow_grad_hess_dual(Z, a, g, H);
+}
+
+// f*(z) + f(s) of one segment, BIG where infeasible (reference
+// _nonsym_barrier32, l.2271-2324, in float64)
+__device__ __forceinline__ double nonsym_barrier(int kind, double a,
+                                                 const double* Z,
+                                                 const double* S) {
+  const double z1 = Z[0], z2 = Z[1], z3 = Z[2];
+  const double s1 = S[0], s2 = S[1], s3 = S[2];
+  double bd, bp;
+  bool dfeas, pfeas;
+  if (kind == SEG_EXP) {
+    const double l = nslog(-z3 / (z1 != 0 ? z1 : -1.0));
+    bd = -nslog(-z3 * z1) - nslog(z2 - z1 - z1 * l);
+    dfeas = z3 > 0 && z1 < 0 && z2 - z1 - z1 * l > 0;
+    const double s2s = s2 > 0 ? s2 : 1.0, s3s = s3 > 0 ? s3 : 1.0;
+    const double arg = 1.0 - s1 / s2s - nslog(s2s / s3s);
+    const double w = wright_omega(nmax(arg, 0.0));
+    const double wm = (w - 1.0) * (w - 1.0) / (w != 0 ? w : 1.0);
+    bp = -nslog(wm) - 2.0 * nslog(s2) - nslog(s3) - 3.0;
+    pfeas = s3 > 0 && s2 > 0 && s2 * nslog(s3 / s2s) - s1 > 0;
+  } else {
+    const double resd = pow_phi_dual(z1, z2, a) - z3 * z3;
+    bd = -nslog(resd) - (1.0 - a) * nslog(z1) - a * nslog(z2);
+    dfeas = z1 > 0 && z2 > 0 && resd > 0;
+    bool big;
+    double absf, g[3];
+    const double x = pow_nr(s1, s2, s3, a, big, absf);
+    pow_grad_from(x, big, S, a, g);
+    const double phig = pow_phi_dual(-g[0], -g[1], a);
+    bp = nslog(phig - g[2] * g[2]) + (1.0 - a) * nslog(-g[0]) +
+         a * nslog(-g[1]) - 3.0;
+    pfeas = pow_feas_primal(S, a);
+  }
+  return (dfeas ? bd : BIG) + (pfeas ? bp : BIG);
+}
+#endif  // MK_NONSYM
+
 // ---- the scaled problem of the lane: the owned rows ----
 template <typename R> struct Prob {
   R A[RPT][N], b[RPT], e[RPT], einv[RPT];
@@ -287,9 +819,14 @@ template <typename R> struct Prob {
 };
 
 // Scaling state of the owned rows.  nn rows: w^2 in w, 1/w^2 in sa; soc
-// rows: w, eta in sa, and the segment's head w0 and lam0.
+// rows: w, eta in sa, and the segment's head w0 and lam0.  exp/pow
+// segments (K1b), in every thread: Hs and its 3x3 factor F (l21 l31 l32
+// and the inverse pivots) per slot.
 template <typename R> struct Scale {
   R w[RPT], lam[RPT], sa[RPT], w0[RPT], lam0[RPT];
+#if MK_NONSYM
+  R ns_Hs[NSL][6], ns_F[NSL][6];
+#endif
   bool ident;
 };
 
@@ -344,9 +881,46 @@ __device__ __forceinline__ void Pxv(const MkParams& p, const Prob<R>& pr,
 template <typename R>
 __device__ __forceinline__ bool make_scaling(const Grp& g, const MkParams& p,
                                              const R (&s)[RPT],
-                                             const R (&z)[RPT], Scale<R>& sc) {
+                                             const R (&z)[RPT], R mu,
+                                             int strat, Scale<R>& sc) {
   sc.ident = false;
   bool ok = true;
+#if MK_NONSYM
+  // exp/pow segments: mu and strat choose Hs (Dual: mu H_dual;
+  // PrimalDual: the BFGS form); a breakdown of the 3x3 factor is not fatal
+  // (reference l.1397-1414)
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW) continue;
+    const double a = g.ns_a[u];
+    double S3[3], Z3[3], gd[3], Hd[6], zt[3], pd[6];
+    seg_gather3(g, g.ns_lo[u], s, S3);
+    seg_gather3(g, g.ns_lo[u], z, Z3);
+    bool feas;
+    if (g.ns_kind[u] == SEG_EXP) {
+      feas = exp_feas_dual(Z3) && exp_feas_primal(S3);
+      exp_grad_hess_dual(Z3, gd, Hd);
+      exp_grad_primal(S3, zt);
+    } else {
+      feas = pow_feas_dual(Z3, a) && pow_feas_primal(S3, a);
+      pow_grad_hess_dual(Z3, a, gd, Hd);
+      pow_grad_primal(S3, a, zt);
+    }
+    pd_scaling_3d(Hd, gd, zt, S3, Z3, pd);
+    bool fin = true;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const double h = strat == PRIMAL_DUAL ? pd[k] : Hd[k] * mu;
+      sc.ns_Hs[u][k] = h;
+      fin = fin && isfinite(h);
+    }
+    ok = ok && feas && fin;
+    chol3_fac(sc.ns_Hs[u], sc.ns_F[u]);
+  }
+#else
+  (void)mu;
+  (void)strat;
+#endif
   // per SOC segment: |z1|^2, |s1|^2 and the heads z0, s0
   R v[4][RPT], sums[4][RPT];
 #pragma unroll
@@ -466,6 +1040,14 @@ __device__ __forceinline__ R eps_of(const Grp& g, const MkParams& p,
         mx = nmax(mx, mabs(dg));
       }
     }
+#if MK_NONSYM
+#pragma unroll
+    for (int u = 0; u < NSL; ++u) {
+      if (g.ns_kind[u] == NO_ROW) continue;
+      const R* h = sc.ns_Hs[u];   // h11, h22, h33
+      mx = nmax(nmax(nmax(mx, mabs(h[0])), mabs(h[3])), mabs(h[5]));
+    }
+#endif
     mx = gmax1(g, mx);
   }
   const R maxdiag = nmax(pr.pdiag, mx);
@@ -486,6 +1068,16 @@ __device__ __forceinline__ void hinv_apply(const Grp& g, const MkParams& p,
     cc[0][r] = R(0);
   }
   if (!sc.ident) seg_sum<1>(g, p, cv, cc);
+#if MK_NONSYM
+  R ns[NSL][3];   // F^-1 v on each exp/pow segment
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW || sc.ident) continue;
+    R V3[3];
+    seg_gather3(g, g.ns_lo[u], v, V3);
+    chol3_solve_fac(sc.ns_F[u], V3, ns[u]);
+  }
+#endif
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     if (g.kind[r] == SEG_ZERO) {
@@ -494,6 +1086,14 @@ __device__ __forceinline__ void hinv_apply(const Grp& g, const MkParams& p,
       out[r] = R(0);
     } else if (sc.ident) {
       out[r] = v[r];
+#if MK_NONSYM
+    } else if (g.ns_of[r] >= 0) {
+      R o = R(0);
+#pragma unroll
+      for (int u = 0; u < NSL; ++u)
+        if (u == g.ns_of[r]) o = seg_pick3(g, r, g.ns_lo[u], ns[u]);
+      out[r] = o;
+#endif
     } else if (g.kind[r] == SEG_NN) {
       out[r] = v[r] * sc.sa[r];
     } else {
@@ -517,12 +1117,30 @@ __device__ __forceinline__ void hs_apply(const Grp& g, const MkParams& p,
     cc[0][r] = R(0);
   }
   if (!sc.ident) seg_sum<1>(g, p, cv, cc);
+#if MK_NONSYM
+  R ns[NSL][3];   // Hs v on each exp/pow segment
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW || sc.ident) continue;
+    R V3[3];
+    seg_gather3(g, g.ns_lo[u], v, V3);
+    hmul3(sc.ns_Hs[u], V3, ns[u]);
+  }
+#endif
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     if (g.kind[r] == SEG_ZERO || g.kind[r] == NO_ROW) {
       out[r] = R(0);
     } else if (sc.ident) {
       out[r] = v[r];
+#if MK_NONSYM
+    } else if (g.ns_of[r] >= 0) {
+      R o = R(0);
+#pragma unroll
+      for (int u = 0; u < NSL; ++u)
+        if (u == g.ns_of[r]) o = seg_pick3(g, r, g.ns_lo[u], ns[u]);
+      out[r] = o;
+#endif
     } else if (g.kind[r] == SEG_NN) {
       out[r] = v[r] * sc.w[r];
     } else {
@@ -555,6 +1173,29 @@ __device__ __forceinline__ bool build_kkt(const Grp& g, const MkParams& p,
       cc[j][r] = R(0);
     }
   if (!sc.ident) seg_sum<N>(g, p, cv, cc);
+#if MK_NONSYM
+  // F^-1 of every column of A on the exp/pow segments, at the owned rows
+  R nsh[N][RPT];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    R col[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      col[r] = pr.A[r][j];
+      nsh[j][r] = R(0);
+    }
+#pragma unroll
+    for (int u = 0; u < NSL; ++u) {
+      if (g.ns_kind[u] == NO_ROW || sc.ident) continue;
+      R V3[3], X3[3];
+      seg_gather3(g, g.ns_lo[u], col, V3);
+      chol3_solve_fac(sc.ns_F[u], V3, X3);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if (g.ns_of[r] == u) nsh[j][r] = seg_pick3(g, r, g.ns_lo[u], X3);
+    }
+  }
+#endif
   R part[NT];
 #pragma unroll
   for (int k = 0; k < NT; ++k) part[k] = R(0);
@@ -569,6 +1210,9 @@ __device__ __forceinline__ bool build_kkt(const Grp& g, const MkParams& p,
       if (g.kind[r] == SEG_ZERO) h[j] = a * rinv;
       else if (g.kind[r] == NO_ROW) h[j] = R(0);
       else if (sc.ident) h[j] = a;
+#if MK_NONSYM
+      else if (g.ns_of[r] >= 0) h[j] = nsh[j][r];
+#endif
       else if (g.kind[r] == SEG_NN) h[j] = a * sc.sa[r];
       else {
         const R c = cc[j][r] * R(2);
@@ -761,6 +1405,203 @@ __device__ __forceinline__ bool refined_solve(const Lane<R>& L,
   return ok && isfinite(norme);
 }
 
+#if MK_NONSYM
+// ---- the searches of K1b, shared over the group ----
+//
+// The joint feasibility backtrack of a step length and the barrier
+// backtrack of a Dual lane try alpha_k = alpha_0 * step^k for k = 0, 1, ...
+// (k successive products) and keep the first alpha_k that passes.  The G
+// threads of a lane's group hold its point and direction already, so they
+// try G consecutive candidates side by side: in round r thread t tries
+// k = r G + t, and the lane takes the first candidate of the round that
+// passes (a ballot over the group), or, where none does, exactly what the
+// serial loop leaves: 0 once alpha_k fell below min_terminate_step_length
+// (feasibility), else alpha at the trip limit.  Each thread forms its
+// candidate by the serial loop's products and tests it with the serial
+// loop's code on the same values, so the lane's alpha is the serial
+// loop's, and it reaches every thread by a shuffle from the thread that
+// holds it.  The rounds run while no thread has settled the search, so
+// the group's control flow stays uniform.
+
+// this group's bits of a ballot, thread t at bit t
+__device__ __forceinline__ unsigned group_ballot(const Grp& g, bool b) {
+  const unsigned all = __ballot_sync(g.mask, b);
+  return G == 32 ? all
+                 : (all >> ((threadIdx.x % 32) / G * G)) & ((1u << G) - 1u);
+}
+
+// the thread of a round whose candidate the lane takes
+__device__ __forceinline__ int first_hit(unsigned hits) {
+#if MK_WRONG_SEARCH
+  return 31 - __clz(hits);   // the wrong kernel: the last passing trial
+#else
+  return __ffs(hits) - 1;
+#endif
+}
+
+// a lane's exp/pow segments at its point and along its direction, in
+// every thread
+struct NsPoint {
+  double z[NSL][3], s[NSL][3], dz[NSL][3], ds[NSL][3];
+};
+
+__device__ __forceinline__ void ns_point(const Grp& g, const double (&z)[RPT],
+                                         const double (&s)[RPT],
+                                         const double (&dz)[RPT],
+                                         const double (&ds)[RPT],
+                                         NsPoint& pt) {
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW) continue;
+    seg_gather3(g, g.ns_lo[u], z, pt.z[u]);
+    seg_gather3(g, g.ns_lo[u], s, pt.s[u]);
+    seg_gather3(g, g.ns_lo[u], dz, pt.dz[u]);
+    seg_gather3(g, g.ns_lo[u], ds, pt.ds[u]);
+  }
+}
+
+// (z + a dz, s + a ds) strictly inside every exp/pow segment's dual and
+// primal cone
+__device__ __forceinline__ bool ns_feasible(const Grp& g, const NsPoint& pt,
+                                            double a) {
+  bool ok = true;
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW) continue;
+    double Z[3], Sv[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Z[i] = pt.z[u][i] + a * pt.dz[u][i];
+      Sv[i] = pt.s[u][i] + a * pt.ds[u][i];
+    }
+    if (g.ns_kind[u] == SEG_EXP)
+      ok = ok && exp_feas_dual(Z) && exp_feas_primal(Sv);
+    else
+      ok = ok && pow_feas_dual(Z, g.ns_a[u]) && pow_feas_primal(Sv, g.ns_a[u]);
+  }
+  return ok;
+}
+
+// the joint feasibility backtrack from alpha0 (reference l.2091-2229)
+__device__ __forceinline__ double feas_search(const Grp& g, const MkParams& p,
+                                              const NsPoint& pt,
+                                              double alpha0) {
+  const double step = p.linesearch_backtrack_step;
+  const double amin = p.min_terminate_step_length;
+  double a = alpha0;
+  bool cut = false;   // some alpha_i, 1 <= i <= k, fell below amin
+  for (int i = 0; i < g.t; ++i) {
+    a = a * step;
+    cut = cut || a < amin;
+  }
+  for (int base = 0;; base += G) {
+    const int k = base + g.t;
+    const bool pass = k < FEAS_TRIPS && !cut && ns_feasible(g, pt, a);
+    const unsigned hits = group_ballot(g, pass);
+    const unsigned cuts = group_ballot(g, cut && k <= FEAS_TRIPS);
+    if (hits) return __shfl_sync(g.mask, a, first_hit(hits), G);
+    if (cuts) return 0.0;
+    if (base + G > FEAS_TRIPS)
+      return __shfl_sync(g.mask, a, FEAS_TRIPS - base, G);
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      a = a * step;
+      cut = cut || a < amin;
+    }
+  }
+}
+
+// the total barrier a step a along the direction, over the lane's whole
+// rows in every thread (megakernel.cu's barrier_at, in its order of sums;
+// reference barrier_at, l.2230-2269, in f32)
+__device__ __forceinline__ double barrier_at(const MkParams& p,
+                                             const double (&zf)[M],
+                                             const double (&sf)[M],
+                                             const double (&dzf)[M],
+                                             const double (&dsf)[M],
+                                             double tau, double kappa,
+                                             double dtau, double dkappa,
+                                             double a) {
+  const double cur_tau = tau + a * dtau, cur_kappa = kappa + a * dkappa;
+  double zs[M], ss[M], sz = 0.0;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    zs[k] = zf[k] + a * dzf[k];
+    ss[k] = sf[k] + a * dsf[k];
+    sz += zs[k] * ss[k];
+  }
+  const double deg1 = (double)(p.degree + 1);
+  const double mu_a = (sz + cur_tau * cur_kappa) / deg1;
+  double bar = deg1 * nslog(mu_a) - nslog(cur_tau) - nslog(cur_kappa);
+#pragma unroll
+  for (int sg = 0; sg < S; ++sg) {
+    const int lo = p.seg_lo[sg], hi = p.seg_hi[sg];
+    const int kind = p.seg_kind[sg];
+    if (kind == SEG_NN) {
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if (i >= lo && i < hi) acc += nslog(ss[i] * zs[i]);
+      bar = bar - acc;
+    } else if (kind == SEG_SOC) {
+      double s1 = 0.0, z1 = 0.0, s0 = 0.0, z0 = 0.0;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i == lo) {
+          s0 = ss[i];
+          z0 = zs[i];
+        }
+        if (i > lo && i < hi) {
+          s1 += ss[i] * ss[i];
+          z1 += zs[i] * zs[i];
+        }
+      }
+      const double rs = s0 * s0 - s1, rz = z0 * z0 - z1;
+      bar = bar + ((rs > 0 && rz > 0) ? -0.5 * nslog(rs * rz) : BIG);
+    } else if (kind == SEG_EXP || kind == SEG_POW) {
+      double Z3[3] = {0.0, 0.0, 0.0}, S3[3] = {0.0, 0.0, 0.0};
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (i == lo + c) {
+            Z3[c] = zs[i];
+            S3[c] = ss[i];
+          }
+      bar = bar + nonsym_barrier(kind, p.seg_alpha[sg], Z3, S3);
+    }
+  }
+  return bar;
+}
+
+// the barrier backtrack of a Dual lane from alpha0 (reference
+// src/solver.jl:416-419)
+__device__ __forceinline__ double barrier_search(
+    const Grp& g, const MkParams& p, const double (&z)[RPT],
+    const double (&s)[RPT], const double (&dz)[RPT], const double (&ds)[RPT],
+    double tau, double kappa, double dtau, double dkappa, double alpha0) {
+  double zf[M], sf[M], dzf[M], dsf[M];
+  gather_m(g, z, zf);
+  gather_m(g, s, sf);
+  gather_m(g, dz, dzf);
+  gather_m(g, ds, dsf);
+  const double step = p.linesearch_backtrack_step;
+  const int limit = p.linesearch_max_iter > 0 ? p.linesearch_max_iter : 0;
+  double a = alpha0;
+  for (int i = 0; i < g.t; ++i) a = a * step;
+  for (int base = 0;; base += G) {
+    const int k = base + g.t;
+    const bool pass = k < limit && barrier_at(p, zf, sf, dzf, dsf, tau, kappa,
+                                              dtau, dkappa, a) < 1.0;
+    const unsigned hits = group_ballot(g, pass);
+    if (hits) return __shfl_sync(g.mask, a, first_hit(hits), G);
+    if (base + G > limit) return __shfl_sync(g.mask, a, limit - base, G);
+#pragma unroll
+    for (int i = 0; i < G; ++i) a = a * step;
+  }
+}
+#endif  // MK_NONSYM
+
 // ---- step length (reference step_length / soc_step_len) ----
 template <typename R>
 __device__ __forceinline__ R soc_step(R x0, R y0, R yy, R xy, R xx) {
@@ -822,7 +1663,16 @@ __device__ __forceinline__ R step_length(const Grp& g, const MkParams& p,
       alpha = nmin(alpha, soc_step(sm[5][r], sm[6][r], sm[7][r], sm[8][r], sm[9][r]));
     }
   }
-  return nmin(amax, gmin1(g, alpha));
+  alpha = nmin(amax, gmin1(g, alpha));
+#if MK_NONSYM
+  // capped, then backtracked jointly over the exp/pow segments
+  // (reference l.2091-2229)
+  alpha = nmin(alpha, R(STEP_CAP));
+  NsPoint pt;
+  ns_point(g, z, s, dz, ds, pt);
+  alpha = feas_search(g, p, pt, alpha);
+#endif
+  return alpha;
 }
 
 // ---- predictor-corrector pieces ----
@@ -842,19 +1692,46 @@ __device__ __forceinline__ void affine_ds(const Grp& g, const MkParams& p,
     if (g.kind[r] == SEG_NN) out[r] = sc.lam[r] * sc.lam[r];
     else if (g.kind[r] == SEG_SOC)
       out[r] = g.head[r] ? sm[0][r] : sc.lam0[r] * sc.lam[r] * R(2);
+#if MK_NONSYM
+    else if (g.ns_of[r] >= 0) out[r] = s[r];
+#endif
     else out[r] = R(0);
   }
 }
 
 // W dz - ... : sigma_mu shift of the combined step (reference
-// combined_ds_shift): nn dz ds - sigma mu; soc (W^-1 ds) o (W dz) - sigma mu e
+// combined_ds_shift): nn dz ds - sigma mu; soc (W^-1 ds) o (W dz) - sigma mu
+// e; exp/pow sigma mu g(z) - eta, eta the third-order correction, with the
+// dual gradient and Hessian at z computed again (as make_scaling computed
+// them, to the bit)
 template <typename R>
 __device__ __forceinline__ void combined_ds_shift(const Grp& g,
                                                   const MkParams& p,
                                                   const Scale<R>& sc,
                                                   const R (&dz)[RPT],
                                                   const R (&ds)[RPT],
+                                                  const R (&z)[RPT],
                                                   R sigma_mu, R (&out)[RPT]) {
+#if MK_NONSYM
+  R ns[NSL][3];
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    if (g.ns_kind[u] == NO_ROW) continue;
+    double Z3[3], DS3[3], DZ3[3], gd[3], Hd[6], eta[3];
+    seg_gather3(g, g.ns_lo[u], z, Z3);
+    seg_gather3(g, g.ns_lo[u], ds, DS3);
+    seg_gather3(g, g.ns_lo[u], dz, DZ3);
+    ns_grad_hess_dual(g.ns_kind[u], g.ns_a[u], Z3, gd, Hd);
+    if (g.ns_kind[u] == SEG_EXP)
+      exp_higher_corr(Hd, Z3, DS3, DZ3, eta);
+    else
+      pow_higher_corr(Hd, Z3, g.ns_a[u], DS3, DZ3, eta);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) ns[u][i] = gd[i] * sigma_mu - eta[i];
+  }
+#else
+  (void)z;
+#endif
   R v[4][RPT], sm[4][RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
@@ -904,6 +1781,15 @@ __device__ __forceinline__ void combined_ds_shift(const Grp& g,
     else if (g.kind[r] == SEG_SOC)
       out[r] = g.head[r] ? sm2[0][r] - sigma_mu
                          : sm2[1][r] * wdz[r] + sm2[2][r] * wids[r];
+#if MK_NONSYM
+    else if (g.ns_of[r] >= 0) {
+      R o = R(0);
+#pragma unroll
+      for (int u = 0; u < NSL; ++u)
+        if (u == g.ns_of[r]) o = seg_pick3(g, r, g.ns_lo[u], ns[u]);
+      out[r] = o;
+    }
+#endif
     else out[r] = R(0);
   }
 }
@@ -933,6 +1819,10 @@ __device__ __forceinline__ void ds_from_dz_offset(const Grp& g,
   for (int r = 0; r < RPT; ++r) {
     if (g.kind[r] == SEG_NN) {
       out[r] = dsv[r] / z[r];
+#if MK_NONSYM
+    } else if (g.ns_of[r] >= 0) {
+      out[r] = dsv[r];
+#endif
     } else if (g.kind[r] == SEG_SOC) {
       const R eta = sc.sa[r];
       const R z0 = sm[3][r], ds0 = sm[4][r];
@@ -1132,16 +2022,17 @@ __device__ __forceinline__ R max_step(R tau, R kappa, R dtau, R dkappa) {
   return nmin(nmin(a_tau, a_kap), R(1));
 }
 
-// One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977)
+// One Mehrotra predictor-corrector step (reference pc_step, l.2839-2977);
+// on a Dual lane (K1b) the step is then backtracked to a barrier below 1
 template <typename R>
 __device__ __forceinline__ void pc_step(const Lane<R>& L, const Cfg<R>& cf,
                                         const R (&x)[CPT], const R (&z)[RPT],
                                         const R (&s)[RPT], R tau, R kappa,
                                         R tinv, const Res<R>& res, R mu,
-                                        int iters1, Step<R>& st) {
+                                        int iters1, int strat, Step<R>& st) {
   Scale<R> sc;
   Kkt<R> kk;
-  const bool ok_scale = make_scaling(L.g, L.p, s, z, sc);
+  const bool ok_scale = make_scaling(L.g, L.p, s, z, mu, strat, sc);
   const R eps = eps_of(L.g, L.p, L.pr, sc);
   const bool ok_chol = build_kkt(L.g, L.p, L.pr, sc, eps, kk);
   bool ok_kkt = ok_scale && ok_chol;
@@ -1193,7 +2084,7 @@ __device__ __forceinline__ void pc_step(const Lane<R>& L, const Cfg<R>& cf,
   R dzm[RPT], shift[RPT];
 #pragma unroll
   for (int k = 0; k < RPT; ++k) dzm[k] = dza[k] * m_corr;
-  combined_ds_shift(L.g, L.p, sc, dzm, dsa, sigma_mu, shift);
+  combined_ds_shift(L.g, L.p, sc, dzm, dsa, z, sigma_mu, shift);
 #pragma unroll
   for (int k = 0; k < RPT; ++k) aff[k] = aff[k] + shift[k];   // comb_s
   const R one_m_sigma = R(1) - sigma;
@@ -1215,6 +2106,11 @@ __device__ __forceinline__ void pc_step(const Lane<R>& L, const Cfg<R>& cf,
                          max_step(tau, kappa, st.dtau, st.dkappa));
   st.sigma = sigma;
   st.alpha = st.alpha * R(L.p.max_step_fraction);
+#if MK_NONSYM
+  if (strat == DUAL)
+    st.alpha = barrier_search(L.g, L.p, z, s, st.dz, st.ds, tau, kappa,
+                              st.dtau, st.dkappa, st.alpha);
+#endif
 }
 
 // ---- initial point (reference shift_to_interior, l.2015), on the
@@ -1372,12 +2268,13 @@ __device__ __forceinline__ void ruiz(const Grp& g, const MkParams& p,
     }
     cf = cf * ctmp;
   }
-  // cone rectification: the mean on each SOC segment, summed in row order
+  // cone rectification: the mean on each segment that is not elementwise
+  // (soc, exp, pow), summed in row order
   float full[M];
   gather_m(g, ef, full);
 #pragma unroll
   for (int sg = 0; sg < S; ++sg) {
-    if (p.seg_kind[sg] != SEG_SOC) continue;
+    if (p.seg_kind[sg] == SEG_ZERO || p.seg_kind[sg] == SEG_NN) continue;
     const int lo = p.seg_lo[sg], hi = p.seg_hi[sg];
     float acc = 0.0f;
 #pragma unroll
@@ -1483,6 +2380,29 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
 
   // ---- initial point (reference l.3089-3157) ----
   Carry cy;
+#if MK_NONSYM
+  // the unit point of every cone, x = 0
+#pragma unroll
+  for (int cc = 0; cc < CPT; ++cc) cy.x[cc] = 0.0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    double v = 0.0;
+    if (g.kind[r] == SEG_NN || (g.kind[r] == SEG_SOC && g.head[r])) v = 1.0;
+#pragma unroll
+    for (int u = 0; u < NSL; ++u) {
+      if (u != g.ns_of[r]) continue;
+      const int off = row_of(g, r) - g.ns_lo[u];
+      if (g.ns_kind[u] == SEG_EXP)
+        v = off == 0 ? -1.051383945322714
+                     : off == 1 ? 0.556409619469370 : 1.258967884768947;
+      else
+        v = off == 0 ? sqrt(1.0 + g.ns_a[u])
+                     : off == 1 ? sqrt(2.0 - g.ns_a[u]) : 0.0;
+    }
+    cy.z[r] = v;
+    cy.s[r] = v;
+  }
+#else
   {
     Scale<double> id;
     id.ident = true;
@@ -1516,6 +2436,7 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
     shift_to_interior(g, p, cy.s, true);
     shift_to_interior(g, p, cy.z, false);
   }
+#endif
   cy.tau = cy.kappa = cy.ptau = cy.pkap = 1.0;
 #pragma unroll
   for (int cc = 0; cc < CPT; ++cc) cy.px[cc] = cy.x[cc];
@@ -1525,7 +2446,10 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
   cy.mu_f = BIG;
   cy.alpha_f = 0.0;
   cy.sigma_f = 1.0;
-  int iters = 0, status = UNSOLVED;
+  int iters = 0, status = UNSOLVED, strat = 0;
+#if MK_NONSYM
+  strat = PRIMAL_DUAL;
+#endif
   const double inv_deg1 = 1.0 / (p.degree + 1);
   const double sr = p.stall_ratio;
 
@@ -1560,6 +2484,7 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
     if (status2 != UNSOLVED) {
       // terminated at the top of the loop; roll back on insufficient
       // progress (src/solver.jl:453-472)
+      bool restart = false;
       if (status2 == INSUFFICIENT_PROGRESS) {
 #pragma unroll
         for (int cc = 0; cc < CPT; ++cc) cy.x[cc] = cy.px[cc];
@@ -1567,20 +2492,46 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
         for (int r = 0; r < RPT; ++r) { cy.z[r] = cy.pz[r]; cy.s[r] = cy.ps[r]; }
         cy.tau = cy.ptau;
         cy.kappa = cy.pkap;
+#if MK_NONSYM
+        // a PrimalDual lane downgrades to Dual and starts the next trip
+        // from the restored iterate (reference l.3354-3383)
+        if (strat == PRIMAL_DUAL) {
+          strat = DUAL;
+          restart = true;
+        }
+#endif
       }
+      if (restart) continue;
       status = status2;
       break;
     }
     const int iters1 = iters + 1;
     Step<double> stp;
-    pc_step(L, cfg, cy.x, cy.z, cy.s, tau, kappa, tinv, res, mu, iters1, stp);
+    pc_step(L, cfg, cy.x, cy.z, cy.s, tau, kappa, tinv, res, mu, iters1,
+            strat, stp);
 
     // numerical-error and small-step checkpoints (reference l.3391-3430)
     int fail_status = stp.kkt_fail ? NUMERICAL_ERROR : UNSOLVED;
-    const bool small_term = stp.alpha <= nmax(0.0, p.min_terminate_step_length);
+    bool small_term = stp.alpha <= nmax(0.0, p.min_terminate_step_length);
+#if MK_NONSYM
+    // a PrimalDual lane downgrades to Dual instead of failing
+    const bool can_dg = strat == PRIMAL_DUAL;
+    if (stp.kkt_fail && can_dg) fail_status = UNSOLVED;
+    const bool small_switch =
+        can_dg && !stp.kkt_fail && stp.alpha < p.min_switch_step_length;
+    small_term = small_term && !small_switch;
+    const bool dg_fail = (stp.kkt_fail && can_dg) || small_switch;
+#endif
     if (fail_status == UNSOLVED && !stp.kkt_fail && small_term)
       fail_status = INSUFFICIENT_PROGRESS;
-    const bool take = !stp.kkt_fail && !small_term;
+    bool take = !stp.kkt_fail && !small_term;
+#if MK_NONSYM
+    if (dg_fail) {
+      take = false;
+      strat = DUAL;
+      fail_status = UNSOLVED;
+    }
+#endif
     const double a = take ? stp.alpha : 0.0;
     if (take) {
 #pragma unroll
@@ -1653,7 +2604,7 @@ __device__ __forceinline__ void solve_lane(const Grp& g, const MkParams& p,
     for (int i = 0; i < 13; ++i) o[(long long)(N + 2 * M + i) * B] = scalars[i];
     ints[lane] = status;
     ints[B + lane] = iters;
-    ints[2 * B + lane] = 0;   // PrimalDual: the only strategy here
+    ints[2 * B + lane] = strat;   // PrimalDual (0) but on a K1b lane
   }
 }
 
@@ -1682,6 +2633,38 @@ mk_kernel(In P, In q, In A, In b, long long B,
         g.head[r] = k == prm.seg_lo[sg];
       }
   }
+#if MK_NONSYM
+  // the exp/pow segments in order, one slot each
+#pragma unroll
+  for (int u = 0; u < NSL; ++u) {
+    g.ns_kind[u] = NO_ROW;
+    g.ns_lo[u] = 0;
+    g.ns_a[u] = 0.0;
+  }
+  int used = 0;
+#pragma unroll
+  for (int sg = 0; sg < S; ++sg) {
+    const int kind = prm.seg_kind[sg];
+    if (kind != SEG_EXP && kind != SEG_POW) continue;
+#pragma unroll
+    for (int u = 0; u < NSL; ++u)
+      if (u == used) {
+        g.ns_kind[u] = kind;
+        g.ns_lo[u] = prm.seg_lo[sg];
+        g.ns_a[u] = prm.seg_alpha[sg];
+      }
+    ++used;
+  }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = row_of(g, r);
+    g.ns_of[r] = -1;
+#pragma unroll
+    for (int u = 0; u < NSL; ++u)
+      if (g.ns_kind[u] != NO_ROW && k >= g.ns_lo[u] && k < g.ns_lo[u] + 3)
+        g.ns_of[r] = u;
+  }
+#endif
   solve_lane(g, prm, P, q, A, b, lane, B, vals, ints);
 }
 

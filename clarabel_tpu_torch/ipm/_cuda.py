@@ -3,8 +3,11 @@
 Single-phase zero/nn/SOC layouts (K1a) launch the group kernel of
 `csrc/megakernel_group.cu`, one lane per group of threads, up to
 GROUP_LANES_PER_SM lanes for each SM of the card, and `csrc/megakernel.cu`,
-one lane per thread, above that; every other layout (K1b-K1e) launches
-`csrc/megakernel.cu` (`variant_of`).  Both sources
+one lane per thread, above that; single-phase layouts with exp or pow
+segments and no genpow or PSD segment (K1b) launch the group kernel up to
+NONSYM_GROUP_LANES_PER_SM lanes an SM and `csrc/megakernel.cu` above; every
+other layout (K1c-K1e) launches `csrc/megakernel.cu` (`variant_of`).  Both
+sources
 have the same C interface and MkParams.  The kernel has compile-time
 sizes, so there is one library per problem shape and source: n, m, the
 number of cone segments, three flags that compile a cone family's code in
@@ -145,32 +148,47 @@ def shape_of(spec) -> Shape:
 # source reads: it names the library)
 Variant = Tuple[int, int, int, int, int, int, int, int]
 
-# The group kernel runs while the batch has at most this many lanes for
-# each SM of the card: up to 54.3 lanes an SM it was faster on every batch
-# (bench, lp, qp_eq), at 62.1 slower on lp (the H100; PERF.md section 5,
-# `tools/megakernel_probe.py sweep --parts gsweep`).
+# The group kernel runs K1a while the batch has at most this many lanes
+# for each SM of the card: up to 54.3 lanes an SM it was faster on every
+# batch (bench, lp, qp_eq), at 62.1 slower on lp (the H100; PERF.md section
+# 5, `tools/megakernel_probe.py sweep --parts gsweep`).
 GROUP_LANES_PER_SM = 54
+# ... and K1b (exp and pow segments) up to this many (None would mean at
+# every B): with G = 8 and up to 255 registers a thread an SM holds 8 warps,
+# 32 lanes, in one wave; at 32.0 lanes an SM the group kernel was faster on
+# exp, pow and switch, at 33.9 slower on exp and pow (the H100; PERF.md
+# section 5, `tools/megakernel_probe.py sweep --parts nsweep`).
+NONSYM_GROUP_LANES_PER_SM = 32
 
 
 def group_eligible(shape: Shape) -> bool:
-    """Single-phase zero/nn/SOC layouts: the layouts
-    `csrc/megakernel_group.cu` takes (K1e, the first phase, stays in
-    `csrc/megakernel.cu`)."""
-    return not any(shape[3:7])
+    """Single-phase layouts without genpow or PSD segments (K1a, K1b): the
+    layouts `csrc/megakernel_group.cu` takes (K1c, K1d and K1e, the first
+    phase, stay in `csrc/megakernel.cu`)."""
+    return not any(shape[4:7])
+
+
+def group_cap(shape: Shape):
+    """Lanes an SM up to which an eligible shape takes the group kernel
+    (None: at every batch size)."""
+    return NONSYM_GROUP_LANES_PER_SM if shape[3] else GROUP_LANES_PER_SM
 
 
 def variant_of(shape: Shape, B: int, sms: int) -> Variant:
     """The library a launch over B lanes on a card with `sms` SMs takes:
-    the group kernel for an eligible shape up to GROUP_LANES_PER_SM lanes
-    an SM, else the one-lane-per-thread kernel."""
-    grp = group_eligible(shape) and B <= GROUP_LANES_PER_SM * sms
+    the group kernel for an eligible shape up to its `group_cap` lanes an
+    SM, else the one-lane-per-thread kernel."""
+    cap = group_cap(shape)
+    grp = group_eligible(shape) and (cap is None or B <= cap * sms)
     return tuple(shape) + (int(grp),)
 
 
 def variants_of(shape: Shape):
     """Every library a shape may launch."""
-    return [tuple(shape) + (g,) for g in ((0, 1) if group_eligible(shape)
-                                          else (0,))]
+    if not group_eligible(shape):
+        return [tuple(shape) + (0,)]
+    return [tuple(shape) + (g,) for g in ((1,) if group_cap(shape) is None
+                                          else (0, 1))]
 
 
 def source_for(variant) -> str:

@@ -252,23 +252,24 @@ def _replay(step, active_of, carry: Carry) -> Carry:
     place and reduces the next pass's loop condition to one flag, which the
     host reads once per pass.  Inner loops inside the pass run to their
     caps (`trips.run_trips`); their lane masks keep every lane's bits.  A
-    replay launches what the capture recorded, so K2's launch count grows
+    replay launches what the capture recorded, so K2's launch counts grow
     by the launches one pass records."""
     if not bool(active_of(carry).any()):
         return carry
     static = Carry(*(t.clone() for t in carry))
     k2 = batched_ldl.kernel
-    before = k2.launches
+    before = (k2.launches, k2.rows_launches)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for dst, src in zip(static, step(static)):
             dst.copy_(src)
         flag = active_of(static).any()
-    per_pass = k2.launches - before
-    k2.launches = before
+    per_pass = (k2.launches - before[0], k2.rows_launches - before[1])
+    k2.launches, k2.rows_launches = before
     while True:
         graph.replay()
-        k2.launches += per_pass
+        k2.launches += per_pass[0]
+        k2.rows_launches += per_pass[1]
         if not bool(flag):
             return static
 

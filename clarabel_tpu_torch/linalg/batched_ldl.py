@@ -4,11 +4,13 @@ The reference (`clarabel_tpu/linalg/pallas_ldl.py`) runs this as a Pallas
 kernel over 128-instance lane blocks, reached from `vmap` through a JAX
 primitive with a batching rule.  The port batches explicitly, so neither
 the lane padding nor the primitive is needed: `batched_ldl_inverse` takes
-the whole (B, N, N) batch.  On CUDA tensors it launches the hand-written
-kernel (`csrc/ldl_inverse.cu`, one warp per instance) and counts the
-launch; on CPU tensors it runs `ldl_inverse_plain`, the same column
-elimination in PyTorch.  A failed build or launch raises; nothing falls
-back.
+the whole (B, N, N) batch.  On CUDA tensors it launches a hand-written
+kernel and counts the launch: for N ≤ ROWS_MAX_N `csrc/ldl_inverse_rows.cu`,
+built once per N with the rows of an instance in registers, and above that
+`csrc/ldl_inverse.cu`, one build for every N up to 80 with the instance in
+shared memory (both one warp per instance, with the same C interface).  On
+CPU tensors it runs `ldl_inverse_plain`, the same column elimination in
+PyTorch.  A failed build or launch raises; nothing falls back.
 
 The solve with L⁻¹ (two batched products and a scale,
 `linalg.ldl.ldl_solve_via_inverse`) stays as torch ops, as the JAX package
@@ -16,12 +18,14 @@ computes it outside Pallas too.
 """
 
 import ctypes
+import os
 
 import torch
 
 from ..cuda_build import CudaLibrary
 
 MAX_N = 80   # the kernel's shared-memory plan; the route rule uses N <= 80
+ROWS_MAX_N = 32   # one lane a row: csrc/ldl_inverse_rows.cu takes N <= 32
 
 
 def ldl_inverse_plain(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
@@ -50,12 +54,27 @@ def ldl_inverse_plain(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
 
 
 class LdlInverseKernel(CudaLibrary):
-    """The CUDA kernel's library (one build serves every N up to 80) and
-    the launch count."""
+    """The CUDA kernels' libraries and the launch counts.  A variant is
+    (N,) for the rows kernel of `csrc/ldl_inverse_rows.cu`, built for that
+    N alone (`-DK2_N=N`, so N is in the library's name), or () for
+    `csrc/ldl_inverse.cu`, whose one build serves every N up to 80.
+    `launches` counts every launch, `rows_launches` those of the rows
+    kernel."""
 
     def __init__(self):
-        super().__init__("ldl_inverse.cu")
+        super().__init__("ldl_inverse.cu", macros=("K2_N",), tags=("n",))
         self.launches = 0
+        self.rows_launches = 0
+
+    def source_for(self, variant=()) -> str:
+        return (os.path.join(os.path.dirname(self.source),
+                             "ldl_inverse_rows.cu") if variant
+                else self.source)
+
+    def variant(self, n: int):
+        """The library an (B, n, n) batch launches: the rows kernel for
+        n <= ROWS_MAX_N, the shared-memory kernel above."""
+        return (n,) if n <= ROWS_MAX_N else ()
 
     def bind(self, lib: ctypes.CDLL, variant) -> None:
         vp = ctypes.c_void_p
@@ -65,9 +84,10 @@ class LdlInverseKernel(CudaLibrary):
         lib.ldl_inverse.restype = ctypes.c_int
         lib.ldl_max_n.argtypes = []
         lib.ldl_max_n.restype = ctypes.c_int
-        if lib.ldl_max_n() != MAX_N:
-            raise RuntimeError(f"{self.lib_path()} takes N up to "
-                               f"{lib.ldl_max_n()}, not {MAX_N}")
+        want = variant[0] if variant else MAX_N
+        if lib.ldl_max_n() != want:
+            raise RuntimeError(f"{self.lib_path(variant)} takes N up to "
+                               f"{lib.ldl_max_n()}, not {want}")
 
     def __call__(self, K, signs, dyn_eps, dyn_delta, dynamic_enable):
         """Launch over the batch; returns (Linv, d, ok) on K's device."""
@@ -90,7 +110,8 @@ class LdlInverseKernel(CudaLibrary):
         ok = torch.empty((B,), dtype=torch.bool, device=K.device)
         if B == 0:
             return Linv, d, ok
-        lib = self.load()
+        variant = self.variant(n)
+        lib = self.load(variant)
         with torch.cuda.device(K.device):
             stream = torch.cuda.current_stream(K.device).cuda_stream
             rc = lib.ldl_inverse(K.data_ptr(), signs.data_ptr(), n, B,
@@ -100,6 +121,7 @@ class LdlInverseKernel(CudaLibrary):
         if rc != 0:
             raise RuntimeError(f"ldl_inverse launch failed: CUDA error {rc}")
         self.launches += 1
+        self.rows_launches += int(bool(variant))
         return Linv, d, ok
 
 

@@ -628,3 +628,82 @@ def test_loop_graph_replay_matches_eager_on_the_card(path, monkeypatch):
         assert got.dtype == want.dtype and got.shape == want.shape, key
         assert np.array_equal(np.ascontiguousarray(got).view(np.uint8),
                               np.ascontiguousarray(want).view(np.uint8)), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(2, 3), (6, 13), (10, 22)])
+def test_ldl_rows_kernel_matches_plain_version_on_the_card(n, m):
+    """K2's rows kernel (csrc/ldl_inverse_rows.cu, one library per N) at
+    N = 5, 19 and 32, against its plain version, and on every ok lane bit
+    for bit against the shared-memory kernel (csrc/ldl_inverse.cu) that
+    it replaces there: both update each entry by the same expression in
+    the same order of j."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    K, signs = bench_data.make_kkts(1000, n, m, seed=n)
+    K = torch.tensor(K, dtype=torch.float32, device="cuda")
+    signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
+    before = batched_ldl.kernel.rows_launches
+    Linv, d, ok = batched_ldl.batched_ldl_inverse(K, signs)
+    torch.cuda.synchronize()
+    assert batched_ldl.kernel.rows_launches == before + 1
+    pLinv, pd, pok = batched_ldl.ldl_inverse_plain(K, signs)
+    assert ok.all() and torch.equal(ok, pok)
+    scale = pLinv.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1.0)
+    assert ((Linv - pLinv).abs() / scale).max() < 1e-4
+    assert ((d - pd).abs() / pd.abs().clamp_min(1.0)).max() < 1e-4
+
+    class Shared(batched_ldl.LdlInverseKernel):
+        def variant(self, n):
+            return ()
+
+    sLinv, sd, sok = Shared()(K, signs, 1e-13, 2e-7, True)
+    assert torch.equal(ok, sok)
+    assert torch.equal(Linv[ok], sLinv[ok]) and torch.equal(d[ok], sd[ok])
+    # lanes with an infinite, a NaN and a huge entry: the rows kernel runs
+    # them again with the full-row update, and every lane's bits agree
+    K[1, -1, 0] = K[1, 0, -1] = float("inf")
+    K[2, -1, 1] = K[2, 1, -1] = float("nan")
+    K[3, 0, 0], K[3, -1, 0], K[3, 0, -1] = 1e-30, 1e30, 1e30
+    got = batched_ldl.batched_ldl_inverse(K, signs)
+    want = Shared()(K, signs, 1e-13, 2e-7, True)
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["exp", "pow", "switch"])
+def test_nonsym_kernels_hold_their_bars_on_the_card(name):
+    """K1b from each source, the group kernel (csrc/megakernel_group.cu)
+    and one lane per thread (csrc/megakernel.cu), on chip_smoke.py's
+    batches at NONSYM_B = 4096 held to its plain version by chip_smoke.py's
+    NONSYM_BARS; BatchSolver.solve at 256 lanes launches the source
+    `_cuda.variant_of` names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    import chip_smoke as cs
+    B = cs.NONSYM_B
+    cone = ctt.PowerConeT(0.6) if name == "pow" else ctt.ExponentialConeT()
+    make = (bench_data.make_pow_batch if name == "pow"
+            else bench_data.make_exp_batch)
+    st = (ctt.Settings(min_switch_step_length=cs.SWITCH)
+          if name == "switch" else ctt.Settings())
+    P, q, A, b = (a[:B] for a in make(max(cs.NONSYM_THROUGHPUT)
+                                      if name != "pow" else B))
+    bs = ctt.BatchSolver([ctt.NonnegativeConeT(2), cone], 3, st)
+    spec = bs._mega_fn.spec
+    _, flats = megakernel.prepare(P, q, A, b, spec, "cuda")
+    pv, pi = megakernel_ref.mega_solve_plain(*flats, spec, B)
+    p = cs.outputs(pv, pi, spec)
+    for group in (0, 1):
+        kern = cs.pinned_kernel(group)
+        k = cs.outputs(*kern(*flats, spec, B), spec)
+        r = cs.readings(k, p, P, q, A, b)
+        assert not cs.violations(r, cs.NONSYM_BARS[name], B), cs.describe(r)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variant = _cuda.variant_of(_cuda.shape_of(spec), 256, sms)
+    before = (_cuda.megakernel.launches, _cuda.megakernel.group_launches)
+    bs.solve(*(a[:256] for a in (P, q, A, b)))
+    assert _cuda.megakernel.launches == before[0] + 1
+    assert _cuda.megakernel.group_launches == before[1] + variant[7]

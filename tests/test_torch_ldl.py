@@ -9,6 +9,8 @@ Bars: float32 L⁻¹ and d within 1e-4 (the bar of
 tests/test_pallas_kernel.py, which holds the Pallas kernel to the loop
 factor); float64 within 1e-12 (two orders of summation at N = 12)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,39 @@ def test_the_wrapper_refuses_cpu_and_mixed_devices():
     with pytest.raises(ValueError, match="mixed devices"):
         batched_ldl.batched_ldl_inverse(K, signs.to("meta"))
     assert batched_ldl.kernel.launches == before == 0
+
+
+@pytest.mark.parametrize("n", [1, 5, 19, 32, 33, 80])
+def test_the_wrapper_picks_its_kernel_by_n(n):
+    """N <= 32 takes the rows kernel, built for that N alone: N enters its
+    build (-DK2_N) and its library's name; above, the shared-memory kernel,
+    one build for every N up to 80."""
+    kern = batched_ldl.kernel
+    variant = kern.variant(n)
+    path = os.path.basename(kern.lib_path(variant))
+    if n <= batched_ldl.ROWS_MAX_N:
+        assert variant == (n,)
+        assert os.path.basename(kern.source_for(variant)) == \
+            "ldl_inverse_rows.cu"
+        assert path.startswith(f"ldl_inverse_rows_n{n}_")
+        assert kern.macros == ("K2_N",)
+    else:
+        assert variant == ()
+        assert os.path.basename(kern.source_for(variant)) == "ldl_inverse.cu"
+        assert path.startswith("ldl_inverse_") and "_n" not in path
+    others = {kern.lib_path(kern.variant(k)) for k in (5, 19, 32)}
+    assert len(others) == 3     # one library per N
+
+
+def test_the_wrapper_refuses_cpu_tensors_at_every_n():
+    for n in (5, 19, 80):
+        K = torch.zeros((2, n, n))
+        signs = torch.ones(n)
+        with pytest.raises(ValueError, match="CUDA"):
+            batched_ldl.kernel(K, signs, 1e-13, 2e-7, True)
+        with pytest.raises(ValueError, match="mixed devices"):
+            batched_ldl.batched_ldl_inverse(K, signs.to("meta"))
+    assert batched_ldl.kernel.launches == batched_ldl.kernel.rows_launches == 0
 
 
 def test_f64_ldl_matches_the_reference():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Timing probes of the CUDA megakernel (K1a-K1e) on one NVIDIA card.
 
-Two modes, each run from the root of a checkout on a machine with a card:
+Its modes, each run from the root of a checkout on a machine with a card:
 
     python3 tools/megakernel_probe.py sweep [--src DIR] [--parts P] [--only RE]
     python3 tools/megakernel_probe.py compare --parent DIR [--only RE]
@@ -26,7 +26,10 @@ shape below, and timed with CUDA events:
 runs each on the batches of chip_smoke.py phases [2]-[4] and [8]-[11] at
 B = 4096 and 131072 in turns (parent, change, change, parent), and checks
 that statuses, iteration counts, strategies, phase-1 counts and every
-output value are equal lane for lane.  It fails when they are not.
+output value are equal lane for lane.  It fails when they are not where
+this checkout launches megakernel.cu, the parent's source; where it
+launches the group kernel it counts the lanes whose status, iterations or
+x differ.
 
 `sweep --parts bsweep` times K1a and K1e on bench at every B of SIZES
 with the library's own launch and prints the warps each SM holds there.
@@ -49,6 +52,19 @@ k trips (`trips.TRIPS_PER_CHECK` set to each of 1, 2 and 4 but its own,
 eager too), the order of turns run --turns times.  Statuses and iterations
 must equal the parent's lane for lane.  Then the genpow rescue at
 B = 131072, this checkout only.
+
+`sweep --parts nsweep [--sizes B,B,...] [--turns T]` times K1b: this
+checkout's one-lane-per-thread kernel against its group kernel with G = 2,
+4 and 8 (patched copies under build/) on exp, pow and switch, in turns,
+with their ptxas lines and SASS counts, and holds each to chip_smoke.py's
+`NONSYM_BARS` at B = 4096: where the group size of exp/pow layouts and
+`ipm/_cuda.NONSYM_GROUP_LANES_PER_SM` come from.
+
+`k2 [--parent DIR] [--turns T]` times K2 at chip_smoke.py's N = 19 and 80,
+B = 65536: the rows kernel (`csrc/ldl_inverse_rows.cu`), the shared-memory
+kernel (`csrc/ldl_inverse.cu`) pinned at both N and the parent tree's, in
+turns, each held to K2's bars, with ptxas lines, SASS counts and the count
+of ok lanes whose d or L^-1 differ from the shared-memory kernel's.
 
 `graphs [--sizes B,B,...] [--turns T]` times this checkout's loop solver
 with its IPM pass replayed as a CUDA graph against the pass left eager,
@@ -257,21 +273,44 @@ def patched_kernel(src_tree):
 
 
 GROUP_SIZE_RULE = "constexpr int G = M <= 8 ? 8 : M <= 16 ? 16 : 32;"
+# the group size of exp/pow layouts (K1b)
+NONSYM_GROUP_SIZE_RULE = re.compile(
+    r"constexpr int G = \d+;( +// exp/pow layouts \(K1b\))")
 
 
-def group_source_with(g):
+NONSYM_MIN_BLOCKS_RULE = re.compile(
+    r"constexpr int MIN_BLOCKS = \d+;( +// \d+ blocks of 64: <= \d+ registers)")
+
+
+def group_source_with(g, nonsym=False, min_blocks=None):
     """A copy of this checkout's megakernel_group.cu under build/ with its
-    group size fixed at g threads (the rule line replaced); its path."""
+    group size fixed at g threads (the rule line of zero/nn/SOC layouts, or
+    with nonsym that of exp/pow layouts, replaced), and with min_blocks the
+    exp/pow layouts' blocks of 64 an SM in __launch_bounds__ (4: up to 255
+    registers a thread, 8: up to 128); its path."""
     with open(os.path.join(HERE, "clarabel_tpu_torch", "csrc",
                            "megakernel_group.cu")) as f:
         text = f.read()
-    if GROUP_SIZE_RULE not in text:
+    if nonsym:
+        text, n = NONSYM_GROUP_SIZE_RULE.subn(
+            lambda mt: f"constexpr int G = {g};{mt.group(1)}", text)
+    else:
+        n = text.count(GROUP_SIZE_RULE)
+        text = text.replace(GROUP_SIZE_RULE, f"constexpr int G = {g};")
+    if min_blocks is not None:
+        text, m = NONSYM_MIN_BLOCKS_RULE.subn(
+            lambda mt: f"constexpr int MIN_BLOCKS = {min_blocks};", text)
+        n = n if m == 1 else 0
+    if n != 1:
         raise SystemExit("megakernel_group.cu has no group-size rule this "
                          "probe patches")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(cuda_build.BUILD_DIR, f"megakernel_group_g{g}.cu")
+    path = os.path.join(
+        cuda_build.BUILD_DIR,
+        f"megakernel_group_{'ns' if nonsym else ''}g{g}"
+        f"{'' if min_blocks is None else f'_mb{min_blocks}'}.cu")
     with open(path, "w") as f:
-        f.write(text.replace(GROUP_SIZE_RULE, f"constexpr int G = {g};"))
+        f.write(text)
     return path
 
 
@@ -286,6 +325,8 @@ def ptxas_lines(kern):
 def sweep(args, card, out):
     if args.parts == "gsweep":
         return group_sweep(args, card, out)
+    if args.parts == "nsweep":
+        return nonsym_sweep(args, card, out)
     kern, default_threads = patched_kernel(args.src)
     all_cases = cases()
     names = [nm for nm in ("K1a bench", "K1b exp", "K1d psd3", "K1c genpow",
@@ -408,6 +449,204 @@ def group_sweep(args, card, out):
             torch.cuda.empty_cache()
 
 
+NONSYM_NAMES = ("K1b exp", "K1b pow", "K1b switch")
+
+
+def nonsym_kernels(spec):
+    """K1b's libraries of this checkout: one lane per thread
+    (megakernel.cu) and the group kernel (megakernel_group.cu) at each
+    entry of the comma-separated `spec`, "G" (group size G, the source's
+    register cap) or "G:mbK" (and K blocks of 64 threads an SM in
+    __launch_bounds__: up to 65536 / (64 K) registers a thread); patched
+    copies under build/."""
+    csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
+    kerns = {"thread": TreeKernel(os.path.join(csrc, "megakernel.cu"),
+                                  "ns_thread")}
+    for item in spec.split(","):
+        g, _, mb = item.partition(":")
+        mb = int(mb[2:]) if mb else None
+        kerns[f"group G={g}{f' mb{mb}' if mb else ''}"] = TreeKernel(
+            group_source_with(int(g), True, mb),
+            f"ns_group_g{g}{f'_mb{mb}' if mb else ''}", group=1)
+    return kerns
+
+
+def nonsym_sweep(args, card, out):
+    """K1b: this checkout's one-lane-per-thread kernel against its group
+    kernel at G = 2, 4 and 8 on exp, pow and switch (those --only matches)
+    at every B of --sizes, in turns (thread, G=2, G=4, G=8 and back,
+    --turns times over).  At B = 4096 each is also held to chip_smoke.py's
+    NONSYM_BARS against the plain version, with the wrong kernels.  Prints
+    each kernel's ptxas line, SASS counts, times and their median: where
+    the group size and `_cuda.NONSYM_GROUP_LANES_PER_SM` come from."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.ipm import megakernel_ref
+
+    kerns = nonsym_kernels(args.groups)
+    all_cases = cases()
+    names = [nm for nm in NONSYM_NAMES if re.search(args.only, nm)]
+    sizes = [int(b) for b in args.sizes.split(",")]
+    specs = {nm: spec_of(all_cases[nm]) for nm in names}
+    shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
+    t0 = time.perf_counter()
+    cuda_build.build_together(*[(k, k.variants(shapes))
+                                for k in kerns.values()])
+    print(f"nsweep: built in {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    for kname, k in kerns.items():
+        ptxas_lines(k)
+        for v in k.variants(shapes):
+            c = cs.sass_counts(k.lib_path(v))
+            print(f"sass K1b {kname} {v}: {c['instructions']} instructions, "
+                  f"LDL {c['LDL']}, STL {c['STL']}; card {card}", flush=True)
+            out.append(dict(kernel="K1b", variant=kname, sass=c))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dev = torch.device("cuda")
+    for nm in names:
+        spec = specs[nm]
+        short = nm.split()[1]
+        if 4096 in sizes and not args.no_bars:
+            P, q, A, b = batch(nm, all_cases[nm], 4096)
+            B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+            p = cs.outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B),
+                           spec)
+            for kname, kern in kerns.items():
+                r = cs.readings(cs.outputs(*kern(*flats, spec, B), spec), p,
+                                P, q, A, b)
+                v = cs.violations(r, cs.NONSYM_BARS[short], B)
+                wrong = []
+                for wname, change in cs.WRONG_NONSYM.items():
+                    wspec = dataclasses.replace(
+                        spec, st=spec.st.replace(**change))
+                    rw = cs.readings(cs.outputs(*kern(*flats, wspec, B),
+                                                spec), p, P, q, A, b)
+                    if not cs.violations(rw, cs.NONSYM_BARS[short], B):
+                        wrong.append(wname)
+                print(f"nsweep bars {nm} B={B} {kname} vs plain: "
+                      f"{cs.describe(r)}; fails: {', '.join(v) or 'none'}; "
+                      f"wrong kernels passed: {', '.join(wrong) or 'none'}; "
+                      f"card {card}", flush=True)
+                out.append(dict(kernel=nm, variant=kname, B=B, fails=v,
+                                wrong_passed=wrong))
+            del flats
+        for B in sizes:
+            flats = flats_of(nm, all_cases[nm], spec, B)
+            order = (list(kerns) + list(kerns)[::-1]) * args.turns
+            times = {k: [] for k in kerns}
+            solved, iters = {}, {}
+            for who in order:
+                ms, (v, i) = events_ms(lambda: kerns[who](*flats, spec, B))
+                times[who].append(ms)
+                solved[who] = int((i[0] == 1).sum())
+                iters[who] = float(i[1].float().mean())
+            med = {k: float(np.median(t)) for k, t in times.items()}
+            rec = dict(kernel=nm, B=B, times=times, median_ms=med,
+                       solved=solved, mean_iters=iters)
+            print(f"nsweep {nm} B={B} ({B / sms:.1f} lanes an SM): " +
+                  "; ".join(f"{k} {' / '.join(f'{x:.3f}' for x in t)} ms, "
+                            f"median {med[k]:.3f} (SOLVED {solved[k]}, mean "
+                            f"iters {iters[k]:.3f})"
+                            for k, t in times.items()) +
+                  f"; card {card}", flush=True)
+            out.append(rec)
+            del flats
+            torch.cuda.empty_cache()
+    return []
+
+
+def k2_probe(args, card, out):
+    """K2 at N = 19 and 80, B = 65536 (chip_smoke.py's batches): this
+    checkout's kernels (the rows kernel, csrc/ldl_inverse_rows.cu, at
+    N = 19; the shared-memory kernel, csrc/ldl_inverse.cu, pinned at N = 19
+    and at N = 80) and, with --parent, the parent tree's ldl_inverse.cu, in
+    turns (--turns times over), each held to K2's bars against the plain
+    version; prints ptxas lines, SASS counts, and the count of ok lanes
+    whose d or L^-1 differ from the shared-memory kernel's."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    class Shared(batched_ldl.LdlInverseKernel):
+        """The shared-memory kernel at every N (of this tree or another)."""
+
+        def __init__(self, source=None, stem=None):
+            super().__init__()
+            if source:
+                self.source, self.stem = source, stem
+
+        def variant(self, n):
+            return ()
+
+    kerns = {"rows": batched_ldl.LdlInverseKernel(), "shared": Shared()}
+    if args.parent:
+        kerns["parent"] = Shared(os.path.join(
+            os.path.abspath(args.parent), "clarabel_tpu_torch", "csrc",
+            "ldl_inverse.cu"), "ldl_inverse_parent")
+    t0 = time.perf_counter()
+    # the rows wrapper takes the shared-memory library at N = 80, which
+    # "shared" builds
+    cuda_build.build_together(*[(k, [k.variant(19)] if kname == "rows"
+                                 else [()]) for kname, k in kerns.items()])
+    print(f"k2: built in {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    for kname, k in kerns.items():
+        for v, log in k.build_logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "stack" in line:
+                    print(f"ptxas K2 {kname} {v}: {line.strip()}", flush=True)
+        for v in ([k.variant(19)] if kname == "rows" else [()]):
+            c = cs.sass_counts(k.lib_path(v))
+            print(f"sass K2 {kname} {v}: {c['instructions']} instructions, "
+                  f"LDL {c['LDL']}, STL {c['STL']}, LD.E {c['LD']}, ST.E "
+                  f"{c['ST']}; card {card}", flush=True)
+    st = ctt.Settings.throughput()
+    eps, delta = (st.dynamic_regularization_eps,
+                  st.dynamic_regularization_delta)
+    for n, m in cs.K2_SHAPES:
+        N = n + m
+        K, signs = cs.k2_inputs(n, m, cs.K2_B, seed=N)
+        K = torch.tensor(K, dtype=torch.float32, device="cuda")
+        signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
+        plain = batched_ldl.ldl_inverse_plain(K, signs, eps, delta, True)
+        here = {k: v for k, v in kerns.items()
+                if N <= batched_ldl.ROWS_MAX_N or k != "rows"}
+        order = (list(here) + list(here)[::-1]) * args.turns
+        times = {k: [] for k in here}
+        res = {}
+        for who in order:
+            ms, res[who] = events_ms(
+                lambda: here[who](K, signs, eps, delta, True), 20)
+            times[who].append(ms)
+        med = {k: float(np.median(t)) for k, t in times.items()}
+        bound = cs.k2_bound_ms(N, cs.K2_B)
+        print(f"k2 N={N} B={cs.K2_B}: " + "; ".join(
+            f"{k} {' / '.join(f'{x:.4f}' for x in t)} ms, median "
+            f"{med[k]:.4f}" for k, t in times.items()) +
+            f"; bound {bound[0]:.4f} ms by {bound[1]}; card {card}",
+            flush=True)
+        for who, got in res.items():
+            r = cs.k2_readings(got, plain)
+            print(f"k2 N={N} {who} vs plain: ok equal {r['ok_equal']}, "
+                  f"max rel |dL^-1| {r['linv']:.3e}, max rel |dd| "
+                  f"{r['d']:.3e}; fails: "
+                  f"{', '.join(cs.k2_violations(r)) or 'none'}", flush=True)
+        ref = res["shared"]
+        for who, got in res.items():
+            both = got[2] & ref[2]
+            uneq = ((got[0] != ref[0]).flatten(1).any(1)
+                    | (got[1] != ref[1]).any(1))[both]
+            print(f"k2 N={N} {who} vs shared: ok equal "
+                  f"{bool(torch.equal(got[2], ref[2]))}, ok lanes whose d or "
+                  f"L^-1 differ: {int(uneq.sum())} of {int(both.sum())}",
+                  flush=True)
+        out.append(dict(kernel="K2", N=N, times=times, median_ms=med,
+                        bound_ms=bound[0]))
+        del K, plain, res
+        torch.cuda.empty_cache()
+    return []
+
+
 def compare(args, card, out):
     new = _cuda.megakernel
     old = TreeKernel(os.path.join(os.path.abspath(args.parent),
@@ -450,7 +689,12 @@ def compare(args, card, out):
             both = (pi[0] == 1) & (ci[0] == 1)
             xd = (pv[:n].view(torch.float64) - cv[:n].view(torch.float64))
             dx = float(xd.abs()[:, both].max()) if bool(both.any()) else 0.0
-            rec = dict(kernel=nm, B=B, parent_ms=times["parent"],
+            # the change's source at this B: the parent's megakernel.cu is
+            # held bit for bit only where the change launches the same
+            # source (a group kernel sums in another order, DEVIATIONS.md
+            # #15)
+            src = _cuda.source_for(new.variant(spec, B, "cuda"))
+            rec = dict(kernel=nm, B=B, source=src, parent_ms=times["parent"],
                        change_ms=times["change"], ints_equal=same_ints,
                        vals_equal=same_vals, lanes_differing=lanes,
                        deterministic=det,
@@ -468,9 +712,10 @@ def compare(args, card, out):
                   f", iterations {rec['iterations_differing']}, x "
                   f"{rec['x_lanes_differing']}, max |dx| on lanes both solve "
                   f"{dx:.3e}); each repeat bit-equal: parent {det['parent']}, "
-                  f"change {det['change']}; card {card}", flush=True)
+                  f"change {det['change']}; the change's source {src}; card "
+                  f"{card}", flush=True)
             out.append(rec)
-            if not (same_ints and same_vals):
+            if not (same_ints and same_vals) and src == "megakernel.cu":
                 unequal.append(f"{nm} B={B}")
             del flats, res, pv, pi, cv, ci, dv
             torch.cuda.empty_cache()
@@ -524,13 +769,173 @@ class FlagKernel(TreeKernel):
         return self.extra
 
 
+def bar_counts(tag, fails, card, out):
+    """Print and record how often each bar failed over the readings
+    `fails` (one list of failed bars per reading)."""
+    names = sorted({v for f in fails for v in f})
+    print(f"bars summary {tag}: {len(fails)} readings; " + (", ".join(
+        f"{v} failed {sum(v in f for f in fails)}" for v in names)
+        or "no bar failed") + f"; card {card}", flush=True)
+    out.append(dict(summary=tag, readings=len(fails),
+                    failed={v: sum(v in f for f in fails) for v in names}))
+
+
+def bars_nonsym(args, card, out):
+    """chip_smoke.py's NONSYM_BARS of [8] (K1b against its plain version on
+    the card, B = 4096) on exp, pow and switch, for the one-lane-per-thread
+    kernel (megakernel.cu, the parent's K1b), the group kernel as this
+    checkout builds it and the group kernel with G = 4; each kernel on the
+    fixed batch and with q moved by 1e-15 (relative) over --seeds seeds,
+    beside the plain version against itself under the same moves; then
+    how often each bar failed."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.ipm import megakernel_ref
+
+    csrc = os.path.join(HERE, "clarabel_tpu_torch", "csrc")
+    kerns = {
+        "thread": TreeKernel(os.path.join(csrc, "megakernel.cu"),
+                             "bn_thread"),
+        "group": TreeKernel(os.path.join(csrc, "megakernel_group.cu"),
+                            "bn_group", 1),
+        "group G=4": TreeKernel(group_source_with(4, True), "bn_group_g4", 1),
+    }
+    all_cases = cases()
+    names = [nm for nm in NONSYM_NAMES if re.search(args.only, nm)]
+    specs = {nm: spec_of(all_cases[nm]) for nm in names}
+    shapes = sorted({_cuda.shape_of(s) for s in specs.values()})
+    cuda_build.build_together(*[(k, k.variants(shapes))
+                                for k in kerns.values()])
+    for k in kerns.values():
+        ptxas_lines(k)
+    dev = torch.device("cuda")
+    seeds = list(range(7, 7 + args.seeds))
+    for nm in names:
+        spec = specs[nm]
+        bars_ = cs.NONSYM_BARS[nm.split()[1]]
+        P, q, A, b = batch(nm, all_cases[nm], 4096)
+        B, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        p = cs.outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B),
+                       spec)
+        jit = []
+        for seed in seeds:
+            qj = q * (1 + 1e-15 * np.random.default_rng(seed)
+                      .standard_normal(q.shape))
+            jit.append((qj, megakernel.prepare(P, qj, A, b, spec, dev)[1]))
+        fails = []
+        for seed, (qj, fj) in zip(seeds, jit):
+            pj = cs.outputs(*megakernel_ref.mega_solve_plain(*fj, spec, B),
+                            spec)
+            r = cs.readings(pj, p, P, qj, A, b)
+            fails.append(cs.violations(r, bars_, B))
+            print(f"bars {nm} plain(q jitter seed {seed}) vs plain: "
+                  f"{cs.describe(r)}; fails: {', '.join(fails[-1]) or 'none'}",
+                  flush=True)
+        bar_counts(f"{nm} plain vs itself (jittered)", fails, card, out)
+        for kname, kern in kerns.items():
+            ms, (kv, ki) = events_ms(lambda: kern(*flats, spec, B))
+            r = cs.readings(cs.outputs(kv, ki, spec), p, P, q, A, b)
+            v = cs.violations(r, bars_, B)
+            print(f"bars {nm} {kname} ({ms:.3f} ms) vs plain: "
+                  f"{cs.describe(r)}; fails: {', '.join(v) or 'none'}",
+                  flush=True)
+            fails = []
+            for seed, (qj, fj) in zip(seeds, jit):
+                rj = cs.readings(cs.outputs(*kern(*fj, spec, B), spec), p, P,
+                                 qj, A, b)
+                fails.append(cs.violations(rj, bars_, B))
+                print(f"bars {nm} {kname}(q jitter seed {seed}) vs plain: "
+                      f"{cs.describe(rj)}; fails: "
+                      f"{', '.join(fails[-1]) or 'none'}", flush=True)
+            bar_counts(f"{nm} {kname} (fixed batch fails: "
+                       f"{', '.join(v) or 'none'}; jittered)", fails, card,
+                       out)
+        del flats, jit
+        torch.cuda.empty_cache()
+    return []
+
+
+def bars_k2(args, card, out):
+    """K2's bars of [5] (ok equal, d and L^-1 within 1e-4 of the plain
+    version) at N = 19 and 80, B = 65536: the plain version against itself
+    with K moved by 1e-7 (relative; a move of 1e-15 vanishes in float32)
+    over --seeds seeds, and the rows kernel (N = 19) and the shared-memory
+    kernel, the parent's design, on the fixed and the moved batches; then
+    how often each bar failed."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    class Shared(batched_ldl.LdlInverseKernel):
+        def variant(self, n):
+            return ()
+
+    kerns = {"rows": batched_ldl.LdlInverseKernel(), "shared": Shared()}
+    st = ctt.Settings.throughput()
+    eps, delta = (st.dynamic_regularization_eps,
+                  st.dynamic_regularization_delta)
+    seeds = list(range(7, 7 + args.seeds))
+    for n, m in cs.K2_SHAPES:
+        N = n + m
+        K0, signs = cs.k2_inputs(n, m, cs.K2_B, seed=N)
+        signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
+
+        def moved(seed):
+            Kj = K0 if seed is None else K0 * (
+                1 + 1e-7 * np.random.default_rng(seed).standard_normal(
+                    K0.shape))
+            Kj = (Kj + Kj.transpose(0, 2, 1)) / 2 if seed is not None else Kj
+            return torch.tensor(Kj, dtype=torch.float32, device="cuda")
+
+        K = moved(None)
+        plain = batched_ldl.ldl_inverse_plain(K, signs, eps, delta, True)
+        fails = []
+        for seed in seeds:
+            Kj = moved(seed)
+            r = cs.k2_readings(batched_ldl.ldl_inverse_plain(
+                Kj, signs, eps, delta, True), plain)
+            fails.append(cs.k2_violations(r))
+            print(f"bars K2 N={N} plain(K jitter seed {seed}) vs plain: ok "
+                  f"equal {r['ok_equal']}, max rel |dL^-1| {r['linv']:.3e}, "
+                  f"max rel |dd| {r['d']:.3e}; fails: "
+                  f"{', '.join(fails[-1]) or 'none'}", flush=True)
+            del Kj
+        bar_counts(f"K2 N={N} plain vs itself (jittered)", fails, card, out)
+        for kname, kern in kerns.items():
+            if kname == "rows" and N > batched_ldl.ROWS_MAX_N:
+                continue
+            r = cs.k2_readings(kern(K, signs, eps, delta, True), plain)
+            v = cs.k2_violations(r)
+            fails = []
+            for seed in seeds:
+                rj = cs.k2_readings(kern(moved(seed), signs, eps, delta,
+                                         True), plain)
+                fails.append(cs.k2_violations(rj))
+                print(f"bars K2 N={N} {kname}(K jitter seed {seed}) vs plain:"
+                      f" ok equal {rj['ok_equal']}, max rel |dL^-1| "
+                      f"{rj['linv']:.3e}, max rel |dd| {rj['d']:.3e}; fails: "
+                      f"{', '.join(fails[-1]) or 'none'}", flush=True)
+            bar_counts(f"K2 N={N} {kname} (fixed batch: max rel |dL^-1| "
+                       f"{r['linv']:.3e}, |dd| {r['d']:.3e}, fails "
+                       f"{', '.join(v) or 'none'}; jittered)", fails, card,
+                       out)
+        del K, plain
+        torch.cuda.empty_cache()
+    return []
+
+
 def bars(args, card, out):
     """chip_smoke.py's bars of [2], [3] and [11] (kernel against its plain
     version on the card, B = 4096) for the one-lane-per-thread kernel and
     for group-kernel variants (G = 8 and 16, each with and without
     -fmad=false), and, to show how near the bars each reading is, the same
     readings with q moved by 1e-15 (relative, three seeds) for the kernel
-    and for the plain version against itself."""
+    and for the plain version against itself.  With --family k1b or k2,
+    `bars_nonsym` or `bars_k2` in its place."""
+    if args.family == "k1b":
+        return bars_nonsym(args, card, out)
+    if args.family == "k2":
+        return bars_k2(args, card, out)
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from clarabel_tpu_torch.ipm import megakernel_ref
@@ -807,7 +1212,7 @@ def graphs(args, card, out):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("sweep", "compare", "sass", "loops",
-                                     "bars", "graphs"))
+                                     "bars", "graphs", "k2"))
     ap.add_argument("--src", default=HERE)
     ap.add_argument("--parent")
     ap.add_argument("--only", default="",
@@ -817,6 +1222,16 @@ def main():
     ap.add_argument("--sizes", default=",".join(map(str, SIZES)),
                     help="sweep --parts gsweep and graphs: the batch sizes, "
                     "comma-separated")
+    ap.add_argument("--groups", default="2,4,8",
+                    help="sweep --parts nsweep: the group kernel's group "
+                    "sizes, comma-separated, each G or G:mbK (K blocks of "
+                    "64 an SM in __launch_bounds__)")
+    ap.add_argument("--family", default="k1a", choices=("k1a", "k1b", "k2"),
+                    help="bars: which kernels' bars (K1a and K1e, K1b, K2)")
+    ap.add_argument("--seeds", type=int, default=3,
+                    help="bars --family k1b|k2: how many jitter seeds")
+    ap.add_argument("--no-bars", action="store_true",
+                    help="sweep --parts nsweep: times only")
     ap.add_argument("--turns", type=int, default=1,
                     help="gsweep, loops and graphs: how many times the "
                     "order of turns runs")
@@ -835,7 +1250,8 @@ def main():
           f"{torch.version.cuda}", flush=True)
     out = []
     bad = dict(sweep=sweep, compare=compare, sass=sass, loops=loops,
-               bars=bars, graphs=graphs)[args.mode](args, card, out)
+               bars=bars, graphs=graphs, k2=k2_probe)[args.mode](args, card,
+                                                                 out)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, readings=out), f, indent=1)
