@@ -53,7 +53,22 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   reject, `BatchSolver.solve` with the first phase on bench and psd3 at
   B = 4096, 65536 and 131072, the single and the two phases side by side
   at 1e-8 and 1e-5 tolerances, the rescue behind it, and the zero-cone and
-  exponential layouts, where two-phase changes nothing.
+  exponential layouts, where two-phase changes nothing;
+* [12] the main path's host side on bench, psd3 and exp at B = 4096 and
+  131072: `BatchSolver.solve` with one dispatch and with chunks (the
+  rule's size, or 1024 lanes where the rule makes one dispatch), the
+  wall and the steps of each (the batch-constant scan, pinned staging, the copy, the device gather, the kernels, the copy
+  back), the launches per source; every lane's bits against one dispatch
+  of the same library over its chunk; at 4096 every chunk held to the
+  family's bars against the plain version over the batch, at 131072 to
+  the true-KKT bar and those the plain version against itself meets over
+  the batch under three 1e-15 changes of q, each chunk's readings
+  printed;
+* [13] the single-instance `Solver` on the card: the verify drive, the
+  verify drive with mixed precision (K2 launches counted), and a primal-
+  and a dual-infeasible problem, against the reference's outputs in
+  tests/torch_fixtures/solver.npz; then the check that nothing imported
+  JAX.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -214,6 +229,29 @@ WRONG_TWO_PHASE = {
 }
 RELAXED = {"tol_gap_abs": 1e-5, "tol_gap_rel": 1e-5, "tol_feas": 1e-5}
 
+# [12] the main path's host side: each family's batch in one dispatch and
+# in chunks (`ipm/megakernel.build_mega_solve`), at these sizes, each with
+# the chunk size of the rule (`megakernel.chunk_lanes`) or, where the rule
+# makes one dispatch, with CHUNK_FORCED lanes a chunk.  Every lane must
+# have the bits of one dispatch of the same library over its chunk.  At
+# FAMILY_B lanes, the size the bars were set on, every chunk is held to
+# its family's bars against the plain version over the batch.  At 131072
+# lanes every chunk is held to the bars that the plain version against
+# itself meets over the batch under each of the 1e-15 changes of q of
+# JITTER_SEEDS, and to the true-KKT bar; a bar that compares with the
+# plain version and that it fails there measures rounding at that size
+# (bench's iterations; psd3's iterations and x, where one lane's x moves
+# by 6.05e-5 under two of the three changes; exp's x, PERF.md section 6),
+# and the chunk's reading of it is printed, not held.
+CHUNK_BATCHES = (4096, 131072)
+CHUNK_FORCED = 1024
+JITTER_SEEDS = (7, 8, 9)
+
+# [13] the single-instance Solver: the cases of
+# tests/torch_fixtures/solver.npz, with the reference Solver's outputs
+SOLVER_FIXTURE = os.path.join("tests", "torch_fixtures", "solver.npz")
+SOLVER_N = 8            # n + m of the verify drive: K2's N under mixed
+
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
@@ -341,21 +379,68 @@ def true_kkt(P, q, A, b, x, z, s):
     return rp, rd, np.abs(np.einsum("bi,bi->b", s, z))
 
 
-def events_ms(fn, reps):
-    """Mean ms per call of fn on the card (CUDA events), after one warm-up
-    call; returns (ms, the last call's result)."""
+# GPU cycles (about 0.1 s on an H100) that the stream sleeps before a timed
+# run, so that the timed calls are queued behind the sleep and a stall of
+# the host between them is not timed
+QUEUE_CYCLES = 200_000_000
+
+
+def events_times(fn, reps):
+    """Per-call ms of fn on the card (CUDA events between the calls), after
+    one warm-up call; the calls are queued behind a sleep on the stream,
+    so the events time the card's work rather than the host's pace (a
+    call that waits for the card, as the plain versions do, still times
+    its host).  Returns (the reps' ms, the last call's result)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    marks[0].record()
+    for i in range(reps):
         out = fn()
-    end.record()
+        marks[i + 1].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], out
+
+
+def events_ms(fn, reps):
+    """Mean ms per call of fn on the card (`events_times`); returns (ms,
+    the last call's result)."""
+    times, out = events_times(fn, reps)
+    return sum(times) / reps, out
+
+
+def chunked_kernel_ms(data, spec, reps=3):
+    """The kernel-only time of one solve as the main path runs it: the
+    batch staged in the chunks of the rule (`megakernel.staged_chunks`, as
+    `BatchSolver.solve` cuts it), then every chunk's launch timed with
+    CUDA events (mean of `reps` after a warm-up).  Returns (ms, the
+    number of chunks)."""
+    import torch
+    from clarabel_tpu_torch.ipm import megakernel
+
+    chunks = list(megakernel.staged_chunks(*data, spec,
+                                           torch.device(DEVICE)))
+    ms, _ = events_ms(lambda: [megakernel.solve_flats(*cf, spec, hi - lo)
+                               for lo, hi, cf, _ in chunks], reps)
+    return ms, len(chunks)
+
+
+def main_path_steps(phase, name, data, spec, card):
+    """Where one solve's wall time goes on the main path, chunked by the
+    rule: the batch-constant scan, the staging in pinned memory, the copy,
+    the device gather, the kernels, the copy back with unpacking, each
+    step synchronised (`tools/host_probe.py` `steps`; host clock, the
+    kernels by CUDA events)."""
+    import torch
+
+    steps, C = load_tool("host_probe").steps(
+        data, spec, None, "device", "chunk", torch.device(DEVICE))
+    print(f"[{phase}] {name} B={len(data[1])} one solve in chunks of {C}, "
+          f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+          + f"; card {card}", flush=True)
 
 
 def synced_wall(fn):
@@ -545,8 +630,9 @@ def k2_phase(card, failures):
         signs = torch.tensor(signs, dtype=torch.float32, device=DEVICE)
         variant = batched_ldl.kernel.variant(N)
         src = os.path.basename(batched_ldl.kernel.source_for(variant))
-        k_ms, got = events_ms(
+        k_times, got = events_times(
             lambda: batched_ldl.kernel(K, signs, eps, delta, True), 20)
+        k_ms = sum(k_times) / len(k_times)
         p_ms, plain = events_ms(
             lambda: batched_ldl.ldl_inverse_plain(K, signs, eps, delta, True),
             1)
@@ -555,9 +641,10 @@ def k2_phase(card, failures):
                             plain)
         bound, by, nbytes, ops = k2_bound_ms(N, K2_B)
         tag = f"[5] K2 N={N} B={K2_B}"
-        print(f"{tag}: kernel ({src}) {k_ms:.4f} ms, plain {p_ms:.2f} ms, "
-              f"bound {bound:.4f} ms by {by} ({nbytes} bytes, {ops:.3e} FP32 "
-              f"ops); card {card}", flush=True)
+        print(f"{tag}: kernel ({src}) {k_ms:.4f} ms (mean of 20 launches, "
+              f"each {min(k_times):.4f} to {max(k_times):.4f}), plain "
+              f"{p_ms:.2f} ms, bound {bound:.4f} ms by {by} ({nbytes} bytes, "
+              f"{ops:.3e} FP32 ops); card {card}", flush=True)
         log = batched_ldl.kernel.build_logs.get(variant, "")
         for line in log.splitlines():
             if "registers" in line or "stack" in line:
@@ -906,19 +993,16 @@ def two_phase_phase(card, failures, big, psd_big, qp_data, exp_data):
                 for B in (min(TWO_PHASE_THROUGHPUT),
                           max(TWO_PHASE_THROUGHPUT)):
                     sub = tuple(a[:B] for a in data)
-                    _, flats = megakernel.prepare(*sub, spec, dev)
-                    k_ms, (kv, ki) = events_ms(
-                        lambda: _cuda.megakernel(*flats, spec, B), 3)
-                    del flats
+                    k_ms, k_chunks = chunked_kernel_ms(sub, spec)
                     if (name, B, tol, tp) not in walls:
                         walls[name, B, tol, tp], outs[name, B, tol, tp] = \
                             best_wall(solver, sub)
                     wall, out = walls[name, B, tol, tp], outs[name, B, tol,
                                                              tp]
                     counts = np.bincount(out.status, minlength=11).tolist()
-                    p1 = ki[3].cpu().numpy()
+                    p1 = np.asarray(out._out["p1_iterations"])
                     print(f"[11] {name} B={B} tol={tol:.0e} two_phase="
-                          f"{tp}: kernel {k_ms:.3f} ms; "
+                          f"{tp}: kernel {k_ms:.3f} ms ({k_chunks} chunks); "
                           f"{counts[SOLVED] / (k_ms / 1e3):,.0f} certified "
                           f"solves/s kernel-only, "
                           f"{counts[SOLVED] / wall:,.0f} wall (best of 3: "
@@ -1056,6 +1140,208 @@ def describe(r):
             f"{r['kkt']:.3e}, |s'z| {r['sz']:.3e}")
 
 
+def load_tool(name):
+    """A module of tools/ (it is beside this script in the checkout)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chunk_phase(card, failures, families):
+    """[12] The main path's host side.  `families`: name -> (cones, n,
+    bars, the batch at the largest size).  For each family and each B of
+    CHUNK_BATCHES: the plain version over the batch (the bars' yardstick),
+    then `BatchSolver.solve` in one dispatch and in chunks, best of 3 warm
+    solves each, with the steps one at a time (tools/host_probe.py) and
+    the launches per source; each chunk's lanes must have the bits of one
+    dispatch of the same library over that chunk and meet the family's
+    bars.  Returns the launches of the chunked runs by source."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch.ipm import _cuda, megakernel, megakernel_ref
+
+    probe = load_tool("host_probe")
+    dev = torch.device(DEVICE)
+    chunked_launches = {"megakernel_group.cu": 0, "megakernel.cu": 0}
+    for name, (cones, n, bars, big) in families.items():
+        bs = ctt.BatchSolver(cones, n, ctt.Settings(kkt_backend="megakernel"),
+                             device=DEVICE)
+        spec = bs._mega_fn.spec
+        for B in CHUNK_BATCHES:
+            data = tuple(a[:B] for a in big)
+            P, q, A, b = data
+            _, flats = megakernel.prepare(*data, spec, dev)
+            t0 = time.perf_counter()
+            p = outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B),
+                        spec)
+            p_s = time.perf_counter() - t0
+            del flats
+            # at scale, the bars that rounding alone fails: the plain
+            # version again with q moved by 1e-15 over JITTER_SEEDS, each
+            # against the plain version over the batch; they are not held,
+            # but for the true-KKT bar, which reads the kernel's own
+            # solution and is held at every size
+            noise = set()
+            for js in (JITTER_SEEDS if B > FAMILY_B else ()):
+                qj = q * (1 + 1e-15 * np.random.default_rng(js)
+                          .standard_normal(q.shape))
+                _, flats = megakernel.prepare(P, qj, A, b, spec, dev)
+                rj = readings(outputs(*megakernel_ref.mega_solve_plain(
+                    *flats, spec, B), spec), p, P, qj, A, b)
+                del flats
+                vj = violations(rj, bars, B)
+                noise |= set(vj) - {"true KKT"}
+                print(f"[12] {name} B={B}: the plain version against itself "
+                      f"(q jitter seed {js}) over the batch: {describe(rj)};"
+                      f" fails: {', '.join(vj) or 'none'}", flush=True)
+            if B > FAMILY_B:
+                print(f"[12] {name} B={B}: bars not held at this B (the "
+                      f"plain version against itself fails them): "
+                      f"{', '.join(sorted(noise)) or 'none'}", flush=True)
+            dims = (spec.triu, spec.n, spec.n * spec.m, spec.m)
+            width = sum(d for d, raw in zip(dims, data)
+                        if not megakernel.is_const(np.asarray(raw)))
+            rule = megakernel.chunk_lanes(width, B)
+            configs = [("one dispatch", B),
+                       (f"chunks of {rule}" if rule < B else
+                        f"chunks of {CHUNK_FORCED}",
+                        rule if rule < B else CHUNK_FORCED)]
+            for label, C in configs:
+                tag = f"[12] {name} B={B} {label}"
+                bs._mega_fn = megakernel.build_mega_solve(
+                    bs.layout, bs.settings, n, device=dev, chunk=C)
+                before = (_cuda.megakernel.launches,
+                          _cuda.megakernel.group_launches)
+                bs.solve(*data)                       # warm-up
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sol = bs.solve(*data)
+                    walls.append(time.perf_counter() - t0)
+                wall = min(walls)
+                grp = (_cuda.megakernel.group_launches - before[1]) // 4
+                thr = (_cuda.megakernel.launches - before[0]) // 4 - grp
+                if C < B:
+                    chunked_launches["megakernel_group.cu"] += 4 * grp
+                    chunked_launches["megakernel.cu"] += 4 * thr
+                k = {f: np.asarray(sol._out[f]) for f in
+                     ["x", "obj_val", "status", "iterations", "z", "s"]
+                     + megakernel.REST_NAMES}
+                # each chunk against one dispatch of the same library over
+                # its lanes, bit for bit, and against the plain version
+                unequal, worst, failing = 0, None, []
+                for lo in range(0, B, C):
+                    hi = min(B, lo + C)
+                    sub = tuple(a[lo:hi] for a in data)
+                    _, cf = megakernel.prepare(*sub, spec, dev)
+                    one = outputs(*megakernel.solve_flats(*cf, spec, hi - lo),
+                                  spec)
+                    unequal += sum(
+                        np.ascontiguousarray(one[f]).tobytes()
+                        != np.ascontiguousarray(k[f][lo:hi]).tobytes()
+                        for f in k)
+                    kc = {f: v[lo:hi] for f, v in k.items()}
+                    pc = {f: v[lo:hi] for f, v in p.items()}
+                    r = readings(kc, pc, *sub)
+                    read = violations(r, bars, hi - lo)
+                    bad = [v for v in read if v not in noise]
+                    if B > FAMILY_B:
+                        print(f"{tag}: the chunk at lane {lo} against the "
+                              f"bars: {', '.join(read) or 'passes'}; of "
+                              f"those held: {', '.join(bad) or 'passes'} "
+                              f"({describe(r)})", flush=True)
+                    if bad:
+                        failing.append((lo, bad, describe(r)))
+                    if worst is None or r["dx"] > worst["dx"]:
+                        worst = r
+                steps, _ = probe.steps(data, spec, C, "device", "chunk", dev)
+                solved = int((sol.status == 1).sum())
+                print(f"{tag}: {solved / wall:,.0f} solves/s wall (best of "
+                      f"3: {wall * 1e3:.2f} ms); launches per solve: "
+                      f"megakernel_group.cu {grp}, megakernel.cu {thr}; "
+                      f"steps ms: " + ", ".join(
+                          f"{s_} {v:.2f}" for s_, v in steps.items())
+                      + f"; card {card}", flush=True)
+                print(f"{tag}: {-(-B // C)} chunks; fields unequal to one "
+                      f"dispatch over the chunk: {unequal}; the chunk with "
+                      f"the largest |dx| against the plain version ("
+                      f"{p_s:.1f} s over the batch): {describe(worst)}; "
+                      + f"chunks failing the bars held: {len(failing)}",
+                      flush=True)
+                if unequal:
+                    failures.append(f"{tag}: {unequal} fields differ from "
+                                    "one dispatch over the chunk")
+                for lo, bad, d in failing:
+                    failures.append(f"{tag}: the chunk at lane {lo} fails "
+                                    f"the {', '.join(bad)} bar ({d})")
+    return chunked_launches
+
+
+def solver_phase(card, failures):
+    """[13] The single-instance Solver on the card against the reference
+    Solver's outputs (tests/torch_fixtures/solver.npz): the verify drive,
+    the same with mixed precision (its float32 factors through K2, whose
+    launches it counts), and a primal- and a dual-infeasible problem.
+    Returns K2's launches under mixed precision."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch.interop import cone_from_tuple
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    fix = np.load(os.path.join(HERE, SOLVER_FIXTURE))
+
+    def case(name):
+        cones = [cone_from_tuple(tuple(t))
+                 for t in json.loads(str(fix[f"{name}_cones"]))]
+        return [fix[f"{name}_{k}"] for k in "PqAb"] + [cones]
+
+    k2_launches = 0
+    for name, st in (("verify", ctt.Settings()),
+                     ("verify", ctt.Settings(mixed_precision=True)),
+                     ("primal_infeasible", ctt.Settings()),
+                     ("dual_infeasible", ctt.Settings())):
+        P, q, A, b, cones = case(name)
+        solver = ctt.Solver(P, q, A, b, cones, st, device=DEVICE)
+        k2_before = batched_ldl.kernel.launches
+        sol = solver.solve()
+        k2 = batched_ldl.kernel.launches - k2_before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve()
+        warm = time.perf_counter() - t0
+        tag = (f"[13] {name}" + (" mixed precision" if st.mixed_precision
+                                 else ""))
+        ref_status = int(fix[f"{name}_status"])
+        dx = (float(np.abs(sol.x - fix[f"{name}_x"]).max())
+              if sol.status == 1 else float("nan"))
+        print(f"{tag}: {sol.status.name} (reference "
+              f"{ctt.SolverStatus(ref_status).name}), {sol.iterations} "
+              f"iterations (reference {int(fix[f'{name}_iterations'])}), "
+              f"max|dx| against the reference {dx:.3e}, r_prim "
+              f"{sol.r_prim:.2e}, r_dual {sol.r_dual:.2e}; K2 launches {k2}; "
+              f"warm solve {warm * 1e3:.2f} ms; card {card}", flush=True)
+        if int(sol.status) != ref_status:
+            failures.append(f"{tag}: status {sol.status.name}, the "
+                            f"reference's {ref_status}")
+        if abs(sol.iterations - int(fix[f"{name}_iterations"])) > 4:
+            failures.append(f"{tag}: iterations {sol.iterations}")
+        if sol.status == 1 and not (dx < 1e-6 and sol.r_prim < 1e-8
+                                    and sol.r_dual < 1e-8):
+            failures.append(f"{tag}: x or residuals off the reference")
+        if st.mixed_precision:
+            k2_launches += k2
+            if k2 <= 0:
+                failures.append(f"{tag}: no K2 launch")
+        elif k2:
+            failures.append(f"{tag}: float64 factors launched K2")
+    return k2_launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "clarabel_tpu_torch")):
         fail("clarabel_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -1146,7 +1432,8 @@ def main():
                       | {v for sh in shapes for v in _cuda.variants_of(sh)}
                       | set(k1b_variants))
     k2_variants = sorted({batched_ldl.kernel.variant(n + m)
-                          for n, m in K2_SHAPES})
+                          for n, m in K2_SHAPES}
+                         | {batched_ldl.kernel.variant(SOLVER_N)})
     cuda_build.build_together(
         (_cuda.megakernel, variants), (batched_ldl.kernel, k2_variants),
         (wrong_group, [sh + (1, 1) for sh in wrong_shapes]),
@@ -1170,8 +1457,12 @@ def main():
              for v in variants]
             + [(os.path.basename(batched_ldl.kernel.source_for(v)),
                 batched_ldl.kernel.lib_path(v), v) for v in k2_variants])
-    for src, path, v in libs:
-        c = sass_counts(path)
+    # one cuobjdump for each library, all running together
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        counts = list(pool.map(sass_counts, [path for _, path, _ in libs]))
+    for (src, path, v), c in zip(libs, counts):
         print(f"[1] sass {src} {v}: {c['instructions']} "
               f"instructions, {c['LDL']} local loads (LDL), {c['STL']} local "
               f"stores (STL), {c['LD']} and {c['ST']} generic (LD.E, ST.E)")
@@ -1275,13 +1566,10 @@ def main():
     big = bench_data.make_batch(max(THROUGHPUT_BATCHES), BENCH_N, 0)
     bs = solvers["bench"]
     spec = bs._mega_fn.spec
-    kernel_ms = {}
+    kernel_ms, n_chunks = {}, {}
     for B in THROUGHPUT_BATCHES:
-        data = tuple(a[:B] for a in big)
-        _, flats = megakernel.prepare(*data, spec, dev)
-        kernel_ms[B], _ = events_ms(
-            lambda: _cuda.megakernel(*flats, spec, B), 3)
-        del flats
+        kernel_ms[B], n_chunks[B] = chunked_kernel_ms(
+            tuple(a[:B] for a in big), spec)
     torch.cuda.synchronize()
 
     _cuda.megakernel.launches = 0          # the main path's run starts here
@@ -1302,7 +1590,7 @@ def main():
             f"[4] B={B}: {solved / wall:,.0f} solves/s wall (host arrays to "
             f"host results, best of 3: {wall * 1e3:.2f} ms), "
             f"{solved / (kernel_ms[B] / 1e3):,.0f} solves/s kernel-only "
-            f"({kernel_ms[B]:.3f} ms); mean iters "
+            f"({kernel_ms[B]:.3f} ms, {n_chunks[B]} chunks); mean iters "
             f"{out.iterations.mean():.3f}; not SOLVED {B - solved}; "
             f"card {card}")
     launches = _cuda.megakernel.launches   # ... and ends here
@@ -1323,26 +1611,9 @@ def main():
           f"{results['bench']['megakernel.cu']['plain_ms']:.1f} ms (no "
           f"yardstick); card {card}")
 
-    # where one solve's wall time goes at the largest batch: packing on the
-    # host, packing plus the copy to the card, the kernel, and the copy
-    # back with unpacking (each step synchronised; host clock)
-    data = tuple(a[:max(THROUGHPUT_BATCHES)] for a in big)
-    marks = [time.perf_counter()]
-    megakernel.prepare(*data, spec, "cpu")
-    marks.append(time.perf_counter())
-    B, flats = megakernel.prepare(*data, spec, dev)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    vals, ints = _cuda.megakernel(*flats, spec, B)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    eager, _ = megakernel.split_outputs(vals, ints, spec)
-    megakernel.unpack_eager(eager.cpu().numpy(), spec.n)
-    marks.append(time.perf_counter())
-    steps = np.diff(marks) * 1e3
-    print(f"[4] B={len(data[1])} one solve, ms: host packing {steps[0]:.2f}; "
-          f"packing + copy to the card {steps[1]:.2f}; kernel {steps[2]:.2f}; "
-          f"copy back + unpack {steps[3]:.2f}; card {card}")
+    # where one solve's wall time goes at the largest batch
+    main_path_steps(4, "bench", tuple(a[:max(THROUGHPUT_BATCHES)]
+                                      for a in big), spec, card)
 
     # bound: the larger of bytes over HBM bandwidth and FP64 operations of
     # this run's iterations over the FP64 rate (bench shape, B=4096), for
@@ -1468,13 +1739,10 @@ def main():
 
     # BatchSolver.solve on the exponential batch through the megakernel
     exp_spec = exp_solver._mega_fn.spec
-    k1b_ms = {}
+    k1b_ms, k1b_chunks = {}, {}
     for B in NONSYM_THROUGHPUT:
-        _, flats = megakernel.prepare(*(a[:B] for a in exp_big), exp_spec,
-                                      dev)
-        k1b_ms[B], _ = events_ms(
-            lambda: _cuda.megakernel(*flats, exp_spec, B), 3)
-        del flats
+        k1b_ms[B], k1b_chunks[B] = chunked_kernel_ms(
+            tuple(a[:B] for a in exp_big), exp_spec)
     lines = []
     exp_out = {}
     _cuda.megakernel.launches = 0          # the exp path's run starts here
@@ -1493,7 +1761,8 @@ def main():
         lines.append(
             f"[8] exp B={B}: {solved / wall:,.0f} solves/s wall (best of 3:"
             f" {wall * 1e3:.2f} ms), {solved / (k1b_ms[B] / 1e3):,.0f} "
-            f"solves/s kernel-only ({k1b_ms[B]:.3f} ms); mean iters "
+            f"solves/s kernel-only ({k1b_ms[B]:.3f} ms, {k1b_chunks[B]} "
+            f"chunks); mean iters "
             f"{out.iterations.mean():.3f}; not SOLVED {B - solved}, "
             f"statuses {np.bincount(out.status, minlength=11).tolist()}; "
             f"card {card}")
@@ -1510,25 +1779,8 @@ def main():
             failures.append(f"[8] BatchSolver.solve did not launch K1b's "
                             f"{src} on the exp path")
     # where one exp solve's wall time goes at the largest batch (as [4])
-    data = tuple(a[:max(NONSYM_THROUGHPUT)] for a in exp_big)
-    marks = [time.perf_counter()]
-    megakernel.prepare(*data, exp_spec, "cpu")
-    marks.append(time.perf_counter())
-    B, flats = megakernel.prepare(*data, exp_spec, dev)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    vals, ints = _cuda.megakernel(*flats, exp_spec, B)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    eager, _ = megakernel.split_outputs(vals, ints, exp_spec)
-    megakernel.unpack_eager(eager.cpu().numpy(), exp_spec.n)
-    marks.append(time.perf_counter())
-    steps = np.diff(marks) * 1e3
-    print(f"[8] exp B={B} one solve, ms: host packing {steps[0]:.2f}; "
-          f"packing + copy to the card {steps[1]:.2f}; kernel "
-          f"{steps[2]:.2f}; copy back + unpack {steps[3]:.2f}; card {card}",
-          flush=True)
-    del flats, vals, ints
+    main_path_steps(8, "exp", tuple(a[:max(NONSYM_THROUGHPUT)]
+                                    for a in exp_big), exp_spec, card)
     out, _ = exp_out[NONSYM_B]
     P, q, A, b = exp_data
     rp, rd, sz = true_kkt(P, q, A, b, out.x, out.z, out.s)
@@ -1696,12 +1948,10 @@ def main():
         at `rescue_sizes`."""
         solver = ctt.BatchSolver(cones, n)
         spec = solver._mega_fn.spec
-        k_ms = {}
+        k_ms, k_chunks = {}, {}
         for B in sizes:
-            _, flats = megakernel.prepare(*(a[:B] for a in big), spec, dev)
-            k_ms[B], _ = events_ms(
-                lambda: _cuda.megakernel(*flats, spec, B), 3)
-            del flats
+            k_ms[B], k_chunks[B] = chunked_kernel_ms(
+                tuple(a[:B] for a in big), spec)
         lines, outs = [], {}
         _cuda.megakernel.launches = 0      # this path's run starts here
         for B in sizes:
@@ -1720,7 +1970,7 @@ def main():
                 f"[{phase}] {name} B={B}: {solved / wall:,.0f} certified "
                 f"solves/s wall (best of 3: {wall * 1e3:.2f} ms), "
                 f"{solved / (k_ms[B] / 1e3):,.0f} kernel-only "
-                f"({k_ms[B]:.3f} ms); SOLVED {solved}, ALMOST {counts[4]}, "
+                f"({k_ms[B]:.3f} ms, {k_chunks[B]} chunks); SOLVED {solved}, ALMOST {counts[4]}, "
                 f"MAX_ITERATIONS {counts[7]}, statuses {counts}; mean iters "
                 f"{out.iterations.mean():.3f}; card {card}")
         launches = _cuda.megakernel.launches   # ... and ends here
@@ -1731,25 +1981,8 @@ def main():
         if launches <= 0:
             failures.append(f"[{phase}] BatchSolver.solve did not launch "
                             f"the {name} kernel")
-        data = tuple(a[:max(sizes)] for a in big)
-        marks = [time.perf_counter()]
-        megakernel.prepare(*data, spec, "cpu")
-        marks.append(time.perf_counter())
-        B, flats = megakernel.prepare(*data, spec, dev)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        vals, ints = _cuda.megakernel(*flats, spec, B)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        eager, _ = megakernel.split_outputs(vals, ints, spec)
-        megakernel.unpack_eager(eager.cpu().numpy(), spec.n)
-        marks.append(time.perf_counter())
-        steps = np.diff(marks) * 1e3
-        print(f"[{phase}] {name} B={B} one solve, ms: host packing "
-              f"{steps[0]:.2f}; packing + copy to the card {steps[1]:.2f}; "
-              f"kernel {steps[2]:.2f}; copy back + unpack {steps[3]:.2f}; "
-              f"card {card}", flush=True)
-        del flats, vals, ints
+        main_path_steps(phase, name, tuple(a[:max(sizes)] for a in big),
+                        spec, card)
         B0 = min(sizes)
         out = outs[B0]
         P, q, A, b = (a[:B0] for a in big)
@@ -1842,6 +2075,24 @@ def main():
     clock.start("[11]")
     k1e = two_phase_phase(card, failures, big, psd_big, cases["qp_eq"][2],
                           exp_data)
+
+    # ---- phase 12: the main path's host side, one dispatch and chunks ----
+    clock.start("[12]")
+    chunked = chunk_phase(card, failures, {
+        "bench": (nn_soc, BENCH_N, BARS["bench"], big),
+        "psd3": (psd3_cones, 3, PSD_BARS["psd3"], psd_big),
+        "exp": (exp_cones, NONSYM_N, NONSYM_BARS["exp"], exp_big)})
+    print(f"[12] launches of the chunked runs, by source: {chunked}",
+          flush=True)
+
+    # ---- phase 13: the single-instance Solver ----
+    clock.start("[13]")
+    solver_k2 = solver_phase(card, failures)
+    print(f"[13] K2 launches of the Solver under mixed precision: "
+          f"{solver_k2}", flush=True)
+    if any(k == "jax" or k.startswith(("jax.", "clarabel_tpu."))
+           or k == "clarabel_tpu" for k in sys.modules):
+        failures.append("the port pulled in JAX or the JAX package")
 
     clock.start(None)
     if failures:

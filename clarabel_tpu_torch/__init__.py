@@ -6,15 +6,19 @@ A homogeneous-embedding interior-point method for convex conic programs
 
 written in PyTorch for an NVIDIA H100, beside the JAX package that stays
 as its reference.  The port so far covers `BatchSolver` over batches of
-same-layout programs with zero, nonnegative, second-order, exponential and
-power cones: the whole batched solve as one hand-written CUDA kernel
-(`csrc/megakernel.cu`; exp and pow cones as its K1b part), the batched
-IPM loop solver with the dense ldl and condensed KKT backends (float64,
-float32 and mixed precision; float32 factors through the CUDA LDL kernel
-`csrc/ldl_inverse.cu`), and the rescue cascade.  On the CPU (the caller
-passes `device="cpu"`) each kernel's plain PyTorch version runs instead.
+same-layout programs with every cone family of the reference: the whole
+batched solve as hand-written CUDA kernels (`csrc/megakernel.cu`,
+`csrc/megakernel_group.cu`), fed in chunks that overlap the copies with the
+kernels, the batched IPM loop solver with the dense ldl and condensed KKT
+backends (float64, float32 and mixed precision; float32 factors through
+the CUDA LDL kernels `csrc/ldl_inverse*.cu`), and the rescue cascade; the
+single-instance `Solver` on the dense path (presolve, chordal
+decomposition, data updates, JSON files); and `entry()`
+(`clarabel_tpu_torch/entry.py`).  On the CPU (the caller passes
+`device="cpu"`) each kernel's plain PyTorch version runs instead.
 
-The package imports torch and numpy only.
+The package imports torch and numpy; the JSON reader and writer
+(`io/json_io.py`) also scipy.sparse, when they are called.
 """
 
 from .settings import Settings
@@ -29,6 +33,7 @@ from .cones.api import (
     PSDTriangleConeT,
 )
 from .parallel.batch_impl import BatchSolver, BatchSolution
+from .api import Solver, DefaultSolution, DefaultInfo
 
 __version__ = "0.1.0"
 
@@ -54,3 +59,18 @@ def set_infinity(v: float) -> None:
 
 def default_infinity() -> None:
     set_infinity(_INFINITY_DEFAULT)
+
+
+def save_to_file(solver, filename: str) -> None:
+    """Write a `Solver`'s problem and settings to a Clarabel JSON file
+    (io/json_io.py)."""
+    from .io.json_io import save_to_file as _save
+
+    _save(solver, filename)
+
+
+def load_from_file(filename: str, settings=None, device=None):
+    """A set-up `Solver` for a Clarabel JSON file (io/json_io.py)."""
+    from .io.json_io import load_from_file as _load
+
+    return _load(filename, settings, device=device)

@@ -3,11 +3,16 @@
 `from_reference(settings_dict, cone_specs)` takes the reference's settings
 as a plain dict (`dataclasses.asdict` of a `clarabel_tpu.Settings`) and its
 cones as `(class name, dims or alpha)` tuples, and returns the port's
-`Settings` and cone objects.  Plain dicts and tuples keep the port free of
-any import of the reference package.
+`Settings` and cone objects.  `solver_from_reference(ref_solver)` carries a
+set-up `clarabel_tpu.Solver`'s problem into a port `Solver`.  Plain dicts,
+tuples, arrays and attribute reads keep the port free of any import of the
+reference package.
 """
 
+import dataclasses
 from typing import List, Sequence, Tuple
+
+import numpy as np
 
 from .cones import api as cones_api
 from .settings import Settings
@@ -48,3 +53,19 @@ def from_reference(settings_dict: dict, cone_specs: Sequence[Tuple]
     cone tuples.  Unknown setting names raise ValueError."""
     return (Settings.from_dict(dict(settings_dict)),
             [cone_from_tuple(c) for c in cone_specs])
+
+
+def solver_from_reference(ref_solver, device=None):
+    """A port `Solver` set up on the problem a set-up reference `Solver`
+    holds: its P (full symmetric), q, A, b, cones and settings, read as
+    plain arrays and tuples.  That is the problem the reference solves,
+    after its presolve and chordal decomposition where they ran (so the
+    port runs neither again on it)."""
+    from .api import Solver
+
+    settings, cones = from_reference(
+        dataclasses.asdict(ref_solver.settings),
+        [cone_to_tuple(c) for c in ref_solver.cones])
+    return Solver(*(np.array(getattr(ref_solver, k), dtype=np.float64)
+                    for k in ("_P_full", "_q", "_A", "_b")),
+                  cones, settings, device=device)

@@ -12,10 +12,15 @@ eligibility rule, the host-side packing of the data into component-major,
 lane-minor flats with batch-constant components passed once, the output
 row layout, and the lazily materialized outputs.
 
-Dispatch: one kernel launch per solve, whatever the batch size.  The
-reference chunks lanes (`_chunk_lanes`) to overlap transfers with compute
-over the TPU host link; the port has no measurement on the card that asks
-for chunks, so it makes one dispatch (PERF.md).
+Dispatch: the batch goes to the kernel in chunks of lanes, as in the
+reference (`_chunk_lanes`, `solve`; clarabel_tpu/ipm/megakernel.py:
+3692-3790): on a card, chunk k+1 is staged in pinned host memory and copied
+on a copy stream while chunk k's kernel runs on the current stream, events
+ordering the two.  The chunk rule keeps the reference's structure (a byte
+budget, a batch-aware power of two of 1024-lane blocks) with the constants
+measured on the card (`chunk_lanes`; PERF.md section 5).  The outputs of
+every chunk are gathered on the device, then fetched once (the eager
+fields) and once more when a lazy field is first read.
 """
 
 import dataclasses
@@ -179,8 +184,93 @@ REST_NAMES = ["obj_val_dual", "r_prim", "r_dual", "gap_abs", "gap_rel",
               "raw_status", "p1_iterations"]
 
 
+def _as_host(P, q, A, b):
+    return tuple(np.asarray(x, np.float64) for x in (P, q, A, b))
+
+
+def is_const(arr) -> bool:
+    """Every batch entry equals the first: the cheap arr[1] probe rejects
+    a varying batch before the full scan."""
+    return (arr.shape[0] > 1 and np.array_equal(arr[1], arr[0])
+            and bool((arr == arr[0]).all()))
+
+
+def _triu_ij(n: int):
+    return (np.concatenate([np.arange(j + 1) for j in range(n)]),
+            np.concatenate([np.full(j + 1, j) for j in range(n)]))
+
+
+def _host_exts(spec: MegaSpec):
+    """Per component, raw (b, ...) host array -> its (b, d) flat rows."""
+    n, m = spec.n, spec.m
+    tri_i, tri_j = _triu_ij(n)
+    return [
+        lambda x: x[:, tri_i, tri_j],
+        lambda x: x.reshape(len(x), n),
+        lambda x: x.transpose(0, 2, 1).reshape(len(x), n * m),
+        lambda x: x.reshape(len(x), m),
+    ]
+
+
+def _lane_minor(rows):
+    """(b, d) -> a new (d, b) tensor with unit lane stride, also at b = 1
+    (where `.T.contiguous()` keeps the view's strides)."""
+    out = rows.new_empty((rows.shape[1], rows.shape[0]))
+    return out.copy_(rows.T)
+
+
+def _device_exts(spec: MegaSpec, device):
+    """Per component, raw (b, ...) tensor -> its (d, b) lane-minor flat, by
+    indexing and transposes on the tensor's device: the same values as
+    the host's exts (no arithmetic), so the same bits."""
+    n, m = spec.n, spec.m
+    tri_i, tri_j = (torch.from_numpy(t).to(device) for t in _triu_ij(n))
+    return [
+        lambda x: _lane_minor(x[:, tri_i, tri_j]),
+        lambda x: _lane_minor(x.reshape(len(x), n)),
+        lambda x: _lane_minor(x.transpose(1, 2).reshape(len(x), n * m)),
+        lambda x: _lane_minor(x.reshape(len(x), m)),
+    ]
+
+
+def shared_flats(raws, const, spec: MegaSpec, device):
+    """The batch-constant components' (d,) flats on `device` (None where a
+    component varies)."""
+    exts = _host_exts(spec)
+    return [torch.from_numpy(np.ascontiguousarray(ext(raw[:1])[0])).to(device)
+            if c else None for raw, c, ext in zip(raws, const, exts)]
+
+
+def host_pack(raws, const, spec: MegaSpec, lo: int, hi: int):
+    """Lanes lo:hi of the varying components packed on the host into one
+    (sum of d, hi - lo) array, rows in component order."""
+    parts = [ext(raw[lo:hi]) for raw, c, ext in
+             zip(raws, const, _host_exts(spec)) if not c]
+    out = np.empty((sum(f.shape[1] for f in parts), hi - lo))
+    off = 0
+    for f in parts:
+        out[off:off + f.shape[1]] = f.T
+        off += f.shape[1]
+    return out
+
+
+def split_packed(dev_packed, const, spec: MegaSpec):
+    """(sum of d, b) packed rows -> the varying components' flats (row
+    blocks of it, None for the batch-constant ones)."""
+    dims = (spec.triu, spec.n, spec.n * spec.m, spec.m)
+    flats, off = [], 0
+    for c, d in zip(const, dims):
+        if c:
+            flats.append(None)
+        else:
+            flats.append(dev_packed[off:off + d])
+            off += d
+    return flats
+
+
 def prepare(P, q, A, b, spec: MegaSpec, device):
-    """Host arrays -> the kernel's four input flats on `device`.
+    """Host arrays -> the kernel's four input flats on `device`, for one
+    dispatch over the whole batch.
 
     P may be full-symmetric or upper-triangular: only its upper triangle
     is read.  A component whose every batch entry is identical is passed
@@ -188,50 +278,120 @@ def prepare(P, q, A, b, spec: MegaSpec, device):
     ones are packed into one (sum of d, B) host array, moved in one copy,
     and handed on as contiguous row blocks of it.  Returns
     (B, [Ptri, q, A, b])."""
-    n, m = spec.n, spec.m
-    P = np.asarray(P, np.float64)
-    q = np.asarray(q, np.float64)
-    A = np.asarray(A, np.float64)
-    b = np.asarray(b, np.float64)
-    B = q.shape[0]
-    tri_i = np.concatenate([np.arange(j + 1) for j in range(n)])
-    tri_j = np.concatenate([np.full(j + 1, j) for j in range(n)])
-
-    def is_const(arr):
-        return (arr.shape[0] > 1 and np.array_equal(arr[1], arr[0])
-                and bool((arr == arr[0]).all()))
-
-    exts = [
-        (P, lambda x: x[:, tri_i, tri_j]),
-        (q, lambda x: x.reshape(len(x), n)),
-        (A, lambda x: x.transpose(0, 2, 1).reshape(len(x), n * m)),
-        (b, lambda x: x.reshape(len(x), m)),
-    ]
-    flats, varying = [None] * 4, []
-    for i, (raw, ext) in enumerate(exts):
-        if is_const(raw):
-            flats[i] = torch.from_numpy(
-                np.ascontiguousarray(ext(raw[:1])[0])).to(device)
-        else:
-            varying.append((i, ext(raw)))
-    if varying:
-        packed = np.empty((sum(f.shape[1] for _, f in varying), B))
-        off = 0
-        for _, f in varying:
-            packed[off:off + f.shape[1]] = f.T
-            off += f.shape[1]
-        dev_packed = torch.from_numpy(packed).to(device)
-        off = 0
-        for i, f in varying:
-            flats[i] = dev_packed[off:off + f.shape[1]]
-            off += f.shape[1]
+    raws = _as_host(P, q, A, b)
+    B = raws[1].shape[0]
+    const = [is_const(r) for r in raws]
+    flats = shared_flats(raws, const, spec, device)
+    if not all(const):
+        dev_packed = torch.from_numpy(
+            host_pack(raws, const, spec, 0, B)).to(device)
+        for i, f in enumerate(split_packed(dev_packed, const, spec)):
+            if f is not None:
+                flats[i] = f
     return B, flats
+
+
+# ---- the chunk rule (the reference's `_chunk_lanes`,
+# clarabel_tpu/ipm/megakernel.py:3692-3718), its constants measured on the
+# H100 (run H1 of `tools/host_probe.py`, PERF.md section 5): a chunk below
+# 16384 lanes leaves the card's SMs idle (bench at 131072, device packing:
+# 16 chunks of 8192 lanes 60.5 ms wall, 8 of 16384 50.2, 4 of 32768 47.5,
+# one dispatch 53.4; psd3 50.4, 32.6, 37.3, 48.7), and at B = 4096 one
+# dispatch beat two chunks on bench, psd3 and exp ----
+BLOCK = 1024                  # lanes per block of the rule
+CHUNK_BYTE_BUDGET = 1 << 30   # bytes staged per dispatch
+CHUNK_WORK_FACTOR = 4         # inputs, kernel state and kept outputs
+CHUNK_MAX_BLOCKS = 64         # the largest chunk, in blocks
+CHUNKS_PER_BATCH = 8          # a batch is cut into about this many chunks
+CHUNK_MIN_BLOCKS = 16         # ... of at least this many blocks
+
+
+def chunk_lanes(packed_width: int, total_lanes: int) -> int:
+    """Lanes per dispatch for a batch of `total_lanes` whose varying
+    components are `packed_width` values a lane: a power of two of BLOCK
+    lanes within the byte budget and CHUNK_MAX_BLOCKS, grown with the
+    batch (about CHUNKS_PER_BATCH chunks, at least CHUNK_MIN_BLOCKS
+    blocks)."""
+    lane_bytes = max(packed_width, 1) * 8 * CHUNK_WORK_FACTOR
+    blocks = max(1, CHUNK_BYTE_BUDGET // (lane_bytes * BLOCK))
+    blocks = 1 << min(int(blocks).bit_length() - 1,
+                      CHUNK_MAX_BLOCKS.bit_length() - 1)
+    want = max(CHUNK_MIN_BLOCKS,
+               min(blocks, total_lanes // (CHUNKS_PER_BATCH * BLOCK)))
+    want = 1 << (want.bit_length() - 1)
+    return min(blocks, want) * BLOCK
+
+
+_COPY_STREAMS = {}
+
+
+def _copy_stream(device):
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _COPY_STREAMS:
+        _COPY_STREAMS[index] = torch.cuda.Stream(device=index)
+    return _COPY_STREAMS[index]
+
+
+def _stage(arrays, device, copy_stream, compute_stream):
+    """Host arrays -> tensors on `device`.  On a card each array is staged
+    in pinned memory and copied on `copy_stream`; the compute stream
+    waits for the copy's event, and the tensors are marked as used there.
+    Returns (tensors, the pinned buffers, which must outlive the copy)."""
+    if device.type != "cuda":
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays], []
+    pinned = []
+    for a in arrays:
+        buf = torch.empty(a.shape, dtype=torch.float64, pin_memory=True)
+        buf.numpy()[...] = a
+        pinned.append(buf)
+    with torch.cuda.stream(copy_stream):
+        outs = [buf.to(device, non_blocking=True) for buf in pinned]
+        done = torch.cuda.Event()
+        done.record(copy_stream)
+    compute_stream.wait_event(done)
+    for t in outs:
+        t.record_stream(compute_stream)
+    return outs, pinned
+
+
+def staged_chunks(P, q, A, b, spec: MegaSpec, device, chunk=None):
+    """Host arrays -> the kernel's input flats on `device`, chunk by chunk:
+    yields (lo, hi, flats of lanes lo:hi, the pinned buffers, which must
+    outlive the chunk's copy).  `chunk`: lanes a chunk (None: the rule,
+    `chunk_lanes`).  The batch-constant components are passed once; each
+    chunk's varying ones are copied raw (on a card from pinned memory, on
+    the copy stream) and gathered into lane-minor flats on the device.
+    The host stages chunk k+1 while the caller's launch of chunk k runs."""
+    device = torch.device(device)
+    raws = _as_host(P, q, A, b)
+    B = raws[1].shape[0]
+    const = [is_const(r) for r in raws]
+    flats = shared_flats(raws, const, spec, device)
+    dims = (spec.triu, spec.n, spec.n * spec.m, spec.m)
+    width = sum(d for d, c in zip(dims, const) if not c)
+    C = chunk_lanes(width, B) if chunk is None else max(1, int(chunk))
+    on_card = device.type == "cuda"
+    copy_stream = _copy_stream(device) if on_card else None
+    compute = torch.cuda.current_stream(device) if on_card else None
+    dev_exts = _device_exts(spec, device)
+    idx = [i for i, c in enumerate(const) if not c]
+    for lo in range(0, B, C):
+        hi = min(B, lo + C)
+        cf, pinned = list(flats), []
+        if idx:
+            staged, pinned = _stage([raws[i][lo:hi] for i in idx], device,
+                                    copy_stream, compute)
+            for i, t in zip(idx, staged):
+                cf[i] = dev_exts[i](t)
+        yield lo, hi, cf, pinned
 
 
 def solve_flats(Ptri, q, A, b, spec: MegaSpec, B: int):
     """The megakernel wrapper over B lanes: on CUDA tensors it launches
-    the kernel (or raises); on CPU tensors it runs the plain PyTorch
-    version.  B is passed, not read from the flats: every flat may be a
+    the kernel (or raises), the library a batch of B lanes takes; on CPU
+    tensors it runs the plain PyTorch version.
+    B is passed, not read from the flats: every flat may be a
     batch-constant (d,) one.  Returns (vals (OUTD, B) float64, ints (4, B)
     int32: status, iterations, final scaling strategy, iterations of the
     float32 first phase)."""
@@ -325,18 +485,37 @@ class LazyOutputs(dict):
 
 def build_mega_solve(layout: ConeLayout, settings: Settings, n: int,
                      p_nonzero: bool = True,
-                     device: Optional[torch.device] = None):
+                     device: Optional[torch.device] = None,
+                     chunk: Optional[int] = None):
     """Returns solve(P, q, A, b) over batch-major (B, ...) host arrays,
-    yielding the reference's output dict (a LazyOutputs)."""
+    yielding the reference's output dict (a LazyOutputs).
+
+    `chunk`: lanes per dispatch (None: `chunk_lanes`, the measured rule;
+    a value at least B makes one dispatch).  Each chunk copies the raw
+    (b, ...) arrays of its varying components and gathers them into
+    lane-minor flats on the device, which was faster than the numpy
+    packing of `prepare` at 131072 lanes on bench, psd3 and exp (wall 53.4
+    against 87.2, 48.7 against 111.6, 14.4 against 21.9 ms in one
+    dispatch) and within the turns' spread at 4096 (run H1, PERF.md
+    section 5).  A chunk launches the library of its own size, which was
+    the faster where the two differ (DEVIATIONS.md #7)."""
     spec = make_spec(layout, settings, n, p_nonzero)
     device = torch.device(device) if device is not None else \
         torch.device("cuda")
 
     def solve(P, q, A, b):
-        B, flats = prepare(P, q, A, b, spec, device)
-        vals, ints = solve_flats(*flats, spec, B)
+        outs, keep = [], []
+        for lo, hi, cf, pinned in staged_chunks(P, q, A, b, spec, device,
+                                                chunk):
+            outs.append(solve_flats(*cf, spec, hi - lo))
+            keep += pinned
+        vals = torch.cat([v for v, _ in outs], dim=1) if len(outs) > 1 \
+            else outs[0][0]
+        ints = torch.cat([i for _, i in outs], dim=1) if len(outs) > 1 \
+            else outs[0][1]
         eager, rest = split_outputs(vals, ints, spec)
         out = unpack_eager(eager.cpu().numpy(), n)
+        del keep   # the eager fetch waited for every copy
 
         def fetch_rest():
             return unpack_rest(rest.cpu().numpy(), spec.m)

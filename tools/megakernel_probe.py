@@ -71,6 +71,16 @@ with its IPM pass replayed as a CUDA graph against the pass left eager,
 on `Settings.throughput()` bench and the condensed exp loop, in turns:
 where `ipm/loop.GRAPH_MAX_LANES` comes from.
 
+`bars --family psd3 [--seeds S] [--sizes B]` reads psd3 at B = 131072 on
+two data seeds (13, chip_smoke.py's, and 14): the kernel in one dispatch
+(whose bits every chunk of the rule has, chip_smoke.py [12]) and the
+plain version with q moved by 1e-15 over S seeds, each against the plain
+version and held to `PSD_BARS["psd3"]`; then, on the lanes where the
+kernel's |dx| exceeds the x bar (or its three largest), a second
+witness: the float64 loop solver on the CPU, each lane alone, at 1e-8,
+1e-10 and 1e-11, and each solution's distance from the tightest that
+reached SOLVED.
+
 Each prints one line per reading, with the card's name and power limit,
 and with --out writes the readings to a JSON file.  None imports JAX or
 the JAX package.
@@ -924,6 +934,116 @@ def bars_k2(args, card, out):
     return []
 
 
+def bars_psd3(args, card, out):
+    """psd3 at scale (see the module's docstring): whether the kernel's x
+    reading above the bar is the kernel's or the lane's."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from clarabel_tpu_torch.ipm import megakernel_ref
+
+    bars_ = cs.PSD_BARS["psd3"]
+    cones = [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)]
+    spec = spec_of(cases()["K1d psd3"])
+    dev = torch.device("cuda")
+    B = int(args.sizes.split(",")[-1])
+    cuda_build.build_together(
+        (_cuda.megakernel, [_cuda.megakernel.variant(spec, B, dev)]))
+    seeds = list(range(7, 7 + args.seeds))
+    for data_seed in (13, 14):
+        P, q, A, b = bench_data.make_sdp_batch(B, 3, data_seed)
+        _, flats = megakernel.prepare(P, q, A, b, spec, dev)
+        p = cs.outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B),
+                       spec)
+        k = cs.outputs(*_cuda.megakernel(*flats, spec, B), spec)
+        r = cs.readings(k, p, P, q, A, b)
+        print(f"psd3 seed {data_seed} B={B} kernel vs plain: "
+              f"{cs.describe(r)}; fails: "
+              f"{', '.join(cs.violations(r, bars_, B)) or 'none'}; card "
+              f"{card}", flush=True)
+        out.append(dict(seed=data_seed, who="kernel", B=B, dx=r["dx"],
+                        it_max=r["it_max"], within1=r["within1"],
+                        fails=cs.violations(r, bars_, B)))
+        del flats
+        jit = []
+        for js in seeds:
+            qj = q * (1 + 1e-15 * np.random.default_rng(js)
+                      .standard_normal(q.shape))
+            _, fj = megakernel.prepare(P, qj, A, b, spec, dev)
+            pj = cs.outputs(*megakernel_ref.mega_solve_plain(*fj, spec, B),
+                            spec)
+            del fj
+            rj = cs.readings(pj, p, P, qj, A, b)
+            print(f"psd3 seed {data_seed} B={B} plain(q jitter seed {js}) "
+                  f"vs plain: {cs.describe(rj)}; fails: "
+                  f"{', '.join(cs.violations(rj, bars_, B)) or 'none'}",
+                  flush=True)
+            out.append(dict(seed=data_seed, who=f"plain jitter {js}", B=B,
+                            dx=rj["dx"], it_max=rj["it_max"],
+                            within1=rj["within1"],
+                            fails=cs.violations(rj, bars_, B)))
+            jit.append(pj)
+        both = (k["status"] == 1) & (p["status"] == 1)
+        dx = np.where(both, np.abs(k["x"] - p["x"]).max(axis=1), 0.0)
+        lanes = np.nonzero(dx > bars_["x"])[0]
+        if lanes.size == 0:
+            lanes = np.argsort(dx)[-3:]
+        for lane in lanes:
+            # the witness, each lane alone: the tightest tolerance at which
+            # the loop solves it (its eigenvalue step can fail to converge
+            # near the end)
+            wit = {}
+            for tol in (1e-8, 1e-10, 1e-11):
+                st = ctt.Settings(kkt_backend="ldl", tol_gap_abs=tol,
+                                  tol_gap_rel=tol, tol_feas=tol)
+                try:
+                    sol = ctt.BatchSolver(cones, 3, st, device="cpu").solve(
+                        P[lane:lane + 1], q[lane:lane + 1],
+                        A[lane:lane + 1], b[lane:lane + 1])
+                except RuntimeError as exc:
+                    print(f"psd3 seed {data_seed} lane {lane}: the loop at "
+                          f"{tol:.0e} raised {type(exc).__name__}",
+                          flush=True)
+                    continue
+                wit[tol] = (np.asarray(sol.x)[0], int(sol.status[0]),
+                            int(sol.iterations[0]))
+            solved = [t for t in wit if wit[t][1] == 1]
+            tol_w = min(solved or wit)
+            xw = wit[tol_w][0]
+
+            def far(x):
+                return float(np.abs(x[lane] - xw).max())
+
+            row = dict(
+                seed=data_seed, lane=int(lane),
+                kernel_vs_plain=float(dx[lane]),
+                plain_jitter_vs_plain=max(
+                    float(np.abs(pj["x"][lane] - p["x"][lane]).max())
+                    for pj in jit),
+                witness_tol=tol_w, witness_status=wit[tol_w][1],
+                witness_iterations=wit[tol_w][2],
+                kernel_to_witness=far(k["x"]), plain_to_witness=far(p["x"]),
+                plain_jitter_to_witness=max(far(pj["x"]) for pj in jit),
+                loop_1e8_to_witness=(float(np.abs(wit[1e-8][0] - xw).max())
+                                     if 1e-8 in wit else None),
+                iterations=dict(kernel=int(k["iterations"][lane]),
+                                plain=int(p["iterations"][lane])))
+            out.append(row)
+            print(f"psd3 seed {data_seed} lane {lane}: |dx| kernel vs plain "
+                  f"{row['kernel_vs_plain']:.3e}, plain jittered vs plain "
+                  f"(largest of {len(seeds)}) "
+                  f"{row['plain_jitter_vs_plain']:.3e}; distance from the "
+                  f"loop at {tol_w:.0e} (status {row['witness_status']}, "
+                  f"{row['witness_iterations']} iterations): kernel "
+                  f"{row['kernel_to_witness']:.3e}, plain "
+                  f"{row['plain_to_witness']:.3e}, plain jittered (largest) "
+                  f"{row['plain_jitter_to_witness']:.3e}, the loop at 1e-8 "
+                  f"{row['loop_1e8_to_witness'] or 0.0:.3e}; iterations kernel "
+                  f"{row['iterations']['kernel']}, plain "
+                  f"{row['iterations']['plain']}", flush=True)
+        torch.cuda.empty_cache()
+    return []
+
+
 def bars(args, card, out):
     """chip_smoke.py's bars of [2], [3] and [11] (kernel against its plain
     version on the card, B = 4096) for the one-lane-per-thread kernel and
@@ -936,6 +1056,8 @@ def bars(args, card, out):
         return bars_nonsym(args, card, out)
     if args.family == "k2":
         return bars_k2(args, card, out)
+    if args.family == "psd3":
+        return bars_psd3(args, card, out)
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from clarabel_tpu_torch.ipm import megakernel_ref
@@ -1226,10 +1348,13 @@ def main():
                     help="sweep --parts nsweep: the group kernel's group "
                     "sizes, comma-separated, each G or G:mbK (K blocks of "
                     "64 an SM in __launch_bounds__)")
-    ap.add_argument("--family", default="k1a", choices=("k1a", "k1b", "k2"),
-                    help="bars: which kernels' bars (K1a and K1e, K1b, K2)")
+    ap.add_argument("--family", default="k1a",
+                    choices=("k1a", "k1b", "k2", "psd3"),
+                    help="bars: which kernels' bars (K1a and K1e, K1b, K2, "
+                    "psd3 at --sizes' last B)")
     ap.add_argument("--seeds", type=int, default=3,
-                    help="bars --family k1b|k2: how many jitter seeds")
+                    help="bars --family k1b|k2|psd3: how many jitter "
+                    "seeds")
     ap.add_argument("--no-bars", action="store_true",
                     help="sweep --parts nsweep: times only")
     ap.add_argument("--turns", type=int, default=1,
