@@ -67,8 +67,16 @@ port's paths through `BatchSolver.solve` and prints what it measured:
 * [13] the single-instance `Solver` on the card: the verify drive, the
   verify drive with mixed precision (K2 launches counted), and a primal-
   and a dual-infeasible problem, against the reference's outputs in
-  tests/torch_fixtures/solver.npz; then the check that nothing imported
-  JAX.
+  tests/torch_fixtures/solver.npz;
+* [14] the `Solver`'s sparse and structured KKT on the card at full size:
+  the 60x60 grid QP (multifrontal, float32 fronts), the AUG2DC-scale
+  banded QP (multifrontal, float64 fronts; then update_q and update_b and
+  a warm re-solve that analyzes nothing again) and the robust
+  least-squares SOCP with a 2001-row SOC (block-arrow with the rank-2 SMW
+  correction), against the reference's outputs in
+  tests/torch_fixtures/sparse.npz, with the setup split (analysis, maps,
+  the rest), cold and warm solve, time per IPM iteration and
+  factorizations; then the check that nothing imported JAX.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -251,6 +259,21 @@ JITTER_SEEDS = (7, 8, 9)
 # tests/torch_fixtures/solver.npz, with the reference Solver's outputs
 SOLVER_FIXTURE = os.path.join("tests", "torch_fixtures", "solver.npz")
 SOLVER_N = 8            # n + m of the verify drive: K2's N under mixed
+
+
+# [14] the sparse and structured Solver: the large cases of
+# tests/torch_fixtures/sparse.npz, remade from the port's generators
+# (bench_data), held to the reference Solver's outputs: backend and plan
+# type equal, status equal, iterations within SPARSE_IT_TOL, objective
+# within SPARSE_TOL * max(1, |obj|) and x within SPARSE_TOL * max(1,
+# |x|inf), and the true-KKT residuals (2-norms) of the port's own output
+# below KKT_TOL (tests/test_megakernel.py:66-95).  |s'z| is printed beside
+# the reference's own, not held: the reference's solution of banded2500
+# reads 6.09e-6 (the fixture), above the North star's SZ_TOL
+# (DEVIATIONS.md #18).
+SPARSE_FIXTURE = os.path.join("tests", "torch_fixtures", "sparse.npz")
+SPARSE_CASES = ("grid60", "banded2500", "rls2000")
+SPARSE_TOL, SPARSE_IT_TOL = 1e-6, 4
 
 
 def fail(msg):
@@ -1342,6 +1365,163 @@ def solver_phase(card, failures):
     return k2_launches
 
 
+def sparse_problem(name):
+    """(P, q, A, b, cones, settings) of a [14] case, from the port's
+    generators at the size of the repository's configurations."""
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+
+    if name == "grid60":
+        P, q, A, b = bench_data.grid_qp_sparse(60)
+        return P, q, A, b, [ctt.NonnegativeConeT(3600)], ctt.Settings()
+    if name == "banded2500":
+        P, q, A, b, cones = bench_data.large_banded_qp_sparse(2500)
+        return P, q, A, b, cones, ctt.Settings()
+    P, q, A, b, cones, _, _ = bench_data.robust_ls_banded(m=2000, n=500)
+    return P, q, A, b, cones, ctt.Settings(sparse_data=True)
+
+
+def sparse_true_kkt(P, q, A, b, sol):
+    """2-norms of the primal and dual residuals of the original sparse
+    problem at the solution, and |s'z|."""
+    import scipy.sparse as sp
+
+    U = sp.triu(sp.csr_matrix(P))
+    Pf = U + sp.triu(U, 1).T
+    A = sp.csr_matrix(A)
+    return (float(np.linalg.norm(A @ sol.x + sol.s - b)),
+            float(np.linalg.norm(Pf @ sol.x + q + A.T @ sol.z)),
+            float(abs(sol.s @ sol.z)))
+
+
+def sparse_check(tag, fix, key, sol, kkt, failures):
+    """Hold one solution to the fixture's outputs under `key` and to the
+    true-KKT bar; returns (max|dx| relative, |dobj| relative)."""
+    ref_x = fix[f"{key}_x"]
+    ref_obj = float(fix[f"{key}_obj_val"])
+    ref_status = int(fix[f"{key}_status"])
+    ref_it = int(fix[f"{key}_iterations"])
+    dx = float(np.abs(sol.x - ref_x).max() / max(1.0, np.abs(ref_x).max()))
+    dobj = abs(sol.obj_val - ref_obj) / max(1.0, abs(ref_obj))
+    if int(sol.status) != ref_status:
+        failures.append(f"{tag}: status {sol.status.name}, the "
+                        f"reference's {ref_status}")
+    if abs(sol.iterations - ref_it) > SPARSE_IT_TOL:
+        failures.append(f"{tag}: {sol.iterations} iterations, the "
+                        f"reference's {ref_it}")
+    if not (dx <= SPARSE_TOL and dobj <= SPARSE_TOL):
+        failures.append(f"{tag}: x ({dx:.3e}) or objective ({dobj:.3e}) "
+                        f"off the reference")
+    if not (kkt[0] < KKT_TOL and kkt[1] < KKT_TOL):
+        failures.append(f"{tag}: true KKT {kkt[:2]}")
+    return dx, dobj
+
+
+def sparse_phase(card, failures):
+    """[14] The Solver's sparse and structured KKT on the card against the
+    reference Solver's outputs (tests/torch_fixtures/sparse.npz).  Returns
+    the readings per case."""
+    import torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import native_symbolic, structure, structure_nd
+
+    fix = np.load(os.path.join(HERE, SPARSE_FIXTURE))
+    loaded = native_symbolic.available()
+    print(f"[14] native symbolic library loaded: {loaded} "
+          f"({os.path.relpath(native_symbolic.LIB_PATH, HERE)})", flush=True)
+    if not loaded:
+        failures.append("[14] the native symbolic library did not load")
+    readings = {}
+    for name in SPARSE_CASES:
+        tag = f"[14] {name}"
+        P, q, A, b, cones, st = sparse_problem(name)
+        t0 = time.perf_counter()
+        solver = ctt.Solver(P, q, A, b, cones, st, device=DEVICE)
+        setup = time.perf_counter() - t0
+        split = dict(solver._setup_split)
+        counts = solver._solve_fn.counts
+        plan = type(solver._structure).__name__
+        f0 = counts["factorizations"]
+        t0 = time.perf_counter()
+        sol = solver.solve()       # the one fetch syncs with the card
+        cold = time.perf_counter() - t0
+        nfac = counts["factorizations"] - f0
+        t0 = time.perf_counter()
+        warm_sol = solver.solve()
+        warm = time.perf_counter() - t0
+        kkt = sparse_true_kkt(P, q, A, b, sol)
+        dx, dobj = sparse_check(tag, fix, name, sol, kkt, failures)
+        r = dict(setup_s=setup, analysis_s=split["analysis"],
+                 maps_s=split["maps"],
+                 rest_s=setup - split["analysis"] - split["maps"],
+                 cold_s=cold, warm_s=warm, iterations=sol.iterations,
+                 ms_per_iteration=warm / max(1, sol.iterations) * 1e3,
+                 factorizations=nfac, factor_dtype=counts["factor_dtype"],
+                 backend=solver._backend, plan=plan)
+        print(f"{tag}: {solver._backend} {plan} "
+              f"{fix[name + '_plan_shapes']} (reference "
+              f"{fix[name + '_backend']} {fix[name + '_plan']} "
+              f"{fix[name + '_plan_shapes']}), factors "
+              f"{counts['factor_dtype']}; {sol.status.name} in "
+              f"{sol.iterations} iterations (reference "
+              f"{int(fix[name + '_iterations'])}); x within {dx:.3e}, "
+              f"objective within {dobj:.3e} of the reference; true KKT "
+              f"{kkt[0]:.2e} {kkt[1]:.2e} |s'z| {kkt[2]:.2e} (reference "
+              f"{float(fix[name + '_kkt'][2]):.2e}); setup "
+              f"{setup:.3f} s (analysis {split['analysis']:.3f}, maps "
+              f"{split['maps']:.3f}, rest {r['rest_s']:.3f}); solve cold "
+              f"{cold:.3f} s, warm {warm:.3f} s, "
+              f"{r['ms_per_iteration']:.2f} ms per IPM iteration, "
+              f"{nfac} factorizations; card {card}", flush=True)
+        if solver._backend != str(fix[name + "_backend"]) \
+                or plan != str(fix[name + "_plan"]):
+            failures.append(f"{tag}: {solver._backend} {plan}, the "
+                            f"reference's {fix[name + '_backend']} "
+                            f"{fix[name + '_plan']}")
+        if not np.array_equal(warm_sol.x, sol.x):
+            failures.append(f"{tag}: the warm solve's x differs from the "
+                            f"cold solve's bits")
+        if name == "grid60" and counts["factor_dtype"] != "float32":
+            failures.append(f"{tag}: fronts in {counts['factor_dtype']}, "
+                            f"not float32")
+        if name == "rls2000" and solver._assembly.soc_rank2_min_dim is None:
+            failures.append(f"{tag}: no rank-2 SMW correction")
+        if name == "banded2500":
+            # update_q and update_b, then a warm re-solve that must not
+            # analyze the pattern again
+            def refuse(*a, **k):
+                raise RuntimeError("analysis after a data update")
+
+            saved = (structure.analyze_block_arrow,
+                     structure_nd.analyze_nested_dissection)
+            structure.analyze_block_arrow = refuse
+            structure_nd.analyze_nested_dissection = refuse
+            try:
+                q2, b2 = fix[f"{name}_updarg_q"], fix[f"{name}_updarg_b"]
+                t0 = time.perf_counter()
+                solver.update_q(q2)
+                solver.update_b(b2)
+                usol = solver.solve()
+                upd = time.perf_counter() - t0
+            finally:
+                (structure.analyze_block_arrow,
+                 structure_nd.analyze_nested_dissection) = saved
+            ukkt = sparse_true_kkt(P, q2, A, b2, usol)
+            udx, udobj = sparse_check(f"{tag} after update_q/update_b", fix,
+                                      f"{name}_upd", usol, ukkt, failures)
+            r.update(update_s=upd, update_iterations=usol.iterations)
+            print(f"{tag} after update_q and update_b: {usol.status.name} "
+                  f"in {usol.iterations} iterations (reference "
+                  f"{int(fix[name + '_upd_iterations'])}), x within "
+                  f"{udx:.3e}, objective within {udobj:.3e}; true KKT "
+                  f"{ukkt[0]:.2e} {ukkt[1]:.2e}; update and warm solve "
+                  f"{upd:.3f} s, no analysis; card {card}", flush=True)
+        readings[name] = r
+        del solver
+        torch.cuda.empty_cache()
+    return readings
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "clarabel_tpu_torch")):
         fail("clarabel_tpu_torch/ is not beside chip_smoke.py: run it from "
@@ -2090,6 +2270,11 @@ def main():
     solver_k2 = solver_phase(card, failures)
     print(f"[13] K2 launches of the Solver under mixed precision: "
           f"{solver_k2}", flush=True)
+
+    # ---- phase 14: the Solver's sparse and structured KKT ----
+    clock.start("[14]")
+    sparse = sparse_phase(card, failures)
+    print(f"[14] readings: {json.dumps(sparse)}", flush=True)
     if any(k == "jax" or k.startswith(("jax.", "clarabel_tpu."))
            or k == "clarabel_tpu" for k in sys.modules):
         failures.append("the port pulled in JAX or the JAX package")

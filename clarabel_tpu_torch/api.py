@@ -1,8 +1,8 @@
-"""The single-instance `Solver`, dense path.
+"""The single-instance `Solver`.
 
-A port of `clarabel_tpu/api.py` (`Solver` l.105, `setup` l.307-540, `solve`
-l.543-584, `_package_solution` l.586-628, the getters and
-`linear_solver_info` l.725):
+A port of `clarabel_tpu/api.py` (`Solver` l.105, `_setup_sparse`
+l.137-305, `setup` l.307-540, `solve` l.543-584, `_package_solution`
+l.586-628, the getters and `linear_solver_info` l.725):
 
     solver = Solver(P, q, A, b, cones, settings)        # on the card
     solver = Solver(P, q, A, b, cones, settings, device="cpu")
@@ -12,17 +12,23 @@ solves  min ½x'Px + q'x  s.t. Ax + s = b, s ∈ K  for one problem.  Setup
 runs the reference's host-side steps: the dimension checks, cone
 collapsing, the cap of b at +infinity, the presolver (`presolver.py`) and
 the chordal decomposition of sparse PSD cones (`chordal/`), then picks the
-`ldl` or `condensed` backend as the reference does.  Solve runs the port's
-batched loop solver (`ipm/loop.build_solve`) at B = 1 on the solver's
-device: on a card its float32 factors go through K2; on the CPU the plain
-versions run.  The problem stays on the device between warm solves; a
-data update (`update_*`) drops that copy.
+backend as the reference does: `ldl` or `condensed`, or, from an analysis
+of the KKT pattern, a block-arrow (`structure.py`) or nested-dissection
+(`structure_nd.py`) plan for the `blockarrow` or `multifrontal` backend.
+Sparse inputs (scipy-sparse data with n + m > 2000, big SOC or genpow
+cones over sparse rows, `sparse_data=True`) take the sparse setup: P and A
+stay COO end to end and the KKT is summed from their values through
+assembly maps (`kkt/assembly_maps*.py`); where no plan is found, the dense
+path runs, as in the reference.  Solve runs the port's batched loop solver
+(`ipm/loop.build_solve`) at B = 1 on the solver's device: on a card its
+float32 dense factors go through K2; on the CPU the plain versions run.
+The problem stays on the device between warm solves; a data update
+(`update_*`) drops that copy.
 
-What this slice leaves out raises `NotImplementedError` naming the
-ROADMAP.md item that brings it: `mesh=` (item 13), every input the
-reference would set up in sparse mode (item 11), time limits, timing,
+What the port leaves out raises `NotImplementedError` naming the
+ROADMAP.md item that brings it: `mesh=` (item 13), time limits, timing,
 checkpoints, profiles and the timer tree (item 12).  None of them takes
-the dense path in their place (DEVIATIONS.md #17).
+another path in their place (DEVIATIONS.md #17).
 """
 
 import dataclasses
@@ -37,14 +43,11 @@ from . import presolver as presolve_mod
 from .cones.api import (GenPowerConeT, SecondOrderConeT, SupportedCone,
                         cones_collapse, nvars)
 from .cones.layout import ConeLayout
+from .cones.ops import SOC_RANK2_MIN_DIM
 from .ipm.loop import build_solve
 from .parallel.batch_impl import resolve_device
 from .settings import Settings
 from .statuscodes import SolverStatus, status_string
-
-# the reference's dimension from which SOC and genpow cones take the
-# low-rank sparse path (clarabel_tpu/cones/ops.py:325)
-SOC_RANK2_MIN_DIM = 33
 
 # the outputs of the loop solver that the solution and info carry, in the
 # order of the one fetch from the device
@@ -142,6 +145,16 @@ def _solve_cache_get(key):
     return value
 
 
+def _plan_factor_nnz(plan) -> int:
+    """Entries of a plan's padded factors: the blocks' and the tail's
+    lower triangles and the couplings, or each level's fronts."""
+    if hasattr(plan, "levels"):
+        return int(sum(lv.cnt * (lv.nr * (lv.nr + 1) // 2 + lv.nr * lv.nbd)
+                       for lv in plan.levels))
+    p, nb, nt = plan.p, plan.nb, plan.nt
+    return int(p * nb * (nb + 1) // 2 + p * nb * nt + nt * (nt + 1) // 2)
+
+
 class Solver:
     """Conic interior-point solver for one problem.
 
@@ -165,6 +178,8 @@ class Solver:
         self.info = DefaultInfo()
         self.presolver = None
         self.chordal_info = None
+        self._structure = None
+        self._sparse_mode = False
         self._setup_done = False
         self._first_solve_time = None
         self._dev_args = None
@@ -203,11 +218,11 @@ class Solver:
         # caller later does to its arrays (DEVIATIONS.md #17)
         q = np.array(q, dtype=np.float64).ravel()
         b = np.array(b, dtype=np.float64).ravel()
+        self._setup_split = {"analysis": 0.0, "maps": 0.0}
         if self._want_sparse(q, A, b, cones):
-            raise _not_in_slice("sparse setup (scipy-sparse data with "
-                                "n + m > 2000, large SOC or genpow cones "
-                                "over sparse rows, or sparse_data=True)",
-                                "11 (sparse and structured KKT)")
+            if self._setup_sparse(P, q, A, b, cones, t0):
+                return self
+            # no structure found: the dense path (reference api.py:348-352)
 
         P = _to_dense(P).astype(np.float64)
         A = _to_dense(A).astype(np.float64)
@@ -249,12 +264,15 @@ class Solver:
         if chordal is not None:
             self.chordal_info, P_sym0, q, A, b, cones = chordal
             n, m = A.shape[1], A.shape[0]
+            # a large decomposed problem (many clique-sized cones and
+            # overlap columns) is usually sparse: try the sparse setup on
+            # the transformed data (reference api.py:395-408)
             if n + m > 2000:
-                # the reference tries its sparse setup on the decomposed
-                # problem here (api.py:395-408)
-                raise _not_in_slice(
-                    "sparse setup of a chordally decomposed problem with "
-                    "n + m > 2000", "11 (sparse and structured KKT)")
+                chordal_info, n_orig = self.chordal_info, self._n_orig
+                if self._setup_sparse(P_sym0, q, A, b, list(cones), t0,
+                                      preprocessed=True):
+                    self.chordal_info, self._n_orig = chordal_info, n_orig
+                    return self
 
         self._P_full = P_sym0
         self._q, self._A, self._b = q, A, b
@@ -265,13 +283,18 @@ class Solver:
             raise ValueError("cone dimensions do not match constraint count")
         p_nonzero = bool(np.any(self._P_full != 0))
         self._p_nonzero = p_nonzero
+        self._sparse_mode = False
+        self._data_args = None
         self._backend = self._choose_backend(n, m)
 
         cache_key = (self.layout.key, n, p_nonzero, self._backend,
-                     dataclasses.astuple(self.settings), str(self.device))
+                     dataclasses.astuple(self.settings),
+                     None if self._structure is None
+                     else self._structure.key, str(self.device))
         solve_fn = _solve_cache_get(cache_key)
         if solve_fn is None:
             solve_fn = build_solve(self.layout, self.settings, n, p_nonzero,
+                                   structure=self._structure,
                                    kkt_backend=self._backend)
             _solve_cache_put(cache_key, solve_fn)
         self._solve_fn = solve_fn
@@ -282,25 +305,187 @@ class Solver:
         return self
 
     def _choose_backend(self, n: int, m: int) -> str:
-        """The reference's choice (api.py:446-510) without a structure
-        plan: "blockarrow" and "multifrontal" run the dense ldl loop (as
-        `BatchSolver` does); "auto" takes `condensed` for tall problems and
-        big SOCs, else `ldl`.  Above n + m = 1024 the reference's "auto"
-        first analyzes the KKT pattern for a structure plan, which this
-        slice does not port."""
+        """The reference's choice (api.py:426-512), setting
+        `self._structure`: "blockarrow" and "multifrontal" analyze the KKT
+        pattern for their plan (without one they run the dense ldl loop);
+        "auto" above n + m = 1024 analyzes both and takes a plan whose flop
+        estimate beats half the dense factorization and the condensed one,
+        else `condensed` for tall problems and big SOCs, else `ldl`."""
+        from .structure import analyze_block_arrow
+        from .structure_nd import NestedPlan, analyze_nested_dissection
+
+        self._structure = None
         backend = self.settings.kkt_backend
-        if backend in ("blockarrow", "multifrontal"):
-            return backend          # build_solve runs the dense ldl loop
+        big = backend == "auto" and n + m > 1024
+        ta = time.perf_counter()
+        if backend == "blockarrow" or big:
+            self._structure = analyze_block_arrow(
+                self._P_full != 0, self._A != 0, self.layout)
+        if backend == "multifrontal" or big:
+            # multilevel nested dissection wins where the single-level
+            # separator is large (grids, meshes): compared by flop estimate
+            nd_plan = analyze_nested_dissection(
+                self._P_full != 0, self._A != 0, self.layout)
+            if nd_plan is not None and (
+                    self._structure is None
+                    or nd_plan.flop_estimate()
+                    < self._structure.flop_estimate()):
+                self._structure = nd_plan
+        self._setup_split["analysis"] += time.perf_counter() - ta
         if backend != "auto":
             return backend
-        if n + m > 1024:
-            raise _not_in_slice(
-                "kkt_backend='auto' above n + m = 1024 (the structure "
-                "analysis)", "11 (sparse and structured KKT)")
+        N = n + m
+        dense_flops = N ** 3 / 3.0
+        st_flops = (self._structure.flop_estimate()
+                    if self._structure is not None else float("inf"))
         big_soc = any(g.kind == "soc" and g.width >= SOC_RANK2_MIN_DIM
                       for g in self.layout.groups.values())
         tall = (m >= 2.5 * n and m >= 250) or big_soc
+        cond_flops = (2.0 * m * n * n + n ** 3 / 3.0) if tall \
+            else float("inf")
+        if st_flops <= min(0.5 * dense_flops, cond_flops):
+            return ("multifrontal" if isinstance(self._structure, NestedPlan)
+                    else "blockarrow")
+        self._structure = None
         return "condensed" if tall else "ldl"
+
+    def _setup_sparse(self, P, q, A, b, cones, t0,
+                      preprocessed: bool = False) -> bool:
+        """The sparse setup (reference api.py:137-305): P and A stay COO
+        end to end, with map-based assembly of a block-arrow or nested
+        plan.  Returns False, and the caller runs the dense path, when no
+        usable plan is found.  `preprocessed=True` skips the presolve and
+        chordal resets (a chordally decomposed problem re-entering)."""
+        import scipy.sparse as sp
+
+        from . import get_infinity
+        from .data_updating import SparseUpdateMaps
+        from .kkt.assembly_maps import build_assembly_maps
+        from .kkt.assembly_maps_nd import build_nested_assembly_maps
+        from .linalg.matops import Pattern
+        from .structure import analyze_block_arrow
+        from .structure_nd import analyze_nested_dissection
+
+        P = sp.csr_matrix(P).astype(np.float64)
+        A = sp.csr_matrix(A).astype(np.float64)
+        if self.settings.input_sparse_dropzeros:
+            # stored zeros stay out of the KKT pattern (reference:
+            # src/problemdata.jl dropzeros!; disables data updating)
+            P.eliminate_zeros()
+            A.eliminate_zeros()
+        n, m = q.shape[0], b.shape[0]
+        if A.shape != (m, n) or P.shape != (n, n):
+            raise ValueError("dimension mismatch")
+        if sum(nvars(c) for c in cones) != m:
+            raise ValueError(
+                "Constraint dimensions inconsistent with size of cones")
+
+        if not preprocessed:
+            cones = cones_collapse(list(cones))
+            infinity = get_infinity()
+            b = np.minimum(b, infinity)
+            self.presolver = None
+            if self.settings.presolve_enable:
+                pres = presolve_mod.try_presolve(A, b, cones, infinity)
+                if pres is not None:
+                    self.presolver = pres
+                    A = A[pres.keep_logical]
+                    b = b[pres.keep_logical]
+                    cones = pres.reduced_cones
+                    m = b.shape[0]
+            # chordal decomposition runs on the dense path; its output may
+            # come back here with preprocessed=True
+            self.chordal_info = None
+            self._n_orig = n
+
+        P_sym = (sp.triu(P) + sp.triu(P, 1).T).tocoo()
+        A_coo = sp.coo_matrix(A)
+        layout = ConeLayout(cones)
+        if layout.m != m:
+            raise ValueError("cone dimensions do not match constraint count")
+        P_pat = ((P_sym.row, P_sym.col), (n, n))
+        A_pat = ((A_coo.row, A_coo.col), (m, n))
+
+        # big SOC and genpow cones take the low-rank Hs form (a diagonal
+        # in the assembly, an SMW correction around the factor): their
+        # rows stay singletons in the structure graph
+        srk = SOC_RANK2_MIN_DIM if any(
+            g.kind in ("soc", "genpow") and g.width >= SOC_RANK2_MIN_DIM
+            for g in layout.groups.values()) else None
+
+        requested = self.settings.kkt_backend
+        ba_plan = nd_plan = None
+        ta = time.perf_counter()
+        if requested != "multifrontal":
+            ba_plan = analyze_block_arrow(P_pat, A_pat, layout,
+                                          soc_rank2_min_dim=srk)
+        if requested != "blockarrow" and srk is None:
+            # the SMW path exists on the block-arrow backend only
+            nd_plan = analyze_nested_dissection(P_pat, A_pat, layout)
+        # the structurally cheaper factorization
+        if ba_plan is not None and nd_plan is not None:
+            if nd_plan.flop_estimate() < ba_plan.flop_estimate():
+                ba_plan = None
+            else:
+                nd_plan = None
+        if srk is None and ba_plan is not None and n + m <= 4096 and (
+                ba_plan.flop_estimate() > 0.5 * (n + m) ** 3 / 3.0):
+            # the structure does not beat a dense factorization by a
+            # useful margin and the problem is small enough to be dense:
+            # the dense path picks condensed or ldl
+            ba_plan = None
+        analysis = time.perf_counter() - ta
+        tm = time.perf_counter()
+        if ba_plan is not None:
+            plan = ba_plan
+            maps = build_assembly_maps(
+                (P_sym.row, P_sym.col), (A_coo.row, A_coo.col), layout,
+                plan, soc_rank2_min_dim=srk)
+        elif nd_plan is not None:
+            plan = nd_plan
+            maps = build_nested_assembly_maps(
+                (P_sym.row, P_sym.col), (A_coo.row, A_coo.col), layout,
+                plan)
+        else:
+            self._setup_split = {"analysis": analysis, "maps": 0.0}
+            return False
+        self._setup_split = {"analysis": analysis,
+                             "maps": time.perf_counter() - tm}
+
+        self._P_full = P_sym.tocsr()
+        self._q, self._A, self._b = q, A, b
+        self.n, self.m = n, m
+        self.cones = list(cones)
+        self.layout = layout
+        self._p_nonzero = P_sym.nnz > 0
+        self._structure = plan
+        self._assembly = maps
+        self._backend = ("blockarrow" if ba_plan is not None
+                         else "multifrontal")
+        self._sparse_mode = True
+        # the COO entry order is fixed here: the maps, the patterns and the
+        # data updates all read it (reference data_updating.py:29)
+        self._patterns = (Pattern(P_sym.row, P_sym.col, (n, n)),
+                          Pattern(A_coo.row, A_coo.col, (m, n)))
+        self._data_args = (np.asarray(P_sym.data, np.float64), q,
+                           np.asarray(A_coo.data, np.float64), b)
+        self._sparse_maps = SparseUpdateMaps.build(P_sym, A_coo, n)
+
+        cache_key = (layout.key, n, self._p_nonzero, "sparse",
+                     dataclasses.astuple(self.settings), maps.key,
+                     str(self.device))
+        solve_fn = _solve_cache_get(cache_key)
+        if solve_fn is None:
+            solve_fn = build_solve(layout, self.settings, n,
+                                   self._p_nonzero, structure=plan,
+                                   assembly=maps)
+            _solve_cache_put(cache_key, solve_fn)
+        self._solve_fn = solve_fn
+
+        self._setup_time = time.perf_counter() - t0
+        self._setup_done = True
+        self._dev_args = None
+        return True
 
     # ------------------------------------------------------------------
     def solve(self) -> DefaultSolution:
@@ -316,10 +501,7 @@ class Solver:
             info_print.print_status_header()
         t0 = time.perf_counter()
         if self._dev_args is None:
-            self._dev_args = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)[None]).to(
-                    self.device)
-                for a in (self._P_full, self._q, self._A, self._b))
+            self._dev_args = self._device_args()
         out = self._solve_fn(*self._dev_args)
         # one fetch from the device for every field
         flat = torch.cat([out[k].reshape(-1).to(torch.float64)
@@ -333,6 +515,24 @@ class Solver:
         if self._first_solve_time is None:
             self._first_solve_time = solve_time
         return self._package_solution(host, solve_time)
+
+    def _device_args(self):
+        """The problem on the device as the solve function takes it: dense
+        (1, ...) tensors, or in sparse mode P and A as SparseCOO values
+        (1, nnz) over the patterns fixed at setup."""
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)[None]).to(
+                self.device)
+
+        if not self._sparse_mode:
+            return tuple(dev(a) for a in (self._P_full, self._q, self._A,
+                                          self._b))
+        from .linalg.matops import SparseCOO
+
+        Pv, q, Av, b = self._data_args
+        Ppat, Apat = self._patterns
+        return (SparseCOO(dev(Pv), Ppat), dev(q), SparseCOO(dev(Av), Apat),
+                dev(b))
 
     def _package_solution(self, out, solve_time) -> DefaultSolution:
         status = SolverStatus(int(out["status"]))
@@ -419,8 +619,20 @@ class Solver:
 
     def linear_solver_info(self) -> dict:
         """Backend description (reference: LinearSolverInfo, src/types.jl;
-        nnz(L) becomes the dense factor size; api.py:725)."""
+        nnz(L) becomes the dense factor size; api.py:725).  With a
+        structure plan it names the backend the plan runs and the size of
+        its padded factors, where the reference names the setting
+        (DEVIATIONS.md #18)."""
         N = self.n + self.m
+        if self._structure is not None:
+            return {
+                "backend": self._backend,
+                "variant": "sparse" if self._sparse_mode else "dense",
+                "kkt_dim": N,
+                "factor_nnz": _plan_factor_nnz(self._structure),
+                "factor_dtype": self.settings.factor_dtype or "auto",
+                "mixed_precision": self.settings.mixed_precision,
+            }
         backend = self.settings.kkt_backend
         if backend == "auto":
             backend = "ldl"

@@ -5,7 +5,11 @@ The port's own copies of the generators in the repository's `bench.py`
 port and its smoke script draw the same instances as the JAX package's
 benchmark from the same seed, plus two variants of the bench shape
 (primal-infeasible lanes and an LP batch with P = 0), a power-cone batch,
-and batches of quasidefinite KKT matrices for the LDL kernel.  numpy only.
+and batches of quasidefinite KKT matrices for the LDL kernel; and the
+single-instance sparse problems of the repository's benchmark
+configurations (`grid_qp_sparse`, `large_banded_qp_sparse`,
+`robust_ls_banded`), which the sparse `Solver` takes.  numpy and
+scipy.sparse only.
 """
 
 import numpy as np
@@ -215,3 +219,108 @@ def make_large_qp_eq(B, n=200, n_eq=20, n_low=100, seed=5):
     b = np.concatenate([np.einsum("bij,bj->bi", Aeq, x0),
                         np.ones((B, n + n_low))], axis=1)
     return P, q, A, b
+
+
+def grid_qp_sparse(g, seed=7):
+    """The 2-D grid-Laplacian QP of `benchmarks/grid_qp.py` (l.22), the
+    nested-dissection plan's problem class: min ½x'Px + q'x s.t. x ≥ 0 on
+    a g x g grid, n = g², as scipy-sparse (P, q, A, b) with A = −I; its
+    cones are [NonnegativeConeT(g²)]."""
+    import scipy.sparse as sp
+
+    n = g * g
+    rng = np.random.default_rng(seed)
+    diag = 4.0 + rng.uniform(0.5, 1.5, n)
+    rows, cols, vals = [], [], []
+
+    def idx(i, j):
+        return i * g + j
+
+    for i in range(g):
+        for j in range(g):
+            rows.append(idx(i, j))
+            cols.append(idx(i, j))
+            vals.append(diag[idx(i, j)])
+            for di, dj in ((0, 1), (1, 0)):
+                if i + di < g and j + dj < g:
+                    rows += [idx(i, j), idx(i + di, j + dj)]
+                    cols += [idx(i + di, j + dj), idx(i, j)]
+                    vals += [-1.0, -1.0]
+    P = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    q = rng.standard_normal(n)
+    A = -sp.eye(n).tocsr()
+    b = np.zeros(n)
+    return P, q, A, b
+
+
+def large_banded_qp_sparse(grid=2500, seed=0):
+    """The AUG2DC-scale banded QP of `benchmarks/configs.py` (l.167),
+    assembled in scipy sparse: n = 2·grid variables, grid chain equalities
+    (a zero cone) and 4·grid bounds.  Returns (P, q, A, b, cones) with the
+    port's cone classes."""
+    import scipy.sparse as sps
+
+    from .cones.api import NonnegativeConeT, ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    n = 2 * grid
+    diag = rng.uniform(1.0, 3.0, n)
+    off = rng.uniform(-0.4, 0.4, n - 1)
+    P = sps.diags([off, diag, off], offsets=[-1, 0, 1], format="csr")
+    q = rng.standard_normal(n)
+    m_eq = grid
+    rows = np.repeat(np.arange(m_eq), 2)
+    cols = np.empty(2 * m_eq, dtype=np.int64)
+    cols[0::2] = 2 * np.arange(m_eq)
+    cols[1::2] = 2 * np.arange(m_eq) + 1
+    vals = np.tile([1.0, -1.0], m_eq)
+    Aeq = sps.coo_matrix((vals, (rows, cols)), shape=(m_eq, n)).tocsr()
+    beq = rng.standard_normal(m_eq) * 0.1
+    eye = sps.identity(n, format="csr")
+    A = sps.vstack([Aeq, eye, -eye]).tocsr()
+    b = np.concatenate([beq, 5 * np.ones(n), 5 * np.ones(n)])
+    cones = [ZeroConeT(m_eq), NonnegativeConeT(2 * n)]
+    return P, q, A, b, cones
+
+
+def robust_ls_banded(m=240, n=80, band=3, seed=0):
+    """The robust least-squares SOCP of `tests/test_soc_rank2.py` (l.19):
+    min t s.t. ||Fx − g|| ≤ t, |x_i| ≤ 2, with a banded F, so the KKT
+    keeps a block-arrow structure beside the big SOC.  Returns (P, q, A,
+    b, cones, F, g) with the port's cone classes."""
+    import scipy.sparse as sp
+
+    from .cones.api import NonnegativeConeT, SecondOrderConeT
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(m):
+        j0 = int(i * n / m)
+        for dj in range(band):
+            j = min(n - 1, j0 + dj)
+            rows.append(i)
+            cols.append(j)
+            vals.append(rng.standard_normal())
+    F = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    g = rng.standard_normal(m)
+
+    nv = n + 1  # x and the epigraph variable t
+    # SOC rows: s0 = t (row [0..0, -1], b 0); s_i = (Fx − g)_i
+    A_soc = sp.vstack([
+        sp.coo_matrix(([-1.0], ([0], [n])), shape=(1, nv)),
+        sp.hstack([-F, sp.csr_matrix((m, 1))]),
+    ])
+    b_soc = np.concatenate([[0.0], -g])
+    # bounds |x_i| <= 2
+    eye = sp.eye(n, format="csr")
+    Z1 = sp.csr_matrix((n, 1))
+    A_bnd = sp.vstack([sp.hstack([eye, Z1]), sp.hstack([-eye, Z1])])
+    b_bnd = 2.0 * np.ones(2 * n)
+
+    A = sp.vstack([A_soc, A_bnd]).tocsr()
+    b = np.concatenate([b_soc, b_bnd])
+    P = sp.csr_matrix((nv, nv))
+    q = np.zeros(nv)
+    q[n] = 1.0
+    cones = [SecondOrderConeT(m + 1), NonnegativeConeT(2 * n)]
+    return P, q, A, b, cones, F, g

@@ -116,10 +116,16 @@ def find_graph(nz_mask: np.ndarray, n: int):
                 adj[col].add(row)
             idx += 1
 
-    # the pure-Python ordering and symbolic factor: the reference prefers
-    # its native library here (clarabel_tpu/native_symbolic.py), which the
-    # port does not bind yet (ROADMAP.md Queue 1 item 11)
-    perm = minimum_degree_ordering(adj)
-    Lcols, _ = symbolic_cholesky(adj, perm)
+    # prefer the native library; fall back to pure Python
+    from .. import native_symbolic
+
+    perm = native_symbolic.min_degree_ordering_native(adj)
+    Lcols = None
+    if perm is not None:
+        Lcols = native_symbolic.symbolic_cholesky_native(adj, perm)
+    if perm is None:
+        perm = minimum_degree_ordering(adj)
+    if Lcols is None:
+        Lcols, _ = symbolic_cholesky(adj, perm)
     Lcols = connect_graph(Lcols)
     return Lcols, perm

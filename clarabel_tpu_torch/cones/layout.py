@@ -19,6 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..linalg.matops import on_device
+
 from .api import (
     SupportedCone,
     ZeroConeT,
@@ -233,14 +235,8 @@ def _psd_buckets(psd_by_n, max_buckets: int = 4):
 
 def _on(g: ConeGroup, name: str, arr: np.ndarray, device) -> torch.Tensor:
     """A host index array of group g as a tensor on `device`, made once
-    per device."""
-    cache = g.__dict__.setdefault("_tensors", {})
-    key = (name, str(device))
-    t = cache.get(key)
-    if t is None:
-        t = torch.as_tensor(arr, device=device)
-        cache[key] = t
-    return t
+    per device (`linalg.matops.on_device`)."""
+    return on_device(g, name, device, lambda: arr)
 
 
 def _contig_start(g: ConeGroup):

@@ -8,8 +8,10 @@ and λ as (B, k), SOC groups w and λ as (B, count, width) and η as
 (B, count), PSD groups R, Rinv (B, count, n, n) and λ (B, count, n)
 (`cones/psd.py`), exp and pow groups the dual gradient, the dual Hessian,
 Hs (B, count, 3, 3) and z, genpow groups the dual gradient, μ and the
-Hessian data (d1, d2, p, q, r) (`cones/nonsymmetric.py`).  The low-rank
-genpow form of the reference's sparse backends is not ported.
+Hessian data (d1, d2, p, q, r) (`cones/nonsymmetric.py`).  The sparse
+backends read Hs as flat values at host-side KKT coordinates
+(`hs_flat_values`, `hs_coords`), with big SOC and genpow cones in their
+low-rank form (`soc_rank2_uv`).
 
 Cone math provenance (the reference's reference):
 * zero cone       — src/cones/coneops_zerocone.jl
@@ -23,12 +25,14 @@ Cone math provenance (the reference's reference):
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .layout import ConeLayout, ConeGroup, _gather, _scatter, _grow, \
     _srow_set, _on
 from . import nonsymmetric as nonsym_ops
 from . import psd as psd_ops
+from ..linalg.matops import on_device
 
 # the nonsymmetric cones
 NONSYM = ("exp", "pow", "genpow")
@@ -326,6 +330,149 @@ def hs_diag(layout: ConeLayout, state: Dict, like):
             y = _scatter(y, g, torch.diagonal(_hs_blocks(g, state[name]),
                                               dim1=-2, dim2=-1).to(dtype))
     return y
+
+
+# SOCs (and generalized power cones) at or above this dimension use the
+# low-rank Hs form in sparse data mode: only a diagonal enters the
+# assembled KKT and the rank-1 terms are applied as a Sherman-Morrison-
+# Woodbury correction (kkt/socrank.py).  The reference's counterpart of
+# the sparse SOC expansion (reference: cone_types.jl:65-117,
+# directldl_datamaps.jl:8-79): the KKT keeps its dimension, and the
+# low-rank terms stay outside the factorization in a small dense
+# capacitance system.
+SOC_RANK2_MIN_DIM = 33
+
+
+def _is_rank2_soc(g, soc_rank2_min_dim) -> bool:
+    return (soc_rank2_min_dim is not None and g.kind == "soc"
+            and g.width >= soc_rank2_min_dim)
+
+
+def _is_lowrank_genpow(g, min_dim) -> bool:
+    """Large generalized power cones take the same SMW form: their
+    dual-scaling Hs = μ(D + pp' − qq' − rr') is diagonal plus rank 3
+    (coneops_genpowcone.jl:14-18, directldl_datamaps.jl:81-167)."""
+    return (min_dim is not None and g.kind == "genpow"
+            and g.width >= min_dim)
+
+
+def hs_flat_values(layout: ConeLayout, state: Dict, like,
+                   soc_rank2_min_dim=None):
+    """Every Hs entry, group by group, as (B, n_hs) in the dtype and on the
+    device of `like` (B, ...), in the order of the KKT coordinates of
+    `hs_coords`: the value side of the map-based sparse KKT assembly
+    (reference: directldl_datamaps.jl)."""
+    B, dtype = like.shape[0], like.dtype
+    parts = []
+    for name, g in layout.groups.items():
+        st = state.get(name)
+        if g.kind == "zero":
+            continue  # Hs = 0: no values
+        if g.kind == "nn":
+            parts.append(st["w"] * st["w"])
+        elif _is_rank2_soc(g, soc_rank2_min_dim):
+            # only the η²I diagonal is assembled
+            parts.append((st["eta"] ** 2)[..., None].expand(
+                B, g.count, g.width).reshape(B, -1))
+        elif _is_lowrank_genpow(g, soc_rank2_min_dim):
+            dvec = torch.cat([st["d1"], st["d2"][..., None].expand(
+                B, g.count, g.dim2)], dim=-1)
+            parts.append((st["mu"][:, None, None] * dvec).reshape(B, -1))
+        elif g.kind == "soc":
+            w, eta = st["w"], st["eta"]
+            blocks = 2.0 * w[..., :, None] * w[..., None, :]
+            blocks = blocks - torch.diag(_soc_J(g.width, w.dtype, w.device))
+            blocks = blocks * (eta ** 2)[..., None, None]
+            parts.append(blocks.reshape(B, -1))
+        elif g.kind in NONSYM + ("psd",):
+            parts.append(_hs_blocks(g, st).reshape(B, -1))
+        else:
+            raise NotImplementedError(g.kind)
+    if not parts:
+        return like.new_zeros((B, 0))
+    return torch.cat([p.to(dtype) for p in parts], dim=1)
+
+
+def hs_coords(layout: ConeLayout, n: int, soc_rank2_min_dim=None):
+    """Host-side (rows, cols) KKT coordinates of every entry that
+    `hs_flat_values` emits, in the same order.  Conic rows are offset by
+    n; bucketed-SOC pad entries get the out-of-range sentinel n + m, which
+    the assembly drops."""
+    m = layout.m
+    sentinel = n + m
+    rows_out, cols_out = [], []
+    for name, g in layout.groups.items():
+        if g.kind == "zero":
+            continue
+        idx = g.idx.astype(np.int64)
+        # real indices to n + idx; sentinels stay out of range
+        kk = np.where(idx >= m, sentinel, n + idx)
+        if g.kind == "nn":
+            rows_out.append(kk[0])
+            cols_out.append(kk[0])
+        elif _is_rank2_soc(g, soc_rank2_min_dim) or \
+                _is_lowrank_genpow(g, soc_rank2_min_dim):
+            # the diagonal only (the order of the low-rank values)
+            rows_out.append(kk.reshape(-1))
+            cols_out.append(kk.reshape(-1))
+        else:
+            r = np.broadcast_to(kk[:, :, None], (g.count, g.width, g.width))
+            c = np.broadcast_to(kk[:, None, :], (g.count, g.width, g.width))
+            # either side padded: drop the entry
+            pad = (r >= sentinel) | (c >= sentinel)
+            rows_out.append(np.where(pad, sentinel, r).reshape(-1))
+            cols_out.append(np.where(pad, sentinel, c).reshape(-1))
+    if not rows_out:
+        return (np.zeros(0, dtype=np.int64),) * 2
+    return np.concatenate(rows_out), np.concatenate(cols_out)
+
+
+def soc_rank2_uv(layout: ConeLayout, state: Dict, n: int, like,
+                 soc_rank2_min_dim=None):
+    """Columns of the low-rank correction of the SMW-corrected sparse KKT
+    (kkt/socrank.py), in the dtype and on the device of `like` (B, ...).
+
+    For each rank-2 SOC,  Hs = η²(2ww' − J) = η²I + uu' − vv'  with
+    u = √2·η·w and v = √2·η·e₀ (−J = I − 2e₀e₀', w'Jw = 1).  The KKT
+    carries −Hs, so  K = K₀ + U S U'  with column signs s_u = −1,
+    s_v = +1.  A low-rank genpow cone adds √μ p (sign −1), √μ q̄ and
+    √μ r̄ (signs +1).  Returns (U, signs): U is (B, n+m, ncols) with the
+    columns in the cones' conic rows, signs (ncols,) float64 on U's device
+    (made once); (None, None) when the layout has no low-rank cone."""
+    N = n + layout.m
+    B, dtype, device = like.shape[0], like.dtype, like.device
+    entries = []       # (rows (count, k) on the host, cols, values)
+    signs = []
+    for name, g in layout.groups.items():
+        st = state.get(name)
+        rows = n + g.idx.astype(np.int64)   # sentinel pads land on row N
+        c = np.arange(g.count)[:, None]
+        if _is_rank2_soc(g, soc_rank2_min_dim):
+            base = len(signs)
+            coef = np.sqrt(2.0) * st["eta"]
+            entries.append((rows, base + 2 * c, coef[..., None] * st["w"]))
+            entries.append((rows[:, :1], base + 2 * c + 1, coef[..., None]))
+            signs.extend([-1.0, 1.0] * g.count)
+        elif _is_lowrank_genpow(g, soc_rank2_min_dim):
+            base = len(signs)
+            smu = torch.sqrt(st["mu"])[:, None, None]
+            d1 = g.dim1
+            entries.append((rows, base + 3 * c, smu * st["p"]))
+            entries.append((rows[:, :d1], base + 3 * c + 1, smu * st["q"]))
+            entries.append((rows[:, d1:], base + 3 * c + 2, smu * st["r"]))
+            signs.extend([-1.0, 1.0, 1.0] * g.count)
+    if not signs:
+        return None, None
+    U = torch.zeros((B, N + 1, len(signs)), dtype=dtype, device=device)
+    for i, (rows, cols, vals) in enumerate(entries):
+        r = np.minimum(rows, N)
+        cc = np.broadcast_to(cols, r.shape)
+        key = f"uv_{n}_{soc_rank2_min_dim}_{i}"
+        rt = on_device(layout, key + "r", device, lambda: r.ravel())
+        ct = on_device(layout, key + "c", device, lambda: cc.ravel())
+        U[:, rt, ct] = vals.reshape(B, -1).to(dtype)
+    return U[:, :N], on_device(layout, f"uv_{n}_{soc_rank2_min_dim}_signs",
+                               device, lambda: signs)
 
 
 def _hs_blocks(g: ConeGroup, st):

@@ -87,7 +87,8 @@ def save_to_file(solver, filename: str) -> None:
     """Write the (un-equilibrated) problem data + settings to JSON: the
     problem the solver solves, after presolve and chordal decomposition
     where they ran (as the reference writes it)."""
-    P = sp.csc_matrix(np.triu(solver._P_full))
+    # triu of a dense P or of the sparse mode's csr P
+    P = sp.csc_matrix(sp.triu(sp.csc_matrix(solver._P_full)))
     A = sp.csc_matrix(solver._A)
     payload = {
         "P": _csc_to_dict(P),

@@ -46,6 +46,7 @@ from ..cones import ops as cone_ops
 from ..info_print import print_iterations
 from ..kkt import dense as kkt
 from ..linalg import batched_ldl
+from ..linalg import matops
 from ..linalg import smallops as so
 from ..settings import torch_dtype
 from ..statuscodes import SolverStatus
@@ -134,10 +135,10 @@ def compute_residuals(P, q, A, b, x, z, s, tau, kappa) -> Residuals:
     qx = so.vdot(q, x)
     bz = so.vdot(b, z)
     sz = so.vdot(s, z)
-    Px = so.mv(P, x)
+    Px = matops.mv(P, x)
     xPx = so.vdot(x, Px)
-    rx_inf = -so.rmv(A, z)
-    rz_inf = s + so.mv(A, x)
+    rx_inf = -matops.rmv(A, z)
+    rz_inf = s + matops.mv(A, x)
     rx = rx_inf - Px - q * tau[:, None]
     rz = rz_inf - b * tau[:, None]
     rtau = qx + bz + kappa + xPx / tau
@@ -246,42 +247,54 @@ def backtrack_to_barrier(barrier, alpha_init, active, step, max_iter):
     return alpha
 
 
-def _replay(step, active_of, carry: Carry) -> Carry:
+def _replay(step, active_of, carry: Carry, counts) -> Carry:
     """Run `carry = step(carry)` while any lane is active, as replays of
     one captured CUDA graph: the graph steps a static copy of the carry in
     place and reduces the next pass's loop condition to one flag, which the
     host reads once per pass.  Inner loops inside the pass run to their
     caps (`trips.run_trips`); their lane masks keep every lane's bits.  A
-    replay launches what the capture recorded, so K2's launch counts grow
-    by the launches one pass records."""
+    replay launches what the capture recorded, so K2's launch counts and
+    the solve's factorization count (`counts`) grow by what one pass
+    records."""
     if not bool(active_of(carry).any()):
         return carry
     static = Carry(*(t.clone() for t in carry))
     k2 = batched_ldl.kernel
-    before = (k2.launches, k2.rows_launches)
+    before = (k2.launches, k2.rows_launches, counts["factorizations"])
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for dst, src in zip(static, step(static)):
             dst.copy_(src)
         flag = active_of(static).any()
-    per_pass = (k2.launches - before[0], k2.rows_launches - before[1])
-    k2.launches, k2.rows_launches = before
+    per_pass = (k2.launches - before[0], k2.rows_launches - before[1],
+                counts["factorizations"] - before[2])
+    k2.launches, k2.rows_launches, counts["factorizations"] = before
     while True:
         graph.replay()
         k2.launches += per_pass[0]
         k2.rows_launches += per_pass[1]
+        counts["factorizations"] += per_pass[2]
         if not bool(flag):
             return static
 
 
 def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
-                kkt_backend=None):
+                structure=None, assembly=None, kkt_backend=None):
     """Build the batched solve function for a fixed problem structure
     (cone layout and dimensions): solve(P, q, A, b) -> solution dict of
     (B, ...) tensors on the inputs' device.  P must be the FULL symmetric
-    cost matrix.  The backends are the dense `ldl` (also what "auto",
-    "blockarrow" and "multifrontal" mean here, as in the reference
-    without a structure plan) and `condensed`."""
+    cost matrix.
+
+    The backends are the dense `ldl`, `condensed`, and, with a structure
+    plan, `blockarrow` (a `structure.BlockArrowPlan`) and `multifrontal`
+    (a `structure_nd.NestedPlan`) on dense data.  `assembly` (the
+    `kkt.assembly_maps` or `kkt.assembly_maps_nd` maps of a plan) takes
+    sparse data: P and A are then `linalg.matops.SparseCOO`, and the KKT
+    is summed from their values through the maps (reference loop.py:
+    296-372).  Without a plan, which `BatchSolver` never passes,
+    "blockarrow" and "multifrontal" run the dense ldl path, as the
+    reference's build_solve does (loop.py:374, 398, 442-452), and "auto"
+    means ldl."""
     m = layout.m
     if kkt_backend is None:
         kkt_backend = settings.kkt_backend
@@ -294,20 +307,24 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                            "multifrontal"):
         raise ValueError(f"unknown kkt_backend {kkt_backend!r}")
     # the reference's float32 default for multifrontal fronts off a CPU
-    # (reference loop.py:238-258), read here as "on a CUDA card": a float64
+    # (reference loop.py:228-258), read here as "on a CUDA card": a float64
     # solve with refinement, without mixed precision, on a layout without
-    # zero or PSD cones
-    mf_float32 = (kkt_backend == "multifrontal"
+    # zero or PSD cones; with maps, the nested ones mean multifrontal
+    is_mf = kkt_backend == "multifrontal"
+    if assembly is not None:
+        from ..kkt.assembly_maps_nd import NestedAssemblyMaps
+
+        is_mf = isinstance(assembly, NestedAssemblyMaps)
+    mf_float32 = (is_mf
                   and settings.factor_dtype is None
                   and not any(g.kind in ("zero", "psd")
                               for g in layout.groups.values())
                   and settings.dtype == "float64"
                   and settings.iterative_refinement_enable
                   and not settings.mixed_precision)
-    if kkt_backend in ("blockarrow", "multifrontal"):
-        # without a structure plan, which BatchSolver never passes, the
-        # reference's build_solve takes neither branch and falls through
-        # to the dense ldl path (reference loop.py:374, 398, 442-452)
+    if kkt_backend in ("blockarrow", "multifrontal") and structure is None:
+        # without a structure plan the reference's build_solve takes
+        # neither branch and falls through to the dense ldl path
         kkt_backend = "ldl"
     dtype = torch_dtype(settings.dtype)
     degree = layout.degree
@@ -352,6 +369,11 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     def make_kkt(P, A, state, factor_dtype, signs):
         """Factor at the given state and return (ok, solve_xz, solve_xz2),
         each per lane."""
+        counts["factorizations"] += 1
+        if assembly is not None:
+            return make_kkt_sparse(P, A, state, factor_dtype)
+        if structure is not None:
+            return make_kkt_structured(P, A, state, factor_dtype, signs)
         if kkt_backend == "condensed":
             from ..kkt import condensed as kkt_cond
             from ..kkt import blockarrow as kkt_ba
@@ -379,6 +401,103 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
 
         def solve_xz2(bx1, bz1, bx2, bz2):
             return kkt.kkt_solve_xz2(fac, bx1, bz1, bx2, bz2, settings)
+
+        return fac.ok, solve_xz, solve_xz2
+
+    def make_kkt_sparse(P, A, state, factor_dtype):
+        """Sparse data: the KKT summed from the values through the maps,
+        with no dense K or Hs (reference loop.py:301-372)."""
+        from ..kkt import blockarrow as kkt_ba
+        from ..kkt.assembly_maps_nd import NestedAssemblyMaps
+        from ..kkt.refine import solve_refined
+
+        srk = getattr(assembly, "soc_rank2_min_dim", None)
+        hs_vals = cone_ops.hs_flat_values(layout, state, P.vals,
+                                          soc_rank2_min_dim=srk)
+        kkt_mv = kkt_ba.make_kkt_matvec(P, A, layout, state)
+        plan = assembly.plan
+
+        if isinstance(assembly, NestedAssemblyMaps):
+            from ..kkt import assembly_maps_nd as kkt_amnd
+            from ..kkt import multifrontal as kkt_mf
+
+            fac = kkt_amnd.factor_from_nested_maps(
+                assembly, P.vals, A.vals, hs_vals, settings, factor_dtype)
+
+            def solve_xz(bx, bz):
+                return kkt_mf.kkt_solve_xz_multifrontal(
+                    fac, plan, kkt_mv, bx, bz, settings)
+
+            def solve_xz2(bx1, bz1, bx2, bz2):
+                return kkt_mf.kkt_solve_xz2_multifrontal(
+                    fac, plan, kkt_mv, bx1, bz1, bx2, bz2, settings)
+
+            return fac.ok, solve_xz, solve_xz2
+
+        from ..kkt import assembly_maps as kkt_am
+
+        fac = kkt_am.factor_from_maps(assembly, P.vals, A.vals, hs_vals,
+                                      settings, factor_dtype)
+        ok_factor = fac.ok
+        apply_fn = lambda r: kkt_ba._ba_apply(fac, plan, r)  # noqa: E731
+        if srk is not None:
+            # the low-rank cone terms as an SMW correction around K₀
+            from ..kkt.socrank import wrap_apply_smw
+
+            U, usigns = cone_ops.soc_rank2_uv(layout, state, n, P.vals,
+                                              soc_rank2_min_dim=srk)
+            if U is not None:
+                apply_fn, ok_smw = wrap_apply_smw(apply_fn, U, usigns,
+                                                  settings)
+                ok_factor = ok_factor & ok_smw
+
+        def solve_xz(bx, bz):
+            sol, ok = solve_refined(apply_fn, kkt_mv,
+                                    torch.cat([bx, bz], dim=1), settings)
+            return sol[:, :n], sol[:, n:], ok
+
+        def solve_xz2(bx1, bz1, bx2, bz2):
+            rhs = torch.stack([torch.cat([bx1, bz1], dim=1),
+                               torch.cat([bx2, bz2], dim=1)], dim=2)
+            sol, ok = solve_refined(apply_fn, kkt_mv, rhs, settings)
+            return (sol[:, :n, 0], sol[:, n:, 0], sol[:, :n, 1],
+                    sol[:, n:, 1], ok)
+
+        return ok_factor, solve_xz, solve_xz2
+
+    def make_kkt_structured(P, A, state, factor_dtype, signs):
+        """Dense data with a plan: the blocks or fronts gathered out of the
+        dense K (reference loop.py:374-420)."""
+        from ..kkt import blockarrow as kkt_ba
+
+        Hs = cone_ops.hs_dense(layout, state, P)
+        kkt_mv = kkt_ba.make_kkt_matvec(P, A, layout, state)
+        if kkt_backend == "multifrontal":
+            from ..kkt import multifrontal as kkt_mf
+
+            fac = kkt_mf.assemble_and_factor_multifrontal(
+                P, A, Hs, structure, signs, settings, factor_dtype)
+
+            def solve_xz(bx, bz):
+                return kkt_mf.kkt_solve_xz_multifrontal(
+                    fac, structure, kkt_mv, bx, bz, settings)
+
+            def solve_xz2(bx1, bz1, bx2, bz2):
+                return kkt_mf.kkt_solve_xz2_multifrontal(
+                    fac, structure, kkt_mv, bx1, bz1, bx2, bz2, settings)
+
+            return fac.ok, solve_xz, solve_xz2
+
+        fac = kkt_ba.assemble_and_factor_blockarrow(
+            P, A, Hs, structure, signs, settings, factor_dtype)
+
+        def solve_xz(bx, bz):
+            return kkt_ba.kkt_solve_xz_blockarrow(fac, structure, kkt_mv,
+                                                  bx, bz, settings)
+
+        def solve_xz2(bx1, bz1, bx2, bz2):
+            return kkt_ba.kkt_solve_xz2_blockarrow(
+                fac, structure, kkt_mv, bx1, bz1, bx2, bz2, settings)
 
         return fac.ok, solve_xz, solve_xz2
 
@@ -566,11 +685,11 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             xi = x / tau[:, None]
             tau_num = (rhs_tau - rhs_kappa / tau
                        + so.vdot(q, x1) + so.vdot(b, z1)
-                       + 2.0 * so.vdot(xi, so.mv(P, x1)))
+                       + 2.0 * so.vdot(xi, matops.mv(P, x1)))
             xi_m_x2 = xi - x2
             tau_den = (kappa / tau - so.vdot(q, x2) - so.vdot(b, z2)
-                       + so.vdot(xi_m_x2, so.mv(P, xi_m_x2))
-                       - so.vdot(x2, so.mv(P, x2)))
+                       + so.vdot(xi_m_x2, matops.mv(P, xi_m_x2))
+                       - so.vdot(x2, matops.mv(P, x2)))
             dtau = tau_num / tau_den
             dx = x1 + dtau[:, None] * x2
             dz = z1 + dtau[:, None] * z2
@@ -702,7 +821,7 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         carry = step(carry)
         if (graphed and carry.x.device.type == "cuda"
                 and (not is_symmetric or carry.x.shape[0] <= GRAPH_MAX_LANES)):
-            return _replay(step, active_of, carry)
+            return _replay(step, active_of, carry, counts)
         while bool(active_of(carry).any()):
             carry = step(carry)
         return carry
@@ -790,8 +909,14 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     def solve(P, q, A, b):
         factor_dtype = ("float32" if mf_float32 and q.device.type == "cuda"
                         else settings.factor_dtype)
+        counts["factor_dtype"] = factor_dtype
         data, carry0 = prepare(P, q, A, b, factor_dtype)
         final = run_phases(data, carry0, factor_dtype)
         return finalize(data, final)
 
+    # what the solves did, for the smoke run's readings: the KKT
+    # factorizations run (all lanes' at once, one a pass; a replayed pass
+    # counts as it runs) and the last solve's factor dtype
+    counts = {"factorizations": 0, "factor_dtype": None}
+    solve.counts = counts
     return solve

@@ -88,7 +88,9 @@ def test_cones_now_in_the_slice_solve(cone):
 def test_settings_outside_the_slice_raise(change):
     """These backends once raised here; now they solve.  BatchSolver
     passes no structure plan, so the reference runs its dense ldl loop for
-    both, and so does the port: on the example batch of __graft_entry__.py
+    both, and so does the port's BatchSolver (the single-instance Solver
+    analyzes the pattern for a plan: tests/test_torch_structured_solver.py):
+    on the example batch of __graft_entry__.py
     the reference's statuses (tests/torch_fixtures/faults.npz), x within
     the bench bar of DEVIATIONS.md #4 (1e-4), the objective within 1e-6,
     iterations within 4, and the bits of the port's own ldl loop."""
@@ -628,6 +630,44 @@ def test_loop_graph_replay_matches_eager_on_the_card(path, monkeypatch):
         assert got.dtype == want.dtype and got.shape == want.shape, key
         assert np.array_equal(np.ascontiguousarray(got).view(np.uint8),
                               np.ascontiguousarray(want).view(np.uint8)), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["grid", "rank2"])
+def test_sparse_solver_graph_replay_matches_eager_on_the_card(case,
+                                                              monkeypatch):
+    """The sparse Solver's IPM pass (multifrontal on a grid QP, block-arrow
+    with the rank-2 SMW correction on robust least squares) replayed as a
+    CUDA graph gives the bits of the pass left eager, and counts the
+    factorizations it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card with -m gpu)")
+    from clarabel_tpu_torch import api
+    from clarabel_tpu_torch.ipm import loop
+
+    if case == "grid":
+        P, q, A, b = bench_data.grid_qp_sparse(20)
+        cones, st = [ctt.NonnegativeConeT(400)], ctt.Settings(
+            sparse_data=True)
+    else:
+        P, q, A, b, cones, _, _ = bench_data.robust_ls_banded(240, 80)
+        st = ctt.Settings()
+
+    def run():
+        api._SOLVE_CACHE.clear()
+        solver = ctt.Solver(P, q, A, b, cones, st)
+        sol = solver.solve()
+        return sol, solver._solve_fn.counts["factorizations"]
+
+    graphed, f_graphed = run()
+    monkeypatch.setattr(loop, "GRAPH_KINDS", frozenset())
+    eager, f_eager = run()
+    api._SOLVE_CACHE.clear()
+    assert graphed.status == eager.status == ctt.SolverStatus.SOLVED
+    assert graphed.iterations == eager.iterations
+    assert f_graphed == f_eager
+    for key in ("x", "z", "s"):
+        assert np.array_equal(getattr(graphed, key), getattr(eager, key)), key
 
 
 @pytest.mark.gpu

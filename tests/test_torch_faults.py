@@ -4,7 +4,9 @@ in `tests/torch_fixtures/faults.npz` (made by `make_fault_fixtures.py`):
 * the dense ldl loop on lanes with N = n + m > 512 (the blocked factor);
 * `Settings(verbose=True)`: the iteration rows of the batched loop;
 * (in tests/test_torch_batch.py) `kkt_backend="blockarrow"` and
-  `"multifrontal"`, which without a structure plan run the dense ldl loop.
+  `"multifrontal"` in `BatchSolver`, which passes no structure plan, so
+  they run the dense ldl loop there (the single-instance `Solver` analyzes
+  the pattern for its plan: tests/test_torch_structured_solver.py).
 
 Bars: statuses equal, x and the objective within 1e-6 and iterations
 within 4 on the N = 520 lanes (strongly convex QPs: x is unique); the

@@ -12,7 +12,11 @@ path, on the CPU (`device="cpu"`: the plain versions of the kernels).
   problems are built over the reference's cone classes, which the oracle
   reads, and each is mapped to the port's class for the solve.
 * Presolve, chordal decomposition, data updates, the JSON files of both
-  packages, bad inputs, and what this slice leaves out.
+  packages, bad inputs, and what the port leaves out.  The four inputs
+  that raised for ROADMAP.md Queue 1 item 11 (sparse and structured KKT)
+  now solve, held to the reference's outputs in
+  `tests/torch_fixtures/sparse.npz` as `tests/test_torch_sparse_solver.py`
+  holds its cases.
 """
 
 import dataclasses
@@ -23,7 +27,6 @@ import zlib
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 import clarabel_tpu as ct
@@ -357,43 +360,33 @@ def _left_out(case):
     if case == "timing":
         return lambda: ctt.Solver(P, q, A, b, cones, timing=True,
                                   device="cpu")
-    if case == "sparse_data":
-        return lambda: ctt.Solver(P, q, A, b, cones, sparse_data=True,
-                                  device="cpu")
-    if case == "sparse_big":
-        n = 1200
-        return lambda: ctt.Solver(
-            sp.eye(n, format="csc"), np.ones(n), sp.eye(n, format="csc"),
-            np.ones(n), [ctt.NonnegativeConeT(n)], device="cpu")
-    if case == "big_soc_sparse_rows":
-        n, m = 10, 40
-        Ad = np.zeros((m, n))
-        Ad[np.arange(n), np.arange(n)] = 1.0
-        return lambda: ctt.Solver(np.eye(n), np.ones(n), Ad, np.ones(m),
-                                  [ctt.SecondOrderConeT(m)], device="cpu")
-    if case == "auto_above_1024":
-        n = 600
-        return lambda: ctt.Solver(np.eye(n), np.ones(n),
-                                  np.vstack([np.eye(n), -np.eye(n)]),
-                                  np.ones(2 * n),
-                                  [ctt.NonnegativeConeT(2 * n)],
-                                  device="cpu")
     solver = ctt.Solver(P, q, A, b, cones, device="cpu")
     return lambda: getattr(solver, case)(*(("x",) if case != "print_timers"
                                            else ()))
 
 
 LEFT_OUT = {"mesh": "13", "time_limit": "12", "timing": "12",
-            "sparse_data": "11", "sparse_big": "11",
-            "big_soc_sparse_rows": "11", "auto_above_1024": "11",
             "save_checkpoint": "12", "resume_from_checkpoint": "12",
             "profile_trace": "12", "print_timers": "12"}
+# the inputs that raised for item 11 until the port took the sparse and
+# structured KKT: each now solves (the `left_out_*` cases of sparse.npz:
+# sparse_data=True on the verify drive, scipy-sparse data with
+# n + m > 2000, an SOC of dimension 40 over rows at most 10 % filled, and
+# kkt_backend="auto" above n + m = 1024)
+ONCE_LEFT_OUT = ("sparse_data", "sparse_big", "big_soc_sparse_rows",
+                 "auto_above_1024")
 
 
-@pytest.mark.parametrize("case", sorted(LEFT_OUT))
+@pytest.mark.parametrize("case", sorted(set(LEFT_OUT) | set(ONCE_LEFT_OUT)))
 def test_left_out_inputs_raise(case):
-    """Each input this slice leaves out raises NotImplementedError naming
-    its ROADMAP.md item, and none takes the dense path in its place."""
+    """Each input the port leaves out raises NotImplementedError naming
+    its ROADMAP.md item, and none takes another path in its place; the
+    item-11 inputs solve as the reference does."""
+    if case in ONCE_LEFT_OUT:
+        from test_torch_sparse_solver import solve_case
+
+        solve_case(f"left_out_{case}")
+        return
     with pytest.raises(NotImplementedError,
                        match=f"item {LEFT_OUT[case]} "):
         _left_out(case)()
