@@ -76,7 +76,25 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   correction), against the reference's outputs in
   tests/torch_fixtures/sparse.npz, with the setup split (analysis, maps,
   the rest), cold and warm solve, time per IPM iteration and
-  factorizations; then the check that nothing imported JAX.
+  factorizations;
+* [15] long solves on the card: on [14]'s grid60 solver the chunked solve
+  (chunks of 25 and of 5 iterations, each chunk capturing the loop's CUDA
+  graph again) and `time_limit=600`, a tiny time limit (one chunk),
+  a checkpoint after 3 iterations and its resume, `timing=True` with the
+  `print_timers` tree (the probes timed by CUDA events), each with the
+  one-shot solve's bits, and `profile_trace` around one warm solve (its
+  CUDA kernel events counted, the device's busy share printed); then the
+  verify drive under mixed precision with a time limit (K2's launches
+  counted), against tests/torch_fixtures/long.npz;
+* [16] the BASELINE runner (`baseline_torch.py`) at run_all.py's full
+  scale: the four committed `benchmarks/data/*_style.qps` files, the
+  Markowitz, CVXQP-style, AUG2DC-style, robust least-squares and max-cut
+  rows against the reference's outputs in tests/torch_fixtures/long.npz,
+  the batched SOCP row (B = 4096, K1a's group kernel, its launches
+  counted) against K1a's plain version; `python -m clarabel_tpu_torch
+  benchmarks/data/CVXQP1_style.qps` once as a subprocess; and
+  `precompile.warmup()` twice (its libraries built in [1]); then the check
+  that nothing imported JAX.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -274,6 +292,30 @@ SOLVER_N = 8            # n + m of the verify drive: K2's N under mixed
 SPARSE_FIXTURE = os.path.join("tests", "torch_fixtures", "sparse.npz")
 SPARSE_CASES = ("grid60", "banded2500", "rls2000")
 SPARSE_TOL, SPARSE_IT_TOL = 1e-6, 4
+
+# [15] long solves on grid60 (the [14] solver, so its plan analysis is not
+# paid twice) and on the verify drive under mixed precision: chunks of
+# LONG_CHUNKS iterations, a checkpoint after LONG_CAP iterations
+LONG_CHUNKS = (25, 5)
+LONG_CAP = 3
+LONG_FIXTURE = os.path.join("tests", "torch_fixtures", "long.npz")
+
+# [16] the BASELINE runner (baseline_torch.py) at run_all.py's full scale,
+# each single row held to the reference Solver's outputs in
+# tests/torch_fixtures/long.npz (`row_*`): status equal, iterations within
+# SPARSE_IT_TOL, x within SPARSE_TOL of the reference relative to max(1,
+# |x|inf), the objective within SPARSE_TOL * max(1, |obj|) and the
+# true-KKT residuals (2-norms) of the port's own output below KKT_TOL.  As
+# [12] does at scale, a bar that the reference fails against itself under
+# the three 1e-15 changes of q of JITTER_SEEDS (made on the CPU into the
+# fixture, `spread_row_*`: x against its unchanged solution, and its own
+# worst true KKT) measures rounding on that row: the port's reading of it
+# is printed beside the reference's, not held.  Only the robust
+# least-squares SOCP has such bars, x and true KKT (DEVIATIONS.md #19).
+# The batched row (B = 4096, K1a's group kernel) is held to K1a's plain
+# version on the card under BARS["bench"] and its SOLVED count to the
+# reference BatchSolver's less 0.1 % of B.
+BASELINE_B = 4096
 
 
 def fail(msg):
@@ -1420,7 +1462,8 @@ def sparse_check(tag, fix, key, sol, kkt, failures):
 def sparse_phase(card, failures):
     """[14] The Solver's sparse and structured KKT on the card against the
     reference Solver's outputs (tests/torch_fixtures/sparse.npz).  Returns
-    the readings per case."""
+    the readings per case and grid60's solver with its problem (P, q, A,
+    b), which [15] reuses."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch import native_symbolic, structure, structure_nd
@@ -1517,9 +1560,264 @@ def sparse_phase(card, failures):
                   f"{ukkt[0]:.2e} {ukkt[1]:.2e}; update and warm solve "
                   f"{upd:.3f} s, no analysis; card {card}", flush=True)
         readings[name] = r
+        if name == "grid60":
+            kept = (solver, P, q, A, b)     # [15] runs its long solves
         del solver
         torch.cuda.empty_cache()
-    return readings
+    return readings, kept
+
+
+def long_phase(card, failures, grid):
+    """[15] Long solves on the card: chunked (LONG_CHUNKS iterations a
+    chunk, each chunk captures the loop's CUDA graph again and replays it)
+    and time-limited solves, a tiny time limit, a checkpoint after
+    LONG_CAP iterations and its resume, a timed solve with the timer tree,
+    and a profiled warm solve, on [14]'s grid60 solver; then the verify
+    drive under mixed precision with a time limit, K2's launches counted.
+    Every path must give the one-shot solve's bits."""
+    import tempfile
+
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch.api import _fetch
+    from clarabel_tpu_torch.interop import cone_from_tuple
+    from clarabel_tpu_torch.linalg import batched_ldl
+
+    def same_bits(tag, got, ref):
+        same = (int(got.status) == int(ref.status)
+                and got.iterations == ref.iterations
+                and all(np.array_equal(getattr(got, k), getattr(ref, k))
+                        for k in ("x", "z", "s")))
+        print(f"{tag}: {got.status.name} in {got.iterations} iterations; "
+              f"bits {'equal to' if same else 'DIFFERENT from'} the "
+              f"one-shot solve's", flush=True)
+        if not same:
+            failures.append(f"{tag}: not the one-shot solve's bits")
+
+    solver, P, q, A, b = grid
+    base = solver.settings
+    one = solver.solve()
+    t = time.perf_counter()
+    one = solver.solve()
+    one_s = time.perf_counter() - t
+    print(f"[15] grid60 one-shot: {one.status.name} in {one.iterations} "
+          f"iterations, {one_s:.3f} s; card {card}", flush=True)
+    for chunk in LONG_CHUNKS:
+        t = time.perf_counter()
+        out = solver._solve_chunked(time.perf_counter(), chunk_iters=chunk)
+        got = solver._package_solution(_fetch(out), 0.0)
+        same_bits(f"[15] grid60 chunks of {chunk} ({time.perf_counter() - t:.3f}"
+                  f" s)", got, one)
+    solver.settings = base.replace(time_limit=600.0)
+    same_bits("[15] grid60 time_limit=600", solver.solve(), one)
+    solver.settings = base.replace(time_limit=1e-12)
+    out = _fetch(solver._solve_chunked(time.perf_counter(), chunk_iters=1))
+    tiny = ctt.SolverStatus(int(out["status"]))
+    print(f"[15] grid60 time_limit=1e-12, chunks of 1: {tiny.name} after "
+          f"{int(out['iterations'])} iteration(s)", flush=True)
+    if tiny not in (ctt.SolverStatus.MAX_TIME, ctt.SolverStatus.ALMOST_SOLVED,
+                    ctt.SolverStatus.SOLVED) or int(out["iterations"]) != 1:
+        failures.append(f"[15] tiny time limit: {tiny.name} after "
+                        f"{int(out['iterations'])} iterations")
+    solver.settings = base
+    with tempfile.TemporaryDirectory() as d:
+        fn = solver._solve_fn
+        data, carry = fn.prepare(*solver._dev_args)
+        solver._last_carry = fn.run_phases(data, carry, LONG_CAP)
+        path = os.path.join(d, "state.npz")
+        solver.save_checkpoint(path)
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        resumed = solver.resume_from_checkpoint(path)
+        same_bits(f"[15] grid60 checkpoint after {LONG_CAP} iterations "
+                  f"({size} bytes), resumed ({time.perf_counter() - t:.3f} "
+                  f"s)", resumed, one)
+        solver.settings = base.replace(timing=True)
+        same_bits("[15] grid60 timing=True", solver.solve(), one)
+        print("[15] print_timers:", flush=True)
+        solver.print_timers()
+        timers = dict(solver._timers)
+        probes = solver._probe_phase_times()
+        solver.settings = base
+        print(f"[15] grid60 stages: prepare {timers['prepare'] * 1e3:.2f} "
+              f"ms, loop {timers['loop'] * 1e3:.2f} ms "
+              f"({timers['loop'] / max(1, timers['iterations']) * 1e3:.2f} "
+              f"ms per iteration), finalize {timers['finalize'] * 1e3:.2f} "
+              f"ms; probes (CUDA events, best of 3): "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in probes.items())
+              + f"; card {card}", flush=True)
+        solver._sync()
+        with solver.profile_trace(d):
+            t = time.perf_counter()
+            prof_sol = solver.solve()
+            solver._sync()
+            wall = time.perf_counter() - t
+        with open(solver.last_trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        busy = sum(float(e.get("dur", 0.0)) for e in kernels) / 1e6
+        print(f"[15] profile_trace: {len(kernels)} CUDA kernel events in "
+              f"{len(events)} trace events, device busy {busy * 1e3:.2f} ms "
+              f"of {wall * 1e3:.2f} ms wall (busy share {busy / wall:.4f}); "
+              f"card {card}", flush=True)
+        same_bits("[15] grid60 under profile_trace", prof_sol, one)
+        if not kernels:
+            failures.append("[15] the trace holds no CUDA kernel event")
+    long_readings = dict(timers, probes=probes, kernel_events=len(kernels),
+                         busy_share=busy / wall, one_shot_s=one_s)
+
+    # the verify drive under mixed precision, time-limited: K2 at N = 8
+    fix = np.load(os.path.join(HERE, SOLVER_FIXTURE))
+    lfix = np.load(os.path.join(HERE, LONG_FIXTURE))
+    vP, vq, vA, vb = (fix[f"verify_{k}"] for k in "PqAb")
+    cones = [cone_from_tuple(tuple(t))
+             for t in json.loads(str(fix["verify_cones"]))]
+    mixed = ctt.Settings(mixed_precision=True)
+    one = ctt.Solver(vP, vq, vA, vb, cones, mixed, device=DEVICE).solve()
+    batched_ldl.kernel.launches = 0
+    batched_ldl.kernel.rows_launches = 0
+    sol = ctt.Solver(vP, vq, vA, vb, cones, mixed.replace(time_limit=600.0),
+                     device=DEVICE).solve()
+    k2 = (batched_ldl.kernel.launches, batched_ldl.kernel.rows_launches)
+    same_bits("[15] verify drive, mixed precision, time_limit=600", sol, one)
+    dx = float(np.abs(sol.x - lfix["chunked_verify_mixed_x"]).max())
+    print(f"[15] verify drive, mixed precision, time-limited: K2 launches "
+          f"{k2[0]} ({k2[1]} ldl_inverse_rows.cu); max|dx| against the "
+          f"reference's time-limited solve {dx:.3e}; card {card}", flush=True)
+    if k2[1] <= 0:
+        failures.append("[15] the time-limited mixed-precision solve "
+                        "launched no K2")
+    if int(sol.status) != int(lfix["chunked_verify_mixed_status"]) \
+            or dx > SPARSE_TOL:
+        failures.append(f"[15] the time-limited mixed-precision solve is "
+                        f"off the reference ({sol.status.name}, {dx:.3e})")
+    long_readings["k2_launches"] = k2[0]
+    return long_readings
+
+
+def baseline_phase(card, failures):
+    """[16] The BASELINE runner (baseline_torch.py) on the card at
+    run_all.py's full scale: every single row held to the reference's
+    outputs, the batched row through K1a's group kernel held to its plain
+    version, the command line once as a subprocess, and
+    precompile.warmup().  Returns the readings."""
+    import torch
+    import baseline_torch
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import precompile
+    from clarabel_tpu_torch.ipm import _cuda, megakernel, megakernel_ref
+
+    fix = np.load(os.path.join(HERE, LONG_FIXTURE))
+    rows = {}
+    for key, name, gen in baseline_torch.single_rows(1.0):
+        tag = f"[16] {key}"
+        sol, t, (P, q, A, b, _) = baseline_torch.run_single(name, gen,
+                                                            DEVICE)
+        ref_x = fix[f"row_{key}_x"]
+        ref_obj = float(fix[f"row_{key}_obj_val"])
+        dx = float(np.abs(sol.x - ref_x).max()
+                   / max(1.0, np.abs(ref_x).max()))
+        dobj = abs(sol.obj_val - ref_obj) / max(1.0, abs(ref_obj))
+        ref_dx = float(fix[f"spread_row_{key}_dx"])
+        ref_kkt = float(fix[f"spread_row_{key}_kkt"])
+        rounding = ({"x"} if ref_dx > SPARSE_TOL else set()) | (
+            {"true KKT"} if ref_kkt >= KKT_TOL else set())
+        U = np.triu(P)
+        Pf = U + np.triu(U, 1).T
+        rp = float(np.linalg.norm(A @ sol.x + sol.s - b))
+        rd = float(np.linalg.norm(Pf @ sol.x + q + A.T @ sol.z))
+        ref_it = int(fix[f"row_{key}_iterations"])
+        print(f"{tag}: {sol.status.name} in {sol.iterations} iterations "
+              f"(reference {ref_it}); x within {dx:.3e} (the reference "
+              f"against itself {ref_dx:.3e}), objective within "
+              f"{dobj:.3e}; true KKT {rp:.2e} {rd:.2e} (the reference's "
+              f"own up to {ref_kkt:.2e}); not held, rounding: "
+              f"{', '.join(sorted(rounding)) or 'none'}; best warm solve "
+              f"{t * 1e3:.3f} ms; card {card}", flush=True)
+        if int(sol.status) != int(fix[f"row_{key}_status"]):
+            failures.append(f"{tag}: status {sol.status.name}")
+        if abs(sol.iterations - ref_it) > SPARSE_IT_TOL:
+            failures.append(f"{tag}: {sol.iterations} iterations")
+        if dobj > SPARSE_TOL:
+            failures.append(f"{tag}: objective ({dobj:.3e}) off the "
+                            f"reference")
+        if "x" not in rounding and dx > SPARSE_TOL:
+            failures.append(f"{tag}: x ({dx:.3e}) off the reference")
+        if "true KKT" not in rounding and not (rp < KKT_TOL
+                                               and rd < KKT_TOL):
+            failures.append(f"{tag}: true KKT {rp:.2e} {rd:.2e}")
+        rows[key] = dict(status=sol.status.name, iterations=sol.iterations,
+                         ms=t * 1e3, dx=dx)
+
+    # the batched row: K1a's group kernel at B = 4096
+    _cuda.megakernel.launches = 0
+    _cuda.megakernel.group_launches = 0
+    out, dt, (P, q, A, b), bs = baseline_torch.run_batched(BASELINE_B,
+                                                           DEVICE)
+    launches = (_cuda.megakernel.launches, _cuda.megakernel.group_launches)
+    spec = bs._mega_fn.spec
+    B, flats = megakernel.prepare(P, q, A, b, spec, torch.device(DEVICE))
+    p = outputs(*megakernel_ref.mega_solve_plain(*flats, spec, B), spec)
+    k = {"status": out.status, "x": out.x, "obj_val": out.obj_val,
+         "iterations": out.iterations, "z": out.z, "s": out.s}
+    r = readings(k, p, P, q, A, b)
+    solved = int((out.status == 1).sum())
+    ref_solved = int(fix["batched_solved"])
+    print(f"[16] batched: K1a launches {launches[0]} ({launches[1]} "
+          f"megakernel_group.cu); against the plain version: {describe(r)}; "
+          f"SOLVED {solved} (reference BatchSolver {ref_solved}); best warm "
+          f"solve {dt * 1e3:.3f} ms, {solved / dt:,.0f} solves/s; card "
+          f"{card}", flush=True)
+    for v in violations(r, BARS["bench"], B):
+        failures.append(f"[16] batched: the {v} bar")
+    if launches[1] <= 0:
+        failures.append("[16] the batched row launched no K1a group kernel")
+    if solved < ref_solved - 0.001 * B:
+        failures.append(f"[16] batched: SOLVED {solved}, the reference's "
+                        f"{ref_solved}")
+    rows["batched"] = dict(solved=solved, ms=dt * 1e3, solves_per_s=solved
+                           / dt, launches=launches[1])
+
+    # the command line, once, as a user runs it
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "clarabel_tpu_torch",
+         os.path.join("benchmarks", "data", "CVXQP1_style.qps")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    last = (cli.stdout.strip().splitlines() or [""])[-1]
+    print(f"[16] python -m clarabel_tpu_torch benchmarks/data/"
+          f"CVXQP1_style.qps: exit {cli.returncode} in "
+          f"{time.perf_counter() - t:.1f} s: {last}", flush=True)
+    if cli.returncode != 0 or "status=SOLVED" not in cli.stdout:
+        failures.append(f"[16] the command line: exit {cli.returncode}, "
+                        f"{cli.stderr.strip()[-300:]}")
+
+    # warmup: its libraries were built in [1]'s parallel build
+    with open(os.path.join(HERE, "tests", "torch_fixtures",
+                           "long.json")) as f:
+        ref_warm = json.load(f)["warmup"]
+    def missing_libraries(requests):
+        return [(lib, v) for lib, variants in requests for v in variants
+                if not os.path.exists(lib.lib_path(v))]
+
+    requests = precompile.library_requests(device=DEVICE)
+    missing = missing_libraries(requests)
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        statuses = precompile.warmup(device=DEVICE)
+        times.append(time.perf_counter() - t)
+        got = {k: v.name for k, v in statuses.items()}
+        if got != ref_warm:
+            failures.append(f"[16] warmup statuses {got}")
+    after = missing_libraries(requests)
+    n_libs = sum(len(v) for _, v in requests)
+    print(f"[16] precompile.warmup(): {got} (reference {ref_warm}); "
+          f"{n_libs} libraries, {len(missing)} missing before the first "
+          f"call, {len(after)} after; first call {times[0]:.3f} s, second "
+          f"{times[1]:.3f} s; card {card}", flush=True)
+    if after:
+        failures.append(f"[16] warmup left {len(after)} libraries unbuilt")
+    return dict(rows=rows, warmup_s=times)
 
 
 def main():
@@ -1614,6 +1912,12 @@ def main():
     k2_variants = sorted({batched_ldl.kernel.variant(n + m)
                           for n, m in K2_SHAPES}
                          | {batched_ldl.kernel.variant(SOLVER_N)})
+    # precompile.warmup()'s libraries ([16]), in the same parallel build
+    from clarabel_tpu_torch import precompile
+
+    warm_requests = precompile.library_requests()
+    variants = sorted(set(variants) | set(warm_requests[0][1]))
+    k2_variants = sorted(set(k2_variants) | set(warm_requests[1][1]))
     cuda_build.build_together(
         (_cuda.megakernel, variants), (batched_ldl.kernel, k2_variants),
         (wrong_group, [sh + (1, 1) for sh in wrong_shapes]),
@@ -2273,8 +2577,24 @@ def main():
 
     # ---- phase 14: the Solver's sparse and structured KKT ----
     clock.start("[14]")
-    sparse = sparse_phase(card, failures)
+    sparse, grid = sparse_phase(card, failures)
     print(f"[14] readings: {json.dumps(sparse)}", flush=True)
+
+    # ---- phase 15: long solves ----
+    clock.start("[15]")
+    long_readings = long_phase(card, failures, grid)
+    del grid
+    print(f"[15] readings: {json.dumps(long_readings)}", flush=True)
+
+    # ---- phase 16: the BASELINE runner, the command line, warmup ----
+    clock.start("[16]")
+    baseline = baseline_phase(card, failures)
+    print(f"[16] readings: {json.dumps(baseline)}", flush=True)
+    # every module of the port (and the runner) is imported by now
+    import clarabel_tpu_torch.__main__  # noqa: F401
+    import clarabel_tpu_torch.interop.cvxpy_interface  # noqa: F401
+    import clarabel_tpu_torch.io.cbf  # noqa: F401
+    import clarabel_tpu_torch.protocols  # noqa: F401
     if any(k == "jax" or k.startswith(("jax.", "clarabel_tpu."))
            or k == "clarabel_tpu" for k in sys.modules):
         failures.append("the port pulled in JAX or the JAX package")

@@ -13,12 +13,17 @@ kernels, the batched IPM loop solver with the dense ldl and condensed KKT
 backends (float64, float32 and mixed precision; float32 factors through
 the CUDA LDL kernels `csrc/ldl_inverse*.cu`), and the rescue cascade; the
 single-instance `Solver` on the dense path (presolve, chordal
-decomposition, data updates, JSON files); and `entry()`
-(`clarabel_tpu_torch/entry.py`).  On the CPU (the caller passes
-`device="cpu"`) each kernel's plain PyTorch version runs instead.
+decomposition, data updates, JSON files), with its sparse and
+structured KKT, time limits, checkpoints, stage timers and profiles;
+`entry()` (`clarabel_tpu_torch/entry.py`); the QPS and CBF readers
+(`io/`), the `ProblemBuilder` (`modeling`), the cvxpy data path
+(`interop/cvxpy_interface.py`), the command line (`python -m
+clarabel_tpu_torch file.qps`) and `precompile.warmup`.  On the CPU (the
+caller passes `device="cpu"`) each kernel's plain PyTorch version runs
+instead.
 
-The package imports torch and numpy; the JSON reader and writer
-(`io/json_io.py`) also scipy.sparse, when they are called.
+The package imports torch and numpy; the readers, the sparse setup and
+the JSON files also scipy.sparse, when they are called.
 """
 
 from .settings import Settings
@@ -34,6 +39,8 @@ from .cones.api import (
 )
 from .parallel.batch_impl import BatchSolver, BatchSolution
 from .api import Solver, DefaultSolution, DefaultInfo
+from . import modeling
+from . import precompile
 
 __version__ = "0.1.0"
 

@@ -25,14 +25,25 @@ float32 dense factors go through K2; on the CPU the plain versions run.
 The problem stays on the device between warm solves; a data update
 (`update_*`) drops that copy.
 
+Long solves run the loop's stages (`solve.prepare`, `solve.run_phases`
+with an iteration cap, `solve.finalize`) one at a time, with the same
+bits as the one-shot solve: a finite `time_limit` runs 25 IPM iterations
+a chunk and checks the wall clock between chunks (status MAX_TIME when it
+runs out); `save_checkpoint` writes the last chunked solve's IPM state and
+`resume_from_checkpoint` continues from it; `Settings(timing=True)` times
+prepare, loop and finalize, and `print_timers` prints them with two
+probes of one iteration; `profile_trace` records a `torch.profiler` trace
+(DEVIATIONS.md #19).
+
 What the port leaves out raises `NotImplementedError` naming the
-ROADMAP.md item that brings it: `mesh=` (item 13), time limits, timing,
-checkpoints, profiles and the timer tree (item 12).  None of them takes
-another path in their place (DEVIATIONS.md #17).
+ROADMAP.md item that brings it: `mesh=` (item 13).  It takes no other
+path in its place (DEVIATIONS.md #17).
 """
 
+import contextlib
 import dataclasses
 import math
+import os
 import time
 from typing import Optional, Sequence
 
@@ -183,17 +194,13 @@ class Solver:
         self._setup_done = False
         self._first_solve_time = None
         self._dev_args = None
+        self._last_carry = None
+        self._timers = None
+        self._timed_state = None
         if P is not None:
             self.setup(P, q, A, b, cones)
 
     # ------------------------------------------------------------------
-    def _slice_check(self):
-        st = self.settings
-        if math.isfinite(st.time_limit):
-            raise _not_in_slice("a finite time_limit", "12 (long solves)")
-        if st.timing:
-            raise _not_in_slice("Settings(timing=True)", "12 (long solves)")
-
     def _want_sparse(self, q, A, b, cones) -> bool:
         """The reference's rule for its sparse setup (api.py:317-347)."""
         want_sparse = self.settings.sparse_data
@@ -213,7 +220,6 @@ class Solver:
         t0 = time.perf_counter()
         from . import get_infinity
 
-        self._slice_check()
         # copies: the solver's problem is fixed at setup, whatever the
         # caller later does to its arrays (DEVIATIONS.md #17)
         q = np.array(q, dtype=np.float64).ravel()
@@ -492,7 +498,6 @@ class Solver:
         """reference: src/solver.jl:189-380"""
         if not self._setup_done:
             raise RuntimeError("call setup() before solve()")
-        self._slice_check()
         if self.settings.verbose:
             from . import info_print
 
@@ -502,15 +507,13 @@ class Solver:
         t0 = time.perf_counter()
         if self._dev_args is None:
             self._dev_args = self._device_args()
-        out = self._solve_fn(*self._dev_args)
-        # one fetch from the device for every field
-        flat = torch.cat([out[k].reshape(-1).to(torch.float64)
-                          for k in _VECTORS + _SCALARS]).cpu().numpy()
-        host, off = {}, 0
-        for k in _VECTORS + _SCALARS:
-            size = out[k].numel()
-            host[k] = flat[off:off + size] if k in _VECTORS else flat[off]
-            off += size
+        if math.isfinite(self.settings.time_limit):
+            out = self._solve_chunked(t0)
+        elif self.settings.timing:
+            out = self._solve_timed()
+        else:
+            out = self._solve_fn(*self._dev_args)
+        host = _fetch(out)
         solve_time = time.perf_counter() - t0
         if self._first_solve_time is None:
             self._first_solve_time = solve_time
@@ -649,15 +652,179 @@ class Solver:
             "mixed_precision": self.settings.mixed_precision,
         }
 
-    # ---- left to ROADMAP.md Queue 1 item 12 ----
-    def save_checkpoint(self, path: str):
-        raise _not_in_slice("save_checkpoint", "12 (long solves)")
+    # ---- long solves (reference api.py:630-682, 745-835) ----
+    def _solve_chunked(self, t0, chunk_iters: int = 25, checkpoint_cb=None,
+                       carry=None):
+        """Run the loop `chunk_iters` IPM iterations at a time, checking the
+        wall clock against `settings.time_limit` between chunks (status
+        MAX_TIME when it has run out; the reference checks it every
+        iteration, src/info.jl:109-116) and handing each chunk's IPM state
+        to `checkpoint_cb`.  Starts from `carry` when one is given (a
+        resumed solve).  Each chunk ends with one read of the iteration
+        count and status from the device."""
+        fn = self._solve_fn
+        if self._dev_args is None:
+            self._dev_args = self._device_args()
+        data, carry0 = fn.prepare(*self._dev_args)
+        if carry is None:
+            carry = carry0
+        iters = int(carry.iters[0])
+        while True:
+            carry = fn.run_phases(data, carry, iters + chunk_iters)
+            if checkpoint_cb is not None:
+                checkpoint_cb(carry)
+            iters, status = torch.stack(
+                [carry.iters[0], carry.status[0]]).tolist()
+            if status != int(SolverStatus.UNSOLVED):
+                break
+            if time.perf_counter() - t0 > self.settings.time_limit:
+                carry = carry._replace(status=torch.full_like(
+                    carry.status, int(SolverStatus.MAX_TIME)))
+                break
+        self._last_carry = carry
+        return fn.finalize(data, carry)
 
-    def resume_from_checkpoint(self, path: str):
-        raise _not_in_slice("resume_from_checkpoint", "12 (long solves)")
+    def save_checkpoint(self, path: str):
+        """Write the IPM state of the last chunked solve (a finite
+        time_limit, or a resumed solve) to an .npz file: the fields of the
+        port's `ipm.loop.Carry`, lane axis included (DEVIATIONS.md #19)."""
+        if self._last_carry is None:
+            raise RuntimeError("no IPM state available; run a chunked solve")
+        np.savez(path, **{k: v.cpu().numpy()
+                          for k, v in self._last_carry._asdict().items()})
+
+    def resume_from_checkpoint(self, path: str) -> DefaultSolution:
+        """Continue a solve from a state that `save_checkpoint` wrote, on
+        this solver's device."""
+        from .ipm.loop import Carry
+
+        with np.load(path) as f:
+            carry = Carry(**{k: torch.from_numpy(f[k]).to(self.device)
+                             for k in Carry._fields})
+        t0 = time.perf_counter()
+        out = self._solve_chunked(t0, carry=carry)
+        return self._package_solution(_fetch(out), time.perf_counter() - t0)
 
     def profile_trace(self, log_dir: str):
-        raise _not_in_slice("profile_trace", "12 (long solves)")
+        """A context that records a `torch.profiler` profile of the solves
+        inside it (CPU activity, and CUDA activity on a card) and writes it
+        as a Chrome trace under `log_dir` when it closes (the reference's
+        xprof trace; DEVIATIONS.md #19).  The path is then
+        `self.last_trace`."""
+        return _profile_trace(self, log_dir)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _solve_timed(self):
+        """Prepare (equilibration and the initial point), the IPM loop and
+        finalize, each ended by a synchronization with the device: the
+        stages the one-shot solve runs, so the bits are its bits."""
+        fn = self._solve_fn
+        t0 = time.perf_counter()
+        data, carry0 = fn.prepare(*self._dev_args)
+        self._sync()
+        t1 = time.perf_counter()
+        final = fn.run_phases(data, carry0)
+        self._sync()
+        t2 = time.perf_counter()
+        out = fn.finalize(data, final)
+        self._sync()
+        t3 = time.perf_counter()
+        self._timers = {"prepare": t1 - t0, "loop": t2 - t1,
+                        "finalize": t3 - t2,
+                        "iterations": int(final.iters[0])}
+        self._timed_state = (data, final)
+        return out
+
+    def _probe_phase_times(self):
+        """Seconds of the per-iteration slices at the final IPM state, best
+        of 3 after a warm call: CUDA events on a card, the host clock on
+        the CPU."""
+        data, carry = self._timed_state
+        fn = self._solve_fn
+        probes = {"cone scaling update": fn.probe_scaling,
+                  "scaling + KKT factor + 2-RHS solve": fn.probe_step}
+        cuda = self.device.type == "cuda"
+        times = {}
+        for name, probe in probes.items():
+            probe(data, carry)          # warm
+            self._sync()
+            best = float("inf")
+            for _ in range(3):
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    probe(data, carry)
+                    end.record()
+                    end.synchronize()
+                    best = min(best, start.elapsed_time(end) / 1e3)
+                else:
+                    t0 = time.perf_counter()
+                    probe(data, carry)
+                    best = min(best, time.perf_counter() - t0)
+            times[name] = best
+        return times
 
     def print_timers(self):
-        raise _not_in_slice("print_timers", "12 (long solves)")
+        """The timing tree (reference: print_timers, src/solver.jl:534;
+        TimerOutputs tree src/types.jl:362-372).  With
+        Settings(timing=True) solves run as timed stages and the tree shows
+        them and the device probes of one iteration; otherwise only the
+        totals the host sees."""
+        where = (torch.cuda.get_device_name(self.device)
+                 if self.device.type == "cuda" else "cpu")
+        print(f"device: {where}")
+        print(f"setup:                        {self._setup_time:10.4f} s")
+        if self._first_solve_time is not None:
+            print(f"solve (first):                "
+                  f"{self._first_solve_time:10.4f} s")
+        if self.solution is not None:
+            print(f"solve (last):                 "
+                  f"{self.solution.solve_time:10.4f} s")
+        timers = self._timers
+        if timers is None:
+            print("  (enable Settings(timing=True) for the phase tree)")
+            return
+        iters = max(1, timers["iterations"])
+        print(f"  ├ prepare (equilibration + initial point): "
+              f"{timers['prepare']:.4f} s")
+        print(f"  ├ IPM loop ({timers['iterations']} iterations): "
+              f"{timers['loop']:.4f} s  "
+              f"({timers['loop'] / iters * 1e3:.2f} ms/iter)")
+        if self._timed_state is not None:
+            for name, t in self._probe_phase_times().items():
+                print(f"  │   ├ {name}: {t * 1e3:.2f} ms")
+        print(f"  └ finalize (unscale + certificates): "
+              f"{timers['finalize']:.4f} s")
+
+
+def _fetch(out) -> dict:
+    """The loop solver's outputs for lane 0, in one copy from the device:
+    vectors as arrays, scalars as numbers."""
+    flat = torch.cat([out[k].reshape(-1).to(torch.float64)
+                      for k in _VECTORS + _SCALARS]).cpu().numpy()
+    host, off = {}, 0
+    for k in _VECTORS + _SCALARS:
+        size = out[k].numel()
+        host[k] = flat[off:off + size] if k in _VECTORS else flat[off]
+        off += size
+    return host
+
+
+@contextlib.contextmanager
+def _profile_trace(solver, log_dir: str):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if solver.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        solver._sync()
+    path = os.path.join(log_dir, f"solver_{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    solver.last_trace = path

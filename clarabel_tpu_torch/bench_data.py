@@ -8,8 +8,11 @@ benchmark from the same seed, plus two variants of the bench shape
 and batches of quasidefinite KKT matrices for the LDL kernel; and the
 single-instance sparse problems of the repository's benchmark
 configurations (`grid_qp_sparse`, `large_banded_qp_sparse`,
-`robust_ls_banded`), which the sparse `Solver` takes.  numpy and
-scipy.sparse only.
+`robust_ls_banded`), which the sparse `Solver` takes; and the BASELINE.md
+configurations of `benchmarks/configs.py` (`markowitz_qp`, `cvxqp_style`,
+`aug2d_style`, `robust_least_squares_socp`, `batched_socp`,
+`maxcut_sdp`), which `baseline_torch.py` runs.  numpy and scipy.sparse
+only.
 """
 
 import numpy as np
@@ -324,3 +327,158 @@ def robust_ls_banded(m=240, n=80, band=3, seed=0):
     q[n] = 1.0
     cones = [SecondOrderConeT(m + 1), NonnegativeConeT(2 * n)]
     return P, q, A, b, cones, F, g
+
+
+# The BASELINE.md configurations: copies of the generators in
+# `benchmarks/configs.py`, draw for draw, each returning the port's cone
+# classes.  `baseline_torch.py` runs them.
+
+def markowitz_qp(n_assets=200, seed=0):
+    """min (1/2) x'Σx - γ μ'x  s.t.  1'x = 1, x >= 0 (configs.py l.19)."""
+    from .cones.api import NonnegativeConeT, ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((n_assets, max(10, n_assets // 10)))
+    Sigma = F @ F.T / n_assets + 0.01 * np.eye(n_assets)
+    mu = rng.uniform(0.0, 0.1, n_assets)
+    gamma = 1.0
+
+    P = Sigma
+    q = -gamma * mu
+    A = np.vstack([np.ones((1, n_assets)), -np.eye(n_assets)])
+    b = np.concatenate([[1.0], np.zeros(n_assets)])
+    cones = [ZeroConeT(1), NonnegativeConeT(n_assets)]
+    return P, q, A, b, cones
+
+
+def cvxqp_style(n=100, seed=0):
+    """Convex QP in the CVXQP family structure: sparse P (tridiag-ish),
+    m = n/2 sparse equality constraints, box constraints (configs.py
+    l.35)."""
+    from .cones.api import NonnegativeConeT, ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    m_eq = n // 2
+    # sparse SPD P: tridiagonal + a few random couplings
+    P = np.diag(rng.uniform(1.0, 5.0, n))
+    off = rng.uniform(-0.5, 0.5, n - 1)
+    P += np.diag(off, 1) + np.diag(off, -1)
+    P = P + n * 1e-3 * np.eye(n)
+    q = rng.standard_normal(n)
+    # each equality touches ~3 variables
+    Aeq = np.zeros((m_eq, n))
+    for i in range(m_eq):
+        cols = rng.choice(n, 3, replace=False)
+        Aeq[i, cols] = rng.standard_normal(3)
+    beq = Aeq @ rng.uniform(-1, 1, n)
+    # box: -10 <= x <= 10
+    A = np.vstack([Aeq, np.eye(n), -np.eye(n)])
+    b = np.concatenate([beq, 10 * np.ones(n), 10 * np.ones(n)])
+    cones = [ZeroConeT(m_eq), NonnegativeConeT(2 * n)]
+    return P, q, A, b, cones
+
+
+def aug2d_style(grid=10, seed=0):
+    """AUG2DC-style expanded quadratic network problem on a 2-d grid
+    (configs.py l.59)."""
+    from .cones.api import ZeroConeT
+
+    rng = np.random.default_rng(seed)
+    n = 2 * grid * grid
+    m_eq = grid * grid
+    P = np.eye(n)
+    q = rng.standard_normal(n) * 0.1
+    Aeq = np.zeros((m_eq, n))
+    for i in range(m_eq):
+        Aeq[i, 2 * i] = 1.0
+        Aeq[i, 2 * i + 1] = -1.0
+        if i + 1 < m_eq:
+            Aeq[i, (2 * i + 2) % n] = 0.5
+    beq = rng.standard_normal(m_eq) * 0.1
+    cones = [ZeroConeT(m_eq)]
+    return P, q, Aeq, beq, cones
+
+
+def robust_least_squares_socp(m=2000, n=500, seed=0):
+    """Robust LS: min t + rho*u  s.t. ||Fx - g|| <= t, ||x|| <= u, dense
+    (configs.py l.77).  Variables: (x, t, u) in R^{n+2}."""
+    from .cones.api import SecondOrderConeT
+
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((m, n)) / np.sqrt(m)
+    g = rng.standard_normal(m)
+    rho = 0.1
+
+    nv = n + 2
+    P = np.zeros((nv, nv))
+    q = np.zeros(nv)
+    q[n] = 1.0      # t
+    q[n + 1] = rho  # u
+
+    # SOC 1: s = (t, Fx - g) in K_{m+1}
+    A1 = np.zeros((m + 1, nv))
+    A1[0, n] = -1.0
+    A1[1:, :n] = -F
+    b1 = np.concatenate([[0.0], -g])
+    # SOC 2: s = (u, x) in K_{n+1}
+    A2 = np.zeros((n + 1, nv))
+    A2[0, n + 1] = -1.0
+    A2[1:, :n] = -np.eye(n)
+    b2 = np.zeros(n + 1)
+
+    A = np.vstack([A1, A2])
+    b = np.concatenate([b1, b2])
+    cones = [SecondOrderConeT(m + 1), SecondOrderConeT(n + 1)]
+    return P, q, A, b, cones
+
+
+def batched_socp(B=4096, n=6, seed=0):
+    """Batch of small random SOCPs (configs.py l.110): the bench shape,
+    drawn as `make_batch` draws it.  Returns ((P, q, A, b), cones)."""
+    from .cones.api import NonnegativeConeT, SecondOrderConeT
+
+    cones = [NonnegativeConeT(n), SecondOrderConeT(n + 1)]
+    return make_batch(B, n, seed), cones
+
+
+def maxcut_sdp(nv=100, density=0.05, seed=0):
+    """Max-cut SDP relaxation, dual form (configs.py l.125):
+        min 1'y  s.t.  diag(y) − L/4 ⪰ 0
+    over a sparse banded graph Laplacian.  The PSD rows of [A b] carry the
+    graph's sparsity, so the chordal decomposition engages."""
+    from .cones.api import PSDTriangleConeT
+
+    rng = np.random.default_rng(seed)
+    W = np.zeros((nv, nv))
+    for i in range(nv - 1):
+        W[i, i + 1] = W[i + 1, i] = rng.uniform(0.5, 1.5)
+    extra = int(density * nv * nv / 2)
+    for _ in range(extra):
+        i, j = rng.integers(0, nv, 2)
+        if i != j and abs(i - j) < 8:
+            W[i, j] = W[j, i] = rng.uniform(0.5, 1.5)
+    L = np.diag(W.sum(axis=1)) - W
+    t = nv * (nv + 1) // 2
+
+    def tri(i, j):
+        i, j = min(i, j), max(i, j)
+        return (j * (j + 1)) // 2 + i
+
+    def svec(M):
+        out = np.zeros(t)
+        for col in range(nv):
+            for row in range(col + 1):
+                out[tri(row, col)] = M[row, col] * (
+                    1.0 if row == col else np.sqrt(2.0)
+                )
+        return out
+
+    # variables y ∈ R^nv;  s = svec(diag(y) − L/4) ∈ PSD cone
+    P = np.zeros((nv, nv))
+    q = np.ones(nv)
+    A_psd = np.zeros((t, nv))
+    for i in range(nv):
+        A_psd[tri(i, i), i] = -1.0
+    b_psd = -svec(L / 4.0)
+    cones = [PSDTriangleConeT(nv)]
+    return P, q, A_psd, b_psd, cones

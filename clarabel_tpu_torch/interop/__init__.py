@@ -7,6 +7,9 @@ cones as `(class name, dims or alpha)` tuples, and returns the port's
 set-up `clarabel_tpu.Solver`'s problem into a port `Solver`.  Plain dicts,
 tuples, arrays and attribute reads keep the port free of any import of the
 reference package.
+
+The module `cvxpy_interface` holds the cvxpy solver and its data path
+(cvxpy itself is an optional dependency, imported there when present).
 """
 
 import dataclasses
@@ -14,8 +17,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from .cones import api as cones_api
-from .settings import Settings
+from ..cones import api as cones_api
+from ..settings import Settings
 
 _CONE_CLASSES = ("ZeroConeT", "NonnegativeConeT", "SecondOrderConeT",
                  "ExponentialConeT", "PowerConeT", "GenPowerConeT",
@@ -61,7 +64,7 @@ def solver_from_reference(ref_solver, device=None):
     plain arrays and tuples.  That is the problem the reference solves,
     after its presolve and chordal decomposition where they ran (so the
     port runs neither again on it)."""
-    from .api import Solver
+    from ..api import Solver
 
     settings, cones = from_reference(
         dataclasses.asdict(ref_solver.settings),

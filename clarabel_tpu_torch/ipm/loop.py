@@ -557,8 +557,16 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         return barrier + cone_ops.compute_barrier(layout, state, z, s, dz,
                                                   ds, alpha)
 
-    def prepare(P, q, A, b, factor_dtype):
+    def factor_dtype_of(device):
+        """The factors' dtype on a device: float32 fronts on a card where
+        the reference takes them off a CPU, else settings.factor_dtype."""
+        return ("float32" if mf_float32 and device.type == "cuda"
+                else settings.factor_dtype)
+
+    def prepare(P, q, A, b):
         """Equilibration and the initial point: (data, initial carry)."""
+        factor_dtype = factor_dtype_of(q.device)
+        counts["factor_dtype"] = factor_dtype
         P, q, A, b = (t.to(dtype) for t in (P, q, A, b))
         device = q.device
         signs = torch.cat([torch.ones(n, dtype=dtype, device=device),
@@ -797,17 +805,19 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         )
         return _select_tuple(done_or_restart, skipped, stepped)
 
-    def run_loop(data, carry: Carry, extra_cond, factor_dtype) -> Carry:
+    def run_loop(data, carry: Carry, extra_cond, factor_dtype,
+                 cap) -> Carry:
         """The IPM while-loop over the batch: each pass runs the body for
         every lane and keeps it only on the lanes whose loop condition
-        holds; the loop ends when it holds on none.  On a card, where the
+        holds (UNSOLVED, fewer than `cap` iterations, and `extra_cond`);
+        the loop ends when it holds on none.  On a card, where the
         layout's cones allow it (`GRAPH_KINDS`) and, for a zero/nn/SOC
         layout, the batch has at most GRAPH_MAX_LANES lanes, the first
         pass runs as it is and the rest replay it as a CUDA graph
-        (`_replay`)."""
+        (`_replay`), which reads `cap`, a device scalar, as it replays."""
 
         def active_of(c):
-            active = c.status == UNSOLVED
+            active = (c.status == UNSOLVED) & (c.iters < cap)
             if extra_cond is not None:
                 active = active & extra_cond(c)
             return active
@@ -826,16 +836,26 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             carry = step(carry)
         return carry
 
-    def run_phases(data, carry0: Carry, factor_dtype) -> Carry:
+    def run_phases(data, carry0: Carry, iter_cap=None) -> Carry:
+        """Run the IPM loop(s) until every lane terminates or reaches
+        `iter_cap` iterations (None: no cap).  The cap is a device scalar
+        that the loop condition reads, so a chunk of a long solve runs the
+        same passes as the one-shot solve (reference loop.py:563-579).  A
+        chunk may end inside the float32 phase of mixed precision; the
+        next one then starts there again while mu > mu_switch, as the
+        reference's does."""
+        factor_dtype = factor_dtype_of(carry0.x.device)
+        cap = torch.as_tensor(2 ** 30 if iter_cap is None else iter_cap,
+                              dtype=torch.int32, device=carry0.iters.device)
         if settings.mixed_precision:
             # two-phase precision schedule: factor in f32 while the barrier
             # parameter is large, then at factor_dtype for the final
             # iterations, where cond(KKT) ~ 1/μ² exceeds the f32 range
             mu_switch = settings.mixed_precision_mu_switch
             mid = run_loop(data, carry0, lambda c: c.mu > mu_switch,
-                           "float32")
-            return run_loop(data, mid, None, factor_dtype)
-        return run_loop(data, carry0, None, factor_dtype)
+                           "float32", cap)
+            return run_loop(data, mid, None, factor_dtype, cap)
+        return run_loop(data, carry0, None, factor_dtype, cap)
 
     def finalize(data, final: Carry):
         """Post-processing: almost-checks, unscaling, certificates."""
@@ -907,16 +927,42 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         }
 
     def solve(P, q, A, b):
-        factor_dtype = ("float32" if mf_float32 and q.device.type == "cuda"
-                        else settings.factor_dtype)
-        counts["factor_dtype"] = factor_dtype
-        data, carry0 = prepare(P, q, A, b, factor_dtype)
-        final = run_phases(data, carry0, factor_dtype)
-        return finalize(data, final)
+        data, carry0 = prepare(P, q, A, b)
+        return finalize(data, run_phases(data, carry0))
+
+    # timing probes (the Solver's print_timers): slices of one IPM
+    # iteration at a given state (reference loop.py:955-981)
+    def probe_scaling(data, carry: Carry):
+        """The cone scaling update only."""
+        return cone_ops.update_scaling(layout, None, carry.s, carry.z,
+                                       carry.mu, carry.scaling)
+
+    def probe_step(data, carry: Carry):
+        """Scaling, KKT factor and the fused 2-RHS solve: the
+        per-iteration linear algebra.  It is not counted among the solves'
+        factorizations."""
+        P, q, A, b, _, _, _, signs = data
+        state, _ = cone_ops.update_scaling(layout, None, carry.s, carry.z,
+                                           carry.mu, carry.scaling)
+        before = counts["factorizations"]
+        ok, _, solve_xz2 = make_kkt(P, A, state,
+                                    factor_dtype_of(carry.x.device), signs)
+        counts["factorizations"] = before
+        res = compute_residuals(P, q, A, b, carry.x, carry.z, carry.s,
+                                carry.tau, carry.kappa)
+        x2, z2, x1, z1, ok1 = solve_xz2(-q, b, res.rx, carry.s - res.rz)
+        return x2, z2, x1, z1, ok & ok1
 
     # what the solves did, for the smoke run's readings: the KKT
     # factorizations run (all lanes' at once, one a pass; a replayed pass
     # counts as it runs) and the last solve's factor dtype
     counts = {"factorizations": 0, "factor_dtype": None}
     solve.counts = counts
+    # the stages of a solve, for chunked, resumed and timed solves
+    # (reference loop.py:983-988)
+    solve.prepare = prepare
+    solve.run_phases = run_phases
+    solve.finalize = finalize
+    solve.probe_scaling = probe_scaling
+    solve.probe_step = probe_step
     return solve

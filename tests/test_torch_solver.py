@@ -16,7 +16,10 @@ path, on the CPU (`device="cpu"`: the plain versions of the kernels).
   that raised for ROADMAP.md Queue 1 item 11 (sparse and structured KKT)
   now solve, held to the reference's outputs in
   `tests/torch_fixtures/sparse.npz` as `tests/test_torch_sparse_solver.py`
-  holds its cases.
+  holds its cases.  The six inputs that raised for item 12 (a finite
+  time_limit, timing=True, save_checkpoint, resume_from_checkpoint,
+  profile_trace, print_timers) now run on the verify drive, held to the
+  reference's solution; `mesh=` still raises for item 13.
 """
 
 import dataclasses
@@ -351,23 +354,43 @@ def test_bad_inputs_raise(bad):
 def _left_out(case):
     """Build the Solver call of one input this slice leaves out."""
     P, q, A, b, cones = _verify_problem()
-    if case == "mesh":
-        return lambda: ctt.Solver(P, q, A, b, cones, mesh=object(),
-                                  device="cpu")
+    return lambda: ctt.Solver(P, q, A, b, cones, mesh=object(),
+                              device="cpu")
+
+
+def _long_solve(case, tmp_path):
+    """Run one item-12 input on the verify drive; returns (the solution,
+    what the call printed or wrote, for the case's own check)."""
+    P, q, A, b, cones = _verify_problem()
     if case == "time_limit":
-        return lambda: ctt.Solver(P, q, A, b, cones,
-                                  ctt.Settings(time_limit=1.0), device="cpu")
+        return ctt.Solver(P, q, A, b, cones, ctt.Settings(time_limit=1.0),
+                          device="cpu").solve(), None
     if case == "timing":
-        return lambda: ctt.Solver(P, q, A, b, cones, timing=True,
-                                  device="cpu")
-    solver = ctt.Solver(P, q, A, b, cones, device="cpu")
-    return lambda: getattr(solver, case)(*(("x",) if case != "print_timers"
-                                           else ()))
+        return ctt.Solver(P, q, A, b, cones, timing=True,
+                          device="cpu").solve(), None
+    solver = ctt.Solver(P, q, A, b, cones, ctt.Settings(time_limit=600.0),
+                        device="cpu")
+    sol = solver.solve()
+    if case == "save_checkpoint":
+        path = str(tmp_path / "state.npz")
+        solver.save_checkpoint(path)
+        return sol, path
+    if case == "resume_from_checkpoint":
+        fn = solver._solve_fn
+        data, carry = fn.prepare(*solver._device_args())
+        solver._last_carry = fn.run_phases(data, carry, 3)
+        path = str(tmp_path / "state.npz")
+        solver.save_checkpoint(path)
+        return solver.resume_from_checkpoint(path), None
+    if case == "profile_trace":
+        with solver.profile_trace(str(tmp_path)):
+            sol = solver.solve()
+        return sol, solver.last_trace
+    solver.print_timers()
+    return sol, None
 
 
-LEFT_OUT = {"mesh": "13", "time_limit": "12", "timing": "12",
-            "save_checkpoint": "12", "resume_from_checkpoint": "12",
-            "profile_trace": "12", "print_timers": "12"}
+LEFT_OUT = {"mesh": "13"}
 # the inputs that raised for item 11 until the port took the sparse and
 # structured KKT: each now solves (the `left_out_*` cases of sparse.npz:
 # sparse_data=True on the verify drive, scipy-sparse data with
@@ -375,17 +398,32 @@ LEFT_OUT = {"mesh": "13", "time_limit": "12", "timing": "12",
 # kkt_backend="auto" above n + m = 1024)
 ONCE_LEFT_OUT = ("sparse_data", "sparse_big", "big_soc_sparse_rows",
                  "auto_above_1024")
+# the inputs that raised for item 12 until the port took the long solves:
+# each now runs on the verify drive and matches the reference's solution
+ONCE_LEFT_OUT_12 = ("time_limit", "timing", "save_checkpoint",
+                    "resume_from_checkpoint", "profile_trace",
+                    "print_timers")
 
 
-@pytest.mark.parametrize("case", sorted(set(LEFT_OUT) | set(ONCE_LEFT_OUT)))
-def test_left_out_inputs_raise(case):
+@pytest.mark.parametrize("case", sorted(set(LEFT_OUT) | set(ONCE_LEFT_OUT)
+                                        | set(ONCE_LEFT_OUT_12)))
+def test_left_out_inputs_raise(case, tmp_path, capsys):
     """Each input the port leaves out raises NotImplementedError naming
     its ROADMAP.md item, and none takes another path in its place; the
-    item-11 inputs solve as the reference does."""
+    item-11 inputs solve as the reference does, and so do the item-12
+    inputs (time limits, timing, checkpoints, profiles, the timer tree)."""
     if case in ONCE_LEFT_OUT:
         from test_torch_sparse_solver import solve_case
 
         solve_case(f"left_out_{case}")
+        return
+    if case in ONCE_LEFT_OUT_12:
+        sol, made = _long_solve(case, tmp_path)
+        _assert_reference_parity("verify", sol)
+        if case in ("save_checkpoint", "profile_trace"):
+            assert os.path.getsize(made) > 0
+        if case == "print_timers":
+            assert "device: cpu" in capsys.readouterr().out
         return
     with pytest.raises(NotImplementedError,
                        match=f"item {LEFT_OUT[case]} "):

@@ -184,7 +184,9 @@ def _imported_modules(path):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_reference():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                             "bench_torch.py",
+                                             "baseline_torch.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
