@@ -93,8 +93,18 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   the batched SOCP row (B = 4096, K1a's group kernel, its launches
   counted) against K1a's plain version; `python -m clarabel_tpu_torch
   benchmarks/data/CVXQP1_style.qps` once as a subprocess; and
-  `precompile.warmup()` twice (its libraries built in [1]); then the check
-  that nothing imported JAX.
+  `precompile.warmup()` twice (its libraries built in [1]);
+* [17] multi-device on the one card: (a) a world of one rank over NCCL in
+  this process, where the sharded `Solver` on [14]'s rls2000 (its IPM pass
+  replayed as a CUDA graph with the NCCL all-reduces in it) and the
+  dp-sharded `BatchSolver` on the bench batch at B = 4096 under
+  `Settings.throughput()` (K2 on the loop, its launches counted) give the
+  unsharded solves' bits, and `dryrun_multichip()`; (b) two ranks on
+  cuda:0 over gloo (`parallel/dryrun.launch`): the `Solver` with tp = 2 on
+  rls2000, eager, held to [14]'s solve and to the reference's outputs,
+  the `BatchSolver` with dp = 2, held to the unsharded solves of each
+  rank's share, and the dryrun, with the ms per IPM iteration and the
+  time in the all-reduces; then the check that nothing imported JAX.
 
 Every phase fails the run (non-zero exit) when its bar is not met.
 
@@ -316,6 +326,29 @@ LONG_FIXTURE = os.path.join("tests", "torch_fixtures", "long.npz")
 # version on the card under BARS["bench"] and its SOLVED count to the
 # reference BatchSolver's less 0.1 % of B.
 BASELINE_B = 4096
+
+# [17] multi-device on the one card: (a) a world of one rank over NCCL in
+# this process, whose sums are the identity, so the sharded Solver on
+# rls2000 (its IPM pass graphed) and the dp-sharded BatchSolver at
+# MULTI_B lanes under Settings.throughput() (K2 on the loop) must give the
+# unsharded solves' bits; (b) MULTI_RANKS ranks on cuda:0 over gloo,
+# started by parallel/dryrun.launch (joined within MULTI_JOIN_S): the
+# Solver with tp = 2 on rls2000, eager (gloo's collectives cannot be
+# captured), held to [14]'s unsharded solve (status and iterations equal,
+# |dx| < 1e-8 max(1, |x|), tests/test_blockarrow_sharded_ipm.py:40-43; and
+# r_prim, r_dual < 1e-8) and to the reference's rls2000 at [14]'s bars, and
+# the BatchSolver with dp = 2 at MULTI_B lanes.  On the card a lane's
+# bits depend on the batch size it is solved at (not on the other lanes'
+# data: a permuted batch, or one half solved twice over, gives the same
+# bits), so each rank's lanes are held to the bits of the unsharded
+# BatchSolver solving them as one batch of MULTI_B / 2 lanes; the reading
+# against the unsharded solve of all MULTI_B lanes (the reference's bar
+# there, statuses equal and x and objectives within 1e-9,
+# tests/test_batch_sharded.py:29-31) is printed beside the same reading
+# of the unsharded solver's own halves.  The dryrun runs in both worlds.
+MULTI_B = 4096
+MULTI_RANKS = 2
+MULTI_JOIN_S = 300
 
 
 def fail(msg):
@@ -1462,8 +1495,9 @@ def sparse_check(tag, fix, key, sol, kkt, failures):
 def sparse_phase(card, failures):
     """[14] The Solver's sparse and structured KKT on the card against the
     reference Solver's outputs (tests/torch_fixtures/sparse.npz).  Returns
-    the readings per case and grid60's solver with its problem (P, q, A,
-    b), which [15] reuses."""
+    the readings per case, grid60's solver with its problem (P, q, A, b),
+    which [15] reuses, and each case's warm solution, against which [17]
+    holds its sharded solves."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch import native_symbolic, structure, structure_nd
@@ -1474,7 +1508,7 @@ def sparse_phase(card, failures):
           f"({os.path.relpath(native_symbolic.LIB_PATH, HERE)})", flush=True)
     if not loaded:
         failures.append("[14] the native symbolic library did not load")
-    readings = {}
+    readings, solutions, kept = {}, {}, None
     for name in SPARSE_CASES:
         tag = f"[14] {name}"
         P, q, A, b, cones, st = sparse_problem(name)
@@ -1560,11 +1594,12 @@ def sparse_phase(card, failures):
                   f"{ukkt[0]:.2e} {ukkt[1]:.2e}; update and warm solve "
                   f"{upd:.3f} s, no analysis; card {card}", flush=True)
         readings[name] = r
+        solutions[name] = warm_sol
         if name == "grid60":
             kept = (solver, P, q, A, b)     # [15] runs its long solves
         del solver
         torch.cuda.empty_cache()
-    return readings, kept
+    return readings, kept, solutions
 
 
 def long_phase(card, failures, grid):
@@ -1818,6 +1853,292 @@ def baseline_phase(card, failures):
     if after:
         failures.append(f"[16] warmup left {len(after)} libraries unbuilt")
     return dict(rows=rows, warmup_s=times)
+
+
+def _multidevice_solution(sol):
+    return {"x": sol.x, "z": sol.z, "s": sol.s, "status": int(sol.status),
+            "iterations": sol.iterations, "obj_val": sol.obj_val,
+            "r_prim": sol.r_prim, "r_dual": sol.r_dual}
+
+
+def multidevice_rank(rank, world, out_dir):
+    """One rank of [17](b), on cuda:0 under a gloo group of `world` ranks:
+    rls2000 with tp = world (cold, warm, and a third solve with the
+    collectives' host time), the bench batch with dp = world under
+    Settings.throughput(), and the dryrun; writes out_dir/rank{rank}.npz."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+    from clarabel_tpu_torch.entry import dryrun_multichip
+    from clarabel_tpu_torch.linalg import batched_ldl
+    from clarabel_tpu_torch.parallel.multihost import collectives
+
+    res = {}
+    ranks = torch.arange(world)
+    tp = DeviceMesh("cuda", ranks, mesh_dim_names=("tp",))
+    P, q, A, b, cones, st = sparse_problem("rls2000")
+    solver = ctt.Solver(P, q, A, b, cones, st, mesh=tp)
+    res["solver_graphed"] = solver._solve_fn.graphed
+    res["solver_device"] = str(solver.device)
+    res["solver_p"] = solver._structure.p
+    solver.solve()
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    res["solver_wall_s"] = time.perf_counter() - t0
+    # a third solve with the collectives timed (each all-reduce between two
+    # synchronizations, which that solve's own wall then includes)
+    collectives.timed = True
+    collectives.reset()
+    t0 = time.perf_counter()
+    solver.solve()
+    res["solver_timed_wall_s"] = time.perf_counter() - t0
+    res["solver_collective_s"] = collectives.seconds
+    res["solver_collectives"] = collectives.calls
+    collectives.timed = False
+    res.update({f"solver_{k}": v
+                for k, v in _multidevice_solution(sol).items()})
+    del solver
+    torch.cuda.empty_cache()
+
+    dp = DeviceMesh("cuda", ranks, mesh_dim_names=("dp",))
+    Pb, qb, Ab, bb = bench_data.make_batch(MULTI_B, BENCH_N, 0)
+    bs = ctt.BatchSolver([ctt.NonnegativeConeT(BENCH_N),
+                          ctt.SecondOrderConeT(BENCH_N + 1)], BENCH_N,
+                         ctt.Settings.throughput(), mesh=dp)
+    bs.solve(Pb, qb, Ab, bb)
+    batched_ldl.kernel.rows_launches = 0
+    collectives.timed = True
+    collectives.reset()
+    t0 = time.perf_counter()
+    out = bs.solve(Pb, qb, Ab, bb)
+    res["batch_wall_s"] = time.perf_counter() - t0
+    res["batch_collective_s"] = collectives.seconds
+    collectives.timed = False
+    res["batch_k2_rows_launches"] = batched_ldl.kernel.rows_launches
+    res.update({f"batch_{k}": getattr(out, k)
+                for k in ("x", "status", "obj_val", "iterations")})
+    res["dryrun"] = dryrun_multichip()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+
+
+def batch_spread(rk, full):
+    """A rank's gathered batch against a whole-batch solve: max |dx|,
+    max |dobj| (NaN where both are NaN counts as equal) and the count of
+    lanes whose status differs."""
+    gap = np.abs(rk["batch_obj_val"] - full["obj_val"])
+    both_nan = np.isnan(rk["batch_obj_val"]) & np.isnan(full["obj_val"])
+    return (float(np.abs(rk["batch_x"] - full["x"]).max()),
+            float(np.where(both_nan, 0.0, gap).max()),
+            int((rk["batch_status"] != full["status"]).sum()))
+
+
+def multidevice_phase(card, failures, rls_ref, rls_ms):
+    """[17] Multi-device on the card: (a) a world of one rank over NCCL in
+    this process, then (b) MULTI_RANKS ranks on cuda:0 over gloo.
+    `rls_ref` and `rls_ms` are [14]'s unsharded rls2000 solution and its
+    ms per IPM iteration.  Returns the readings and the K2 launches of
+    (a)'s sharded batch (a main path of K2)."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import clarabel_tpu_torch as ctt
+    from clarabel_tpu_torch import bench_data
+    from clarabel_tpu_torch.entry import dryrun_multichip
+    from clarabel_tpu_torch.linalg import batched_ldl
+    from clarabel_tpu_torch.parallel.dryrun import launch
+    from clarabel_tpu_torch.parallel.multihost import capturable
+
+    readings = {}
+    fix = np.load(os.path.join(HERE, SPARSE_FIXTURE))
+    P, q, A, b, cones, st = sparse_problem("rls2000")
+    cones_b = [ctt.NonnegativeConeT(BENCH_N),
+               ctt.SecondOrderConeT(BENCH_N + 1)]
+    batch = bench_data.make_batch(MULTI_B, BENCH_N, 0)
+    thr = ctt.Settings.throughput()
+    ref_b = ctt.BatchSolver(cones_b, BENCH_N, thr).solve(*batch)
+
+    # (a) a world of one rank over NCCL
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="rendezvous_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("dp", "tp"))
+        solver = ctt.Solver(P, q, A, b, cones, st, mesh=mesh)
+        fn = solver._solve_fn
+        why = ("the tp group is NCCL, whose collectives a CUDA graph "
+               "captures" if capturable(mesh.get_group("tp"))
+               else "the tp group cannot be captured")
+        solver.solve()
+        r0 = fn.counts["replays"]
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        warm = time.perf_counter() - t0
+        replays = fn.counts["replays"] - r0
+        ms = warm / max(1, sol.iterations) * 1e3
+        same = (int(sol.status) == int(rls_ref.status)
+                and sol.iterations == rls_ref.iterations
+                and all(np.array_equal(getattr(sol, k), getattr(rls_ref, k))
+                        for k in ("x", "z", "s")))
+        print(f"[17](a) rls2000, Solver(mesh=(dp 1, tp 1)) over NCCL: "
+              f"{'graphed' if fn.graphed else 'eager'} ({why}; "
+              f"{replays} passes replayed); p = {solver._structure.p}; "
+              f"{sol.status.name} in {sol.iterations} iterations; bits "
+              f"{'equal to' if same else 'DIFFERENT from'} [14]'s "
+              f"unsharded solve; {ms:.2f} ms per IPM iteration ([14]: "
+              f"{rls_ms:.2f}); card {card}", flush=True)
+        if not same:
+            failures.append("[17](a) rls2000: not the unsharded bits")
+        if not fn.graphed or replays <= 0:
+            failures.append("[17](a) rls2000: the NCCL pass did not replay "
+                            "as a CUDA graph")
+        readings["a_rls2000"] = dict(ms_per_iteration=ms,
+                                     unsharded_ms_per_iteration=rls_ms,
+                                     iterations=sol.iterations,
+                                     replays=replays)
+        del solver, fn
+        torch.cuda.empty_cache()
+
+        dp_mesh = DeviceMesh("cuda", torch.zeros(1, dtype=torch.int64),
+                             mesh_dim_names=("dp",))
+        bs = ctt.BatchSolver(cones_b, BENCH_N, thr, mesh=dp_mesh)
+        batched_ldl.kernel.launches = batched_ldl.kernel.rows_launches = 0
+        t0 = time.perf_counter()
+        out = bs.solve(*batch)
+        wall = time.perf_counter() - t0
+        k2 = batched_ldl.kernel.rows_launches
+        same = all(np.array_equal(getattr(out, k), getattr(ref_b, k))
+                   for k in ("status", "iterations", "x", "obj_val"))
+        print(f"[17](a) bench B={MULTI_B}, BatchSolver(mesh=dp 1) under "
+              f"Settings.throughput(): {int((out.status == 1).sum())} "
+              f"SOLVED; bits {'equal to' if same else 'DIFFERENT from'} the "
+              f"unsharded solve's; K2 launches {k2} (ldl_inverse_rows.cu, of "
+              f"{batched_ldl.kernel.launches} in all); "
+              f"{wall:.3f} s; card {card}", flush=True)
+        if not same:
+            failures.append("[17](a) dp batch: not the unsharded bits")
+        if k2 <= 0:
+            failures.append("[17](a) dp batch: no K2 launch")
+        readings["a_batch"] = dict(wall_s=wall, k2_rows_launches=k2)
+        line = dryrun_multichip()
+        if not line.startswith("dryrun_multichip OK on 1 devices"):
+            failures.append(f"[17](a) dryrun: {line}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) MULTI_RANKS ranks on cuda:0 over gloo
+    out_dir = tempfile.mkdtemp(prefix="multidevice_")
+    t0 = time.perf_counter()
+    codes = launch(multidevice_rank, MULTI_RANKS, "gloo", None, (out_dir,),
+                   timeout=MULTI_JOIN_S)
+    print(f"[17](b) {MULTI_RANKS} ranks on cuda:0 over gloo: exit codes "
+          f"{codes} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if codes != [0] * MULTI_RANKS:
+        failures.append(f"[17](b) rank exit codes {codes}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        return readings, k2
+    ranks = []
+    for r in range(MULTI_RANKS):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
+            ranks.append({k: f[k] for k in f.files})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # the unsharded solves of each rank's share of the lanes, each as one
+    # batch, side by side
+    share = MULTI_B // MULTI_RANKS
+    parts = [ctt.BatchSolver(cones_b, BENCH_N, thr).solve(
+        *(a[r * share:(r + 1) * share] for a in batch))
+        for r in range(MULTI_RANKS)]
+    shares = {k: np.concatenate([getattr(o, k) for o in parts])
+              for k in ("status", "iterations", "x", "obj_val")}
+    ref_x = rls_ref.x
+    for r, rk in enumerate(ranks):
+        tag = f"[17](b) rank {r}"
+        got = types.SimpleNamespace(
+            x=rk["solver_x"], z=rk["solver_z"], s=rk["solver_s"],
+            status=ctt.SolverStatus(int(rk["solver_status"])),
+            iterations=int(rk["solver_iterations"]),
+            obj_val=float(rk["solver_obj_val"]))
+        dx = float(np.linalg.norm(got.x - ref_x))
+        kkt = sparse_true_kkt(P, q, A, b, got)
+        fdx, fdobj = sparse_check(f"{tag} rls2000 against the reference",
+                                  fix, "rls2000", got, kkt, failures)
+        ms = float(rk["solver_wall_s"]) / max(1, got.iterations) * 1e3
+        timed_ms = (float(rk["solver_timed_wall_s"]) / max(1, got.iterations)
+                    * 1e3)
+        coll = float(rk["solver_collective_s"])
+        print(f"{tag} rls2000, Solver(mesh=tp {MULTI_RANKS}) on "
+              f"{rk['solver_device']}, "
+              f"{'graphed' if bool(rk['solver_graphed']) else 'eager'} "
+              f"(gloo's collectives cannot be captured), p = "
+              f"{int(rk['solver_p'])}: {got.status.name} in "
+              f"{got.iterations} iterations ([14]: {rls_ref.iterations}); "
+              f"|dx| {dx:.3e} against [14]'s unsharded x (|x| "
+              f"{np.linalg.norm(ref_x):.3e}); x within {fdx:.3e}, objective "
+              f"within {fdobj:.3e} of the reference; r_prim "
+              f"{float(rk['solver_r_prim']):.2e} r_dual "
+              f"{float(rk['solver_r_dual']):.2e}; warm {ms:.2f} ms per IPM "
+              f"iteration; with each all-reduce between two "
+              f"synchronizations {timed_ms:.2f} ms, of which "
+              f"{coll / max(1, got.iterations) * 1e3:.2f} ms in "
+              f"{int(rk['solver_collectives'])} all-reduces (share "
+              f"{coll / float(rk['solver_timed_wall_s']):.3f}); card {card}",
+              flush=True)
+        if (got.status != rls_ref.status
+                or got.iterations != rls_ref.iterations
+                or not dx < 1e-8 * max(1.0, np.linalg.norm(ref_x))):
+            failures.append(f"{tag} rls2000: off [14]'s unsharded solve")
+        if not (float(rk["solver_r_prim"]) < 1e-8
+                and float(rk["solver_r_dual"]) < 1e-8):
+            failures.append(f"{tag} rls2000: residuals above 1e-8")
+        bits = all(np.array_equal(rk[f"batch_{k}"], shares[k])
+                   for k in ("status", "iterations", "x", "obj_val"))
+        full = {k: getattr(ref_b, k) for k in ("status", "x", "obj_val")}
+        bx, bobj, bst = batch_spread(rk, full)
+        hx, hobj, hst = batch_spread(
+            {f"batch_{k}": v for k, v in shares.items()}, full)
+        bms = (float(rk["batch_wall_s"])
+               / max(1, int(rk["batch_iterations"].max())) * 1e3)
+        print(f"{tag} bench B={MULTI_B}, BatchSolver(mesh=dp "
+              f"{MULTI_RANKS}) under Settings.throughput(): every lane's "
+              f"bits {'equal to' if bits else 'DIFFERENT from'} the "
+              f"unsharded solves of each {share}-lane share; "
+              f"against the unsharded solve of all {MULTI_B} lanes "
+              f"{bst} statuses differ, max |dx| {bx:.3e}, max |dobj| "
+              f"{bobj:.3e} (the unsharded shares read {hst}, {hx:.3e}, "
+              f"{hobj:.3e}); {float(rk['batch_wall_s']):.3f} s, {bms:.2f} ms"
+              f" per IPM pass, {float(rk['batch_collective_s']) * 1e3:.2f} "
+              f"ms in the gather; K2 launches "
+              f"{int(rk['batch_k2_rows_launches'])} on this rank; card "
+              f"{card}", flush=True)
+        if not bits:
+            failures.append(f"{tag} dp batch: not the unsharded bits of "
+                            f"the shares")
+        line = str(rk["dryrun"])
+        print(f"{tag}: {line}", flush=True)
+        if not line.startswith(f"dryrun_multichip OK on {MULTI_RANKS} "):
+            failures.append(f"{tag} dryrun: {line}")
+        readings[f"b_rank{r}"] = dict(
+            ms_per_iteration=ms,
+            collective_ms_per_iteration=coll / max(1, got.iterations) * 1e3,
+            timed_ms_per_iteration=timed_ms,
+            collective_share=coll / float(rk["solver_timed_wall_s"]),
+            collectives=int(rk["solver_collectives"]),
+            iterations=got.iterations, dx=dx,
+            batch_s=float(rk["batch_wall_s"]),
+            batch_bits_of_shares=bits, batch_max_dx_whole=bx,
+            batch_status_differ_whole=bst, batch_gather_ms=float(
+                rk["batch_collective_s"]) * 1e3,
+            batch_k2_rows_launches=int(rk["batch_k2_rows_launches"]))
+    return readings, k2
 
 
 def main():
@@ -2577,7 +2898,7 @@ def main():
 
     # ---- phase 14: the Solver's sparse and structured KKT ----
     clock.start("[14]")
-    sparse, grid = sparse_phase(card, failures)
+    sparse, grid, sparse_solutions = sparse_phase(card, failures)
     print(f"[14] readings: {json.dumps(sparse)}", flush=True)
 
     # ---- phase 15: long solves ----
@@ -2590,10 +2911,19 @@ def main():
     clock.start("[16]")
     baseline = baseline_phase(card, failures)
     print(f"[16] readings: {json.dumps(baseline)}", flush=True)
+
+    # ---- phase 17: multi-device ----
+    clock.start("[17]")
+    multi, multi_k2 = multidevice_phase(
+        card, failures, sparse_solutions["rls2000"],
+        sparse["rls2000"]["ms_per_iteration"])
+    k2_rows_launches += multi_k2
+    print(f"[17] readings: {json.dumps(multi)}", flush=True)
     # every module of the port (and the runner) is imported by now
     import clarabel_tpu_torch.__main__  # noqa: F401
     import clarabel_tpu_torch.interop.cvxpy_interface  # noqa: F401
     import clarabel_tpu_torch.io.cbf  # noqa: F401
+    import clarabel_tpu_torch.parallel.schur  # noqa: F401
     import clarabel_tpu_torch.protocols  # noqa: F401
     if any(k == "jax" or k.startswith(("jax.", "clarabel_tpu."))
            or k == "clarabel_tpu" for k in sys.modules):

@@ -35,9 +35,12 @@ prepare, loop and finalize, and `print_timers` prints them with two
 probes of one iteration; `profile_trace` records a `torch.profiler` trace
 (DEVIATIONS.md #19).
 
-What the port leaves out raises `NotImplementedError` naming the
-ROADMAP.md item that brings it: `mesh=` (item 13).  It takes no other
-path in its place (DEVIATIONS.md #17).
+`mesh=` (a `torch.distributed.device_mesh.DeviceMesh`) shards the
+block-arrow factorization over the mesh's "tp" dim (else its first): every
+rank of the mesh sets up the same Solver from the same data and returns
+the whole solution (DEVIATIONS.md #20).  The mesh forces the block-arrow
+backend, with the plan padded to a multiple of the tp size, and the
+device defaults to the rank's own card.
 """
 
 import contextlib
@@ -49,6 +52,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import presolver as presolve_mod
 from .cones.api import (GenPowerConeT, SecondOrderConeT, SupportedCone,
@@ -57,6 +61,8 @@ from .cones.layout import ConeLayout
 from .cones.ops import SOC_RANK2_MIN_DIM
 from .ipm.loop import build_solve
 from .parallel.batch_impl import resolve_device
+from .parallel.multihost import (all_reduce, check_mesh, mesh_device,
+                                 mesh_key, same_on_every_rank, tp_axis_of)
 from .settings import Settings
 from .statuscodes import SolverStatus, status_string
 
@@ -129,11 +135,6 @@ def _symmetrize_triu(P: np.ndarray) -> np.ndarray:
     return U + U.T - np.diag(np.diag(U))
 
 
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what}: ROADMAP.md Queue 1 item {item} (not ported yet)")
-
-
 # built solve functions keyed by problem structure, a bounded LRU as the
 # reference's (api.py:79-102)
 _SOLVE_CACHE: "dict" = {}
@@ -172,7 +173,8 @@ class Solver:
         solver = Solver(P, q, A, b, cones, settings, device=None)
         solution = solver.solve()
 
-    `device`: the card when None (with no card, pass "cpu")."""
+    `device`: the card when None (with no card, pass "cpu"); with a
+    `mesh`, the rank's own card, cuda:{LOCAL_RANK % device_count()}."""
 
     def __init__(self, P=None, q=None, A=None, b=None,
                  cones: Optional[Sequence[SupportedCone]] = None,
@@ -181,10 +183,15 @@ class Solver:
         self.settings = settings if settings is not None else Settings()
         if kwargs:
             self.settings = dataclasses.replace(self.settings, **kwargs)
+        # multi-device factorization (reference api.py:122-132)
+        self.mesh = mesh
+        self._tp_axis = None
         if mesh is not None:
-            raise _not_in_slice("Solver(mesh=...), the sharded "
-                                "factorization", "13 (multi-device)")
-        self.device = resolve_device(device)
+            check_mesh(mesh)
+            self._tp_axis = tp_axis_of(mesh)
+            self.device = mesh_device(device)
+        else:
+            self.device = resolve_device(device)
         self.solution: Optional[DefaultSolution] = None
         self.info = DefaultInfo()
         self.presolver = None
@@ -297,11 +304,14 @@ class Solver:
                      dataclasses.astuple(self.settings),
                      None if self._structure is None
                      else self._structure.key, str(self.device))
+        cache_key += self._mesh_key()
         solve_fn = _solve_cache_get(cache_key)
         if solve_fn is None:
             solve_fn = build_solve(self.layout, self.settings, n, p_nonzero,
                                    structure=self._structure,
-                                   kkt_backend=self._backend)
+                                   kkt_backend=self._backend,
+                                   mesh=self.mesh,
+                                   tp_axis=self._tp_axis or "tp")
             _solve_cache_put(cache_key, solve_fn)
         self._solve_fn = solve_fn
 
@@ -324,6 +334,12 @@ class Solver:
         backend = self.settings.kkt_backend
         big = backend == "auto" and n + m > 1024
         ta = time.perf_counter()
+        if self.mesh is not None:
+            # the sharded factorization is block-arrow only
+            self._structure = self._mesh_plan(analyze_block_arrow(
+                self._P_full != 0, self._A != 0, self.layout))
+            self._setup_split["analysis"] += time.perf_counter() - ta
+            return "blockarrow"
         if backend == "blockarrow" or big:
             self._structure = analyze_block_arrow(
                 self._P_full != 0, self._A != 0, self.layout)
@@ -354,6 +370,34 @@ class Solver:
                     else "blockarrow")
         self._structure = None
         return "condensed" if tall else "ldl"
+
+    def _mesh_plan(self, plan):
+        """A block-arrow plan for the mesh: padded to a multiple of the tp
+        size (reference api.py:211-223, 431-443), and the same on every
+        rank of the mesh (the analysis is deterministic; a rank factoring
+        another plan's blocks would give wrong answers without an
+        error)."""
+        from .structure import pad_plan_blocks
+
+        if plan is None:
+            raise ValueError(
+                "multi-device solve (mesh=...) requires block-arrow "
+                "structure in the KKT pattern; none was found")
+        tp = dist.get_world_size(self.mesh.get_group(self._tp_axis))
+        plan = pad_plan_blocks(plan, tp)
+        if not same_on_every_rank(int(plan.key[-1][:15], 16), self.mesh,
+                                  self.device):
+            raise RuntimeError("the ranks of the mesh found different "
+                               "block-arrow plans")
+        return plan
+
+    def _mesh_key(self) -> tuple:
+        """The mesh's part of the solve-cache key; the tp group itself
+        too, since the built solve all-reduces over it."""
+        if self.mesh is None:
+            return ()
+        return mesh_key(self.mesh) + (
+            self._tp_axis, self.mesh.get_group(self._tp_axis))
 
     def _setup_sparse(self, P, q, A, b, cones, t0,
                       preprocessed: bool = False) -> bool:
@@ -422,10 +466,14 @@ class Solver:
         requested = self.settings.kkt_backend
         ba_plan = nd_plan = None
         ta = time.perf_counter()
-        if requested != "multifrontal":
+        if self.mesh is not None:
+            # the sharded factorization is block-arrow only
+            ba_plan = self._mesh_plan(analyze_block_arrow(
+                P_pat, A_pat, layout, soc_rank2_min_dim=srk))
+        elif requested != "multifrontal":
             ba_plan = analyze_block_arrow(P_pat, A_pat, layout,
                                           soc_rank2_min_dim=srk)
-        if requested != "blockarrow" and srk is None:
+        if requested != "blockarrow" and self.mesh is None and srk is None:
             # the SMW path exists on the block-arrow backend only
             nd_plan = analyze_nested_dissection(P_pat, A_pat, layout)
         # the structurally cheaper factorization
@@ -434,7 +482,8 @@ class Solver:
                 ba_plan = None
             else:
                 nd_plan = None
-        if srk is None and ba_plan is not None and n + m <= 4096 and (
+        if self.mesh is None and srk is None and ba_plan is not None \
+                and n + m <= 4096 and (
                 ba_plan.flop_estimate() > 0.5 * (n + m) ** 3 / 3.0):
             # the structure does not beat a dense factorization by a
             # useful margin and the problem is small enough to be dense:
@@ -479,12 +528,13 @@ class Solver:
 
         cache_key = (layout.key, n, self._p_nonzero, "sparse",
                      dataclasses.astuple(self.settings), maps.key,
-                     str(self.device))
+                     str(self.device)) + self._mesh_key()
         solve_fn = _solve_cache_get(cache_key)
         if solve_fn is None:
             solve_fn = build_solve(layout, self.settings, n,
                                    self._p_nonzero, structure=plan,
-                                   assembly=maps)
+                                   assembly=maps, mesh=self.mesh,
+                                   tp_axis=self._tp_axis or "tp")
             _solve_cache_put(cache_key, solve_fn)
         self._solve_fn = solve_fn
 
@@ -677,12 +727,22 @@ class Solver:
                 [carry.iters[0], carry.status[0]]).tolist()
             if status != int(SolverStatus.UNSOLVED):
                 break
-            if time.perf_counter() - t0 > self.settings.time_limit:
+            if self._out_of_time(t0):
                 carry = carry._replace(status=torch.full_like(
                     carry.status, int(SolverStatus.MAX_TIME)))
                 break
         self._last_carry = carry
         return fn.finalize(data, carry)
+
+    def _out_of_time(self, t0) -> bool:
+        """Whether the time limit has run out; with a mesh, on any rank
+        of the tp group, so that its ranks stop after the same chunk."""
+        out = time.perf_counter() - t0 > self.settings.time_limit
+        if self.mesh is None:
+            return out
+        flag = torch.tensor([int(out)], dtype=torch.int32,
+                            device=self.device)
+        return bool(all_reduce(flag, self.mesh.get_group(self._tp_axis)))
 
     def save_checkpoint(self, path: str):
         """Write the IPM state of the last chunked solve (a finite

@@ -48,6 +48,7 @@ from ..kkt import dense as kkt
 from ..linalg import batched_ldl
 from ..linalg import matops
 from ..linalg import smallops as so
+from ..parallel.multihost import capturable
 from ..settings import torch_dtype
 from ..statuscodes import SolverStatus
 from ..trips import run_trips
@@ -274,12 +275,14 @@ def _replay(step, active_of, carry: Carry, counts) -> Carry:
         k2.launches += per_pass[0]
         k2.rows_launches += per_pass[1]
         counts["factorizations"] += per_pass[2]
+        counts["replays"] += 1
         if not bool(flag):
             return static
 
 
 def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
-                structure=None, assembly=None, kkt_backend=None):
+                structure=None, assembly=None, kkt_backend=None,
+                mesh=None, tp_axis="tp"):
     """Build the batched solve function for a fixed problem structure
     (cone layout and dimensions): solve(P, q, A, b) -> solution dict of
     (B, ...) tensors on the inputs' device.  P must be the FULL symmetric
@@ -294,7 +297,15 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
     296-372).  Without a plan, which `BatchSolver` never passes,
     "blockarrow" and "multifrontal" run the dense ldl path, as the
     reference's build_solve does (loop.py:374, 398, 442-452), and "auto"
-    means ldl."""
+    means ldl.
+
+    `mesh` (a DeviceMesh, with the plan's block count a multiple of the
+    size of its `tp_axis`; `structure.pad_plan_blocks`) shards the
+    block-arrow factorization over that axis's process group: every rank
+    of the group runs this solve on the same data (reference loop.py:
+    194-201).  Its pass runs as a CUDA graph only where the group's
+    collectives can be captured (NCCL; `parallel.multihost.capturable`),
+    else eager."""
     m = layout.m
     if kkt_backend is None:
         kkt_backend = settings.kkt_backend
@@ -339,8 +350,10 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
                    for g in layout.groups.values())
         settings = settings.replace(dense_ldl_diag_order=safe)
     eps_T = float(np.finfo(settings.dtype).eps)
+    group = None if mesh is None else mesh.get_group(tp_axis)
     graphed = (not settings.verbose
-               and all(g.kind in GRAPH_KINDS for g in layout.groups.values()))
+               and all(g.kind in GRAPH_KINDS for g in layout.groups.values())
+               and (group is None or capturable(group)))
     is_symmetric = layout.is_symmetric
     # generalized power cones have only the dual scaling
     # (reference: coneops_genpowcone.jl:21, loop.py:213-215, 272)
@@ -437,9 +450,9 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
         from ..kkt import assembly_maps as kkt_am
 
         fac = kkt_am.factor_from_maps(assembly, P.vals, A.vals, hs_vals,
-                                      settings, factor_dtype)
+                                      settings, factor_dtype, group)
         ok_factor = fac.ok
-        apply_fn = lambda r: kkt_ba._ba_apply(fac, plan, r)  # noqa: E731
+        apply_fn = lambda r: kkt_ba._ba_apply(fac, plan, r, group)  # noqa
         if srk is not None:
             # the low-rank cone terms as an SMW correction around K₀
             from ..kkt.socrank import wrap_apply_smw
@@ -489,15 +502,16 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
             return fac.ok, solve_xz, solve_xz2
 
         fac = kkt_ba.assemble_and_factor_blockarrow(
-            P, A, Hs, structure, signs, settings, factor_dtype)
+            P, A, Hs, structure, signs, settings, factor_dtype, group)
 
         def solve_xz(bx, bz):
             return kkt_ba.kkt_solve_xz_blockarrow(fac, structure, kkt_mv,
-                                                  bx, bz, settings)
+                                                  bx, bz, settings, group)
 
         def solve_xz2(bx1, bz1, bx2, bz2):
             return kkt_ba.kkt_solve_xz2_blockarrow(
-                fac, structure, kkt_mv, bx1, bz1, bx2, bz2, settings)
+                fac, structure, kkt_mv, bx1, bz1, bx2, bz2, settings,
+                group)
 
         return fac.ok, solve_xz, solve_xz2
 
@@ -955,9 +969,11 @@ def build_solve(layout: ConeLayout, settings, n: int, p_nonzero: bool,
 
     # what the solves did, for the smoke run's readings: the KKT
     # factorizations run (all lanes' at once, one a pass; a replayed pass
-    # counts as it runs) and the last solve's factor dtype
-    counts = {"factorizations": 0, "factor_dtype": None}
+    # counts as it runs), the passes replayed as a CUDA graph and the last
+    # solve's factor dtype
+    counts = {"factorizations": 0, "replays": 0, "factor_dtype": None}
     solve.counts = counts
+    solve.graphed = graphed
     # the stages of a solve, for chunked, resumed and timed solves
     # (reference loop.py:983-988)
     solve.prepare = prepare

@@ -194,15 +194,20 @@ def assemble_blocks(maps: AssemblyMaps, P_vals, A_vals, hs_vals, settings,
 
 
 def factor_from_maps(maps: AssemblyMaps, P_vals, A_vals, hs_vals, settings,
-                     factor_dtype):
-    """Assemble and factor (the factor is kkt.blockarrow's)."""
-    from .blockarrow import factor_blocks
+                     factor_dtype, group=None):
+    """Assemble and factor (the factor is kkt.blockarrow's).  With a
+    `group` (the tp axis of a mesh) every rank assembles the whole buffer
+    and factors its own blocks (DEVIATIONS.md #20); all-sentinel padded
+    blocks come out of the assembly as exact identities (pad_diag_dest
+    sets their unit pivots, every other entry drops)."""
+    from .blockarrow import factor_blocks, local_blocks
 
     plan = maps.plan
     D, Bc, C = assemble_blocks(maps, P_vals, A_vals, hs_vals, settings,
                                factor_dtype)
     dev, dtype = D.device, D.dtype
-    return factor_blocks(D, Bc, C,
-                         on_device(plan, "block_signs", dev).to(dtype),
+    lo, hi = local_blocks(plan.p, group)
+    return factor_blocks(D[:, lo:hi], Bc[:, lo:hi], C,
+                         on_device(plan, "block_signs", dev)[lo:hi].to(dtype),
                          on_device(plan, "tail_signs", dev).to(dtype),
-                         settings)
+                         settings, group)

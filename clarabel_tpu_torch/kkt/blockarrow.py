@@ -7,18 +7,27 @@ lane.  Per-iteration work drops from O(N³) dense to O(p·nb³ + nb²·nt·p +
 nt³): a large win for banded, grid and multi-scenario problems.
 Iterative refinement against the full unpermuted KKT (`make_kkt_matvec`,
 composed from its parts) keeps the accuracy, as in the dense and condensed
-backends.  The reference's `mesh=` form (the block axis sharded across
-devices) waits for ROADMAP.md Queue 1 item 13.
+backends.
+
+Sharded over a process group (`group`, the `tp` axis of a mesh): each rank
+factors its contiguous share of the p blocks, [r·p/tp, (r+1)·p/tp); the
+Schur sum Σ Bᵢᵀ Dᵢ⁻¹ Bᵢ, the count of failed blocks and the reduced
+right-hand side are each all-reduced over the group (the reference's
+`psum`s, blockarrow.py:108-116, 180-186), the dense Schur complement is
+factored on every rank, and every rank rebuilds the whole solution vector
+(DEVIATIONS.md #20).
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..cones import ops as cone_ops
 from ..linalg import matops
 from ..linalg.matops import on_device
 from ..linalg.ldl import ldl_factor, ldl_factor_blocked, ldl_solve
+from ..parallel.multihost import all_reduce
 from ..settings import torch_dtype
 from ..structure import BlockArrowPlan
 from .refine import solve_refined
@@ -64,10 +73,25 @@ def factor_batch(K, signs, dyn):
     return ldl_factor(K, signs, **dyn)
 
 
-def factor_blocks(D, Bc, C, bsigns, tsigns, settings):
+def local_blocks(p: int, group=None):
+    """The blocks [lo, hi) this rank factors: all p without a group, else
+    its contiguous share (p is a multiple of the group's size)."""
+    if group is None:
+        return 0, p
+    import torch.distributed as dist
+
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    if p % size:
+        raise ValueError(f"{p} blocks do not split over {size} ranks")
+    return rank * p // size, (rank + 1) * p // size
+
+
+def factor_blocks(D, Bc, C, bsigns, tsigns, settings, group=None):
     """The block-arrow numeric factorization: B·p block LDLs and a dense
     Schur complement per lane.  D (B, p, nb, nb), Bc (B, p, nb, nt),
-    C (B, nt, nt); bsigns (p, nb), tsigns (nt,)."""
+    C (B, nt, nt); bsigns (p, nb), tsigns (nt,).  With a `group`, D, Bc
+    and bsigns hold this rank's blocks only (`local_blocks`), and the
+    Schur sum and the count of failed blocks are all-reduced over it."""
     dyn = dyn_kwargs(settings)
     B, p, nb, _ = D.shape
     nt = C.shape[-1]
@@ -77,16 +101,23 @@ def factor_blocks(D, Bc, C, bsigns, tsigns, settings):
     DinvB = ldl_solve(Lb, db, Bc.reshape(B * p, nb, nt))
     Lb, db = Lb.view(B, p, nb, nb), db.view(B, p, nb)
     DinvB = DinvB.view(B, p, nb, nt)
-    S = C - torch.einsum("bpij,bpik->bjk", Bc, DinvB)
+    schur = torch.einsum("bpij,bpik->bjk", Bc, DinvB)
+    if group is None:
+        S = C - schur
+        ok_blocks = okb.view(B, p).all(dim=1)
+    else:
+        S = C - all_reduce(schur, group)
+        nbad = all_reduce((~okb).view(B, p).sum(dim=1, dtype=torch.int32),
+                          group)
+        ok_blocks = nbad == 0
     Ls, ds, oks = ldl_factor(S, tsigns, **dyn)
-    ok = okb.view(B, p).all(dim=1) & oks
-    return BlockArrowFactorS(Lb, db, DinvB, Bc, Ls, ds, ok)
+    return BlockArrowFactorS(Lb, db, DinvB, Bc, Ls, ds, ok_blocks & oks)
 
 
 def assemble_and_factor_blockarrow(P, A, Hs, plan: BlockArrowPlan, signs,
-                                   settings, factor_dtype):
-    """Dense data with a plan: gather the blocks out of the regularized
-    K (B, N, N) and factor them."""
+                                   settings, factor_dtype, group=None):
+    """Dense data with a plan: gather the blocks (this rank's, with a
+    group) out of the regularized K (B, N, N) and factor them."""
     n, m = plan.n, plan.m
     N = n + m
     K_true = torch.cat([torch.cat([P, A.transpose(-1, -2)], dim=2),
@@ -105,18 +136,39 @@ def assemble_and_factor_blockarrow(P, A, Hs, plan: BlockArrowPlan, signs,
     Kp[:, N, N] = 1.0
 
     dev = K_reg.device
-    bi = on_device(plan, "block_idx", dev)
+    lo, hi = local_blocks(plan.p, group)
+    bi = on_device(plan, "block_idx", dev)[lo:hi]
     ti = on_device(plan, "tail_idx", dev)
     D = Kp[:, bi[:, :, None], bi[:, None, :]]
     Bc = Kp[:, bi[:, :, None], ti[None, None, :]]
     C = Kp[:, ti[:, None], ti[None, :]]
-    return factor_blocks(D, Bc, C, on_device(plan, "block_signs", dev).to(fdt),
-                         on_device(plan, "tail_signs", dev).to(fdt), settings)
+
+    # blocks that pad_plan_blocks appended are all-sentinel: their gather
+    # reads Kp[N, N] = 1 at every position (an all-ones matrix), so they
+    # become exact identities with zero couplings (reference
+    # blockarrow.py:158-161)
+    pad = np.nonzero((plan.block_idx[lo:hi] >= N).all(axis=1))[0]
+    if len(pad):
+        pad = on_device(plan, f"pad_blocks_{lo}_{hi}", dev, lambda: pad)
+        D[:, pad] = on_device(plan, "eye_nb", dev,
+                              lambda: np.eye(plan.nb)).to(fdt)
+        # index_fill_: a scalar assigned through an index would be copied
+        # from the host, which a CUDA graph cannot capture
+        Bc.index_fill_(1, pad, 0.0)
+    bsigns = on_device(plan, "block_signs", dev)[lo:hi].to(fdt)
+    return factor_blocks(D, Bc, C, bsigns,
+                         on_device(plan, "tail_signs", dev).to(fdt),
+                         settings, group)
 
 
-def _ba_apply(fac: BlockArrowFactorS, plan: BlockArrowPlan, rhs):
+def _ba_apply(fac: BlockArrowFactorS, plan: BlockArrowPlan, rhs,
+              group=None):
     """Apply the factorization to rhs (B, N) or (B, N, k), at the factor's
-    dtype, returning rhs's dtype."""
+    dtype, returning rhs's dtype.  With a `group` the factor holds this
+    rank's blocks: the reduced right-hand side is all-reduced, and so is a
+    zero buffer into which each rank writes its blocks' part of the
+    solution (an exact sum: every entry comes from one rank), so every rank
+    returns the whole vector."""
     vec = rhs.dim() == 2
     R = rhs.unsqueeze(-1) if vec else rhs
     out_dtype = R.dtype
@@ -124,40 +176,47 @@ def _ba_apply(fac: BlockArrowFactorS, plan: BlockArrowPlan, rhs):
     _, p, nb, nt = fac.DinvB.shape
     Rp = torch.cat([R.to(fac.Lb.dtype), R.new_zeros((B, 1, k),
                                                     dtype=fac.Lb.dtype)], 1)
-    bi = on_device(plan, "block_idx", R.device)
+    lo, hi = local_blocks(plan.p, group)
+    bi = on_device(plan, "block_idx", R.device)[lo:hi]
     ti = on_device(plan, "tail_idx", R.device)
     rb = Rp[:, bi]                                      # (B, p, nb, k)
     rt = Rp[:, ti]                                      # (B, nt, k)
     u = ldl_solve(fac.Lb.reshape(B * p, nb, nb), fac.db.reshape(B * p, nb),
                   rb.reshape(B * p, nb, k)).view(B, p, nb, k)
-    red = rt - torch.einsum("bpij,bpik->bjk", fac.Bc, u)
+    red = torch.einsum("bpij,bpik->bjk", fac.Bc, u)
+    red = rt - (red if group is None else all_reduce(red, group))
     y = ldl_solve(fac.Ls, fac.ds, red)                  # (B, nt, k)
     xb = u - torch.einsum("bpij,bjk->bpik", fac.DinvB, y)
     out = torch.zeros_like(Rp)
     out[:, bi] = xb          # pads land on the discarded row N
+    if group is not None:
+        all_reduce(out, group)
     out[:, ti] = y
     out = out[:, :N].to(out_dtype)
     return out[..., 0] if vec else out
 
 
-def solve_refined_blockarrow(fac, plan, kkt_mv, rhs, settings):
+def solve_refined_blockarrow(fac, plan, kkt_mv, rhs, settings, group=None):
     """Block-arrow solve with iterative refinement on the augmented
     residual (the parts-composed matvec, not a materialized K)."""
-    return solve_refined(lambda r: _ba_apply(fac, plan, r), kkt_mv, rhs,
-                         settings)
+    return solve_refined(lambda r: _ba_apply(fac, plan, r, group), kkt_mv,
+                         rhs, settings)
 
 
-def kkt_solve_xz_blockarrow(fac, plan, kkt_mv, bx, bz, settings):
+def kkt_solve_xz_blockarrow(fac, plan, kkt_mv, bx, bz, settings,
+                            group=None):
     n = bx.shape[1]
     sol, ok = solve_refined_blockarrow(fac, plan, kkt_mv,
-                                       torch.cat([bx, bz], dim=1), settings)
+                                       torch.cat([bx, bz], dim=1), settings,
+                                       group)
     return sol[:, :n], sol[:, n:], ok
 
 
 def kkt_solve_xz2_blockarrow(fac, plan, kkt_mv, bx1, bz1, bx2, bz2,
-                             settings):
+                             settings, group=None):
     n = bx1.shape[1]
     rhs = torch.stack([torch.cat([bx1, bz1], dim=1),
                        torch.cat([bx2, bz2], dim=1)], dim=2)
-    sol, ok = solve_refined_blockarrow(fac, plan, kkt_mv, rhs, settings)
+    sol, ok = solve_refined_blockarrow(fac, plan, kkt_mv, rhs, settings,
+                                       group)
     return sol[:, :n, 0], sol[:, n:, 0], sol[:, :n, 1], sol[:, n:, 1], ok

@@ -17,8 +17,14 @@ CUDA card":
 `rescue=` re-solves the lanes that did not reach SOLVED with a cascade of
 loop solvers.  `kkt_backend="blockarrow"` and `"multifrontal"` run the
 dense `ldl` loop, as the reference's BatchSolver does (it passes no
-structure plan).  `mesh=` raises `NotImplementedError` naming the
-ROADMAP.md item that will bring it.
+structure plan).
+
+`mesh=` (a DeviceMesh with a "dp" dim) splits the lanes over "dp": every
+rank of the mesh calls `solve` with the whole batch, solves its share of
+the lanes on its own card (ranks along "tp" solve the same share, as the
+reference's P("dp") replicates over tp), and every rank gets the whole
+batch's outputs, on which the rescue then runs (DEVIATIONS.md #20).  Under
+a mesh "auto" does not pick the megakernel, and asking for it raises.
 """
 
 import dataclasses
@@ -34,6 +40,7 @@ from ..cones.api import SupportedCone, cones_collapse
 from ..cones.layout import ConeLayout
 from ..ipm import megakernel
 from ..ipm.loop import build_solve
+from .multihost import all_reduce, check_mesh, mesh_device
 
 SOLVED = int(SolverStatus.SOLVED)
 
@@ -100,24 +107,27 @@ def _symmetrize_triu(P):
     return U + np.swapaxes(U, -1, -2) + diag[..., None, :] * eye
 
 
-def _slice_check(mesh, rescue) -> None:
-    """Raise NotImplementedError for whatever this slice does not port."""
+def _check_options(mesh, rescue) -> None:
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: ROADMAP.md Queue 1 item 13 (multi-device)")
+        check_mesh(mesh)
+        if "dp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("BatchSolver(mesh=...) splits the lanes over "
+                             "a 'dp' dim, which the mesh does not name")
     if rescue not in (None, "cpu", "same"):
         raise ValueError(f"rescue must be None, 'cpu' or 'same', got "
                          f"{rescue!r}")
 
 
 def resolve_backend(layout: ConeLayout, settings: Settings, n: int,
-                    device: torch.device) -> str:
+                    device: torch.device, mesh=None) -> str:
     """The reference's rule (batch_impl.py:110-120): "auto" is the
-    megakernel on a card when the layout is eligible, else `condensed`
-    when the layout has no zero cone, else the dense `ldl` loop."""
+    megakernel on a card when the layout is eligible and there is no
+    mesh, else `condensed` when the layout has no zero cone, else the
+    dense `ldl` loop."""
     backend = settings.kkt_backend
     if backend == "auto":
-        if device.type == "cuda" and megakernel.eligible(layout, settings, n):
+        if (mesh is None and device.type == "cuda"
+                and megakernel.eligible(layout, settings, n)):
             return "megakernel"
         if not any(g.kind == "zero" for g in layout.groups.values()):
             return "condensed"
@@ -137,7 +147,11 @@ class BatchSolver:
     caller's explicit request), each with a cascade of loop solvers in
     float64: the primary backend, then `ldl` and `condensed` with
     equilibration off.  Each stage sees only the lanes the earlier stages
-    left, and a lane takes a stage's result only where it is SOLVED."""
+    left, and a lane takes a stage's result only where it is SOLVED.
+
+    `mesh`: a DeviceMesh with a "dp" dim over which the lanes split (B
+    must be a multiple of its size); the device is then the rank's own
+    card when None."""
 
     def __init__(self, cones: Sequence[SupportedCone], n: int,
                  settings: Optional[Settings] = None, mesh=None,
@@ -149,14 +163,18 @@ class BatchSolver:
         self.layout = ConeLayout(self.cones)
         self.n = int(n)
         self.m = self.layout.m
-        _slice_check(mesh, rescue)
-        self.device = resolve_device(device)
+        _check_options(mesh, rescue)
+        self._mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_device(device))
 
         backend = resolve_backend(self.layout, self.settings, self.n,
-                                  self.device)
+                                  self.device, mesh)
         self._mega_fn = None
         self._solve_fn = None
         if backend == "megakernel":
+            if mesh is not None:
+                raise ValueError("megakernel does not support mesh=")
             st = self.settings
             if not megakernel.eligible(self.layout, st, self.n):
                 raise ValueError(
@@ -211,6 +229,38 @@ class BatchSolver:
                 for a in (P, q, A, b)]
         return {k: v.cpu().numpy() for k, v in fn(*args).items()}
 
+    def _run_sharded(self, P, q, A, b):
+        """The loop solver on this rank's share of the lanes, the outputs
+        then gathered to every rank: each rank writes its lanes into a
+        zero float64 buffer of the whole batch and the buffers are
+        all-reduced over "dp" (an exact sum: every entry comes from one
+        rank; integers and float32 are exact in float64)."""
+        mesh = self._mesh
+        B = q.shape[0]
+        group = mesh.get_group("dp")
+        dp = torch.distributed.get_world_size(group)
+        if B % dp:
+            raise ValueError(f"batch of {B} lanes does not split over the "
+                             f"{dp} ranks of the dp axis")
+        lo = mesh.get_local_rank("dp") * (B // dp)
+        lanes = slice(lo, lo + B // dp)
+        args = [torch.from_numpy(np.ascontiguousarray(a[lanes])).to(
+            self.device) for a in (P, q, A, b)]
+        out = self._solve_fn(*args)
+        keys = list(out)
+        widths = [out[k][0].numel() for k in keys]
+        buf = torch.zeros((B, sum(widths)), dtype=torch.float64,
+                          device=self.device)
+        buf[lanes] = torch.cat([out[k].reshape(B // dp, -1).to(torch.float64)
+                                for k in keys], dim=1)
+        host = all_reduce(buf, group).cpu()
+        gathered, off = {}, 0
+        for k, w in zip(keys, widths):
+            gathered[k] = host[:, off:off + w].to(out[k].dtype).reshape(
+                (B,) + tuple(out[k].shape[1:])).numpy()
+            off += w
+        return gathered
+
     def _rescue_pass(self, out, P, q, A, b):
         """Re-solve the lanes that did not reach SOLVED, stage by stage,
         and keep a stage's result on the lanes it solves.  Lanes are padded
@@ -256,6 +306,9 @@ class BatchSolver:
         t0 = time.perf_counter()
         if self._mega_fn is not None:
             out = self._mega_fn(P, q, A, b)
+        elif self._mesh is not None:
+            P = _symmetrize_triu(P)
+            out = self._run_sharded(P, q, A, b)
         else:
             P = _symmetrize_triu(P)
             out = self._run_loop(self._solve_fn, P, q, A, b, self.device)

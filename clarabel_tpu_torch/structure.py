@@ -18,8 +18,8 @@ the cone).  Edges from the patterns of P and A.  Partitioning is
 recursive bisection, each cut the best of the spectral (Fiedler), the BFS
 level-set and, with the native library (`native_symbolic.py`), the
 multilevel bisection; the boundary nodes of a cut move to the separator.
-`pad_plan_blocks` (the reference's l.78) serves only `mesh=` and waits for
-ROADMAP.md Queue 1 item 13.
+`pad_plan_blocks` pads the block count to a multiple of a mesh axis's size
+for the sharded factorization (`Solver(mesh=...)`).
 """
 
 import dataclasses
@@ -74,6 +74,29 @@ class BlockArrowPlan:
                   self.block_signs, self.tail_signs):
             h.update(np.ascontiguousarray(a).tobytes())
         return (self.p, self.nb, self.nt, self.n, self.m, h.hexdigest())
+
+
+def pad_plan_blocks(plan: BlockArrowPlan, multiple: int) -> BlockArrowPlan:
+    """Pad the block count up to a multiple of `multiple` with
+    all-sentinel (identity) blocks, so the block axis splits evenly over a
+    mesh axis (reference structure.py:78-99).  Sentinel rows (index ≥ N)
+    gather zeros and land on the discarded pad row; the dense and the
+    map-based assembly both make all-sentinel blocks exact identities with
+    zero couplings, so padded blocks contribute nothing."""
+    p = plan.p
+    pp = -(-p // multiple) * multiple
+    if pp == p:
+        return plan
+    N = plan.n + plan.m
+    pad = pp - p
+    block_idx = np.concatenate(
+        [plan.block_idx,
+         np.full((pad, plan.nb), N, dtype=plan.block_idx.dtype)])
+    block_signs = np.concatenate(
+        [plan.block_signs,
+         np.ones((pad, plan.nb), dtype=plan.block_signs.dtype)])
+    return dataclasses.replace(plan, block_idx=block_idx,
+                               block_signs=block_signs)
 
 
 def _as_pattern(M_or_pattern):

@@ -157,10 +157,25 @@ def test_settings_now_in_the_slice_solve(change):
 
 
 def test_options_outside_the_slice_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """What once raised for ROADMAP.md item 13 now runs: a mesh that is
+    not a DeviceMesh raises TypeError, the megakernel refuses a mesh as
+    the reference's does, and a mesh of one rank solves with the unsharded
+    solve's bits (tests/test_torch_multidevice.py holds the sharded
+    paths); a rescue that does not exist still raises."""
+    from test_torch_multidevice import world_of_one
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _solver(mesh=object())
     with pytest.raises(ValueError, match="rescue"):
         _solver(rescue="gpu")
+    P, q, A, b = _batch(8)
+    ref = _solver(settings=ctt.Settings()).solve(P, q, A, b)
+    with world_of_one("gloo", "cpu") as mesh:
+        with pytest.raises(ValueError, match="megakernel"):
+            _solver(mesh=mesh)
+        got = _solver(settings=ctt.Settings(), mesh=mesh).solve(P, q, A, b)
+    for k in ("status", "iterations", "x", "obj_val"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
 
 
 @pytest.mark.parametrize("kw", [{"rescue": "cpu"}, {"rescue": "same"},

@@ -19,7 +19,9 @@ path, on the CPU (`device="cpu"`: the plain versions of the kernels).
   holds its cases.  The six inputs that raised for item 12 (a finite
   time_limit, timing=True, save_checkpoint, resume_from_checkpoint,
   profile_trace, print_timers) now run on the verify drive, held to the
-  reference's solution; `mesh=` still raises for item 13.
+  reference's solution; `mesh=`, which raised for item 13, now solves
+  (a mesh of one rank here, with the unsharded solve's bits; the sharded
+  paths are held in tests/test_torch_multidevice.py).
 """
 
 import dataclasses
@@ -351,11 +353,29 @@ def test_bad_inputs_raise(bad):
         ctt.Solver(P, q, A, b, cones, device="cpu")
 
 
-def _left_out(case):
-    """Build the Solver call of one input this slice leaves out."""
+def _mesh_solves():
+    """The item-13 input: a mesh that is not a DeviceMesh raises
+    TypeError, a problem without block-arrow structure raises the
+    reference's ValueError, and the dryrun's chain QP on a mesh of one
+    rank gives the unsharded block-arrow solve's bits."""
+    from clarabel_tpu_torch.entry import chain_qp
+    from test_torch_multidevice import world_of_one
+
     P, q, A, b, cones = _verify_problem()
-    return lambda: ctt.Solver(P, q, A, b, cones, mesh=object(),
-                              device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ctt.Solver(P, q, A, b, cones, mesh=object(), device="cpu")
+    problem = chain_qp(8)
+    ref = ctt.Solver(*problem, ctt.Settings(kkt_backend="blockarrow"),
+                     device="cpu").solve()
+    with world_of_one("gloo", "cpu", ("tp",)) as mesh:
+        with pytest.raises(ValueError, match="block-arrow"):
+            ctt.Solver(P, q, A, b, cones, mesh=mesh, device="cpu")
+        solver = ctt.Solver(*problem, mesh=mesh, device="cpu")
+        got = solver.solve()
+    assert solver._backend == "blockarrow"
+    assert got.status == ref.status == ctt.SolverStatus.SOLVED
+    assert got.iterations == ref.iterations
+    np.testing.assert_array_equal(got.x, ref.x)
 
 
 def _long_solve(case, tmp_path):
@@ -390,7 +410,8 @@ def _long_solve(case, tmp_path):
     return sol, None
 
 
-LEFT_OUT = {"mesh": "13"}
+# the input that raised for item 13 until the port took multi-device
+ONCE_LEFT_OUT_13 = ("mesh",)
 # the inputs that raised for item 11 until the port took the sparse and
 # structured KKT: each now solves (the `left_out_*` cases of sparse.npz:
 # sparse_data=True on the verify drive, scipy-sparse data with
@@ -405,13 +426,15 @@ ONCE_LEFT_OUT_12 = ("time_limit", "timing", "save_checkpoint",
                     "print_timers")
 
 
-@pytest.mark.parametrize("case", sorted(set(LEFT_OUT) | set(ONCE_LEFT_OUT)
+@pytest.mark.parametrize("case", sorted(set(ONCE_LEFT_OUT_13)
+                                        | set(ONCE_LEFT_OUT)
                                         | set(ONCE_LEFT_OUT_12)))
 def test_left_out_inputs_raise(case, tmp_path, capsys):
-    """Each input the port leaves out raises NotImplementedError naming
-    its ROADMAP.md item, and none takes another path in its place; the
-    item-11 inputs solve as the reference does, and so do the item-12
-    inputs (time limits, timing, checkpoints, profiles, the timer tree)."""
+    """The inputs the port once left out (each raised NotImplementedError
+    naming its ROADMAP.md item) now run: the item-11 inputs solve as the
+    reference does, and so do the item-12 inputs (time limits, timing,
+    checkpoints, profiles, the timer tree); `mesh=` (item 13) solves on a
+    mesh and refuses what is not one."""
     if case in ONCE_LEFT_OUT:
         from test_torch_sparse_solver import solve_case
 
@@ -425,9 +448,7 @@ def test_left_out_inputs_raise(case, tmp_path, capsys):
         if case == "print_timers":
             assert "device: cpu" in capsys.readouterr().out
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"item {LEFT_OUT[case]} "):
-        _left_out(case)()
+    _mesh_solves()
 
 
 def test_solver_without_a_card_raises():

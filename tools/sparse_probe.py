@@ -144,7 +144,7 @@ def main():
         readings = {name: graphs_case(name, card, args.turns)
                     for name in chip_smoke.SPARSE_CASES}
     else:
-        readings = chip_smoke.sparse_phase(card, failures)
+        readings = chip_smoke.sparse_phase(card, failures)[0]
     print(json.dumps(readings))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
