@@ -42,18 +42,21 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   the rescue cascade behind the megakernel;
 * [9] K1d: the megakernel against its plain version on the small-SDP
   batches (side 3, the PSD batch of `bench.py`; side 2; side 2 with a zero
-  cone), wrong kernels its bars must reject, `BatchSolver.solve` on the
-  side-3 batch at B = 4096, 65536 and 131072, the condensed loop on the
-  card and the rescue behind the megakernel;
+  cone), beside the plain version against itself under 1e-15 changes of q
+  (three on side 3), wrong kernels its bars must reject,
+  `BatchSolver.solve` on the side-3 batch at B = 4096, 65536 and 131072,
+  the condensed loop on the card and the rescue behind the megakernel;
 * [10] K1c: the same on the generalized-power-cone batch, every lane on the
   Dual strategy;
 * [11] K1e: the megakernel with its float32 first phase
   (`Settings.megakernel_two_phase`) against its plain version on the
-  bench, infeasible, lp and psd3 batches, wrong kernels its bars must
-  reject, `BatchSolver.solve` with the first phase on bench and psd3 at
-  B = 4096, 65536 and 131072, the single and the two phases side by side
-  at 1e-8 and 1e-5 tolerances, the rescue behind it, and the zero-cone and
-  exponential layouts, where two-phase changes nothing;
+  bench, infeasible, lp and psd3 batches, beside the plain version against
+  itself under a 1e-7 change of q and, on bench, lp and psd3, three 1e-15
+  changes, wrong kernels its bars must reject, `BatchSolver.solve` with
+  the first phase on bench and psd3 at B = 4096, 65536 and 131072, the
+  single and the two phases side by side at 1e-8 and 1e-5 tolerances, the
+  rescue behind it, and the zero-cone and exponential layouts, where
+  two-phase changes nothing;
 * [12] the main path's host side on bench, psd3 and exp at B = 4096 and
   131072: `BatchSolver.solve` with one dispatch and with chunks (the
   rule's size, or 1024 lanes where the rule makes one dispatch), the
@@ -1000,14 +1003,8 @@ def two_phase_phase(card, failures, big, psd_big, qp_data, exp_data):
         p_ms, (pv, pi) = events_ms(
             lambda: megakernel_ref.mega_solve_plain(*flats, spec, B), 1)
         k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
-        qj = q * (1 + 1e-7 * np.random.default_rng(7).standard_normal(
-            q.shape))
-        _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
-        pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
-                     spec)
         tag = f"[11] {name} B={B}"
         r = dict(readings(k, p, P, q, A, b), **p1_readings(k, p))
-        rj = dict(readings(pj, p, P, qj, A, b), **p1_readings(pj, p))
         print(f"{tag}: two-phase kernel {k_ms:.3f} ms, plain {p_ms:.1f} "
               f"ms; statuses kernel "
               f"{np.bincount(k['status'], minlength=11).tolist()}, plain "
@@ -1016,8 +1013,24 @@ def two_phase_phase(card, failures, big, psd_big, qp_data, exp_data):
               flush=True)
         print(f"{tag}: kernel vs plain: {describe(r)}; {p1_describe(r)}",
               flush=True)
-        print(f"{tag}: plain(q*(1+1e-7*xi)) vs plain: {describe(rj)}; "
-              f"{p1_describe(rj)}", flush=True)
+        # what rounding alone moves: q changed by 1e-7 (the first phase's
+        # float32) and, but on infeasible, by 1e-15 over JITTER_SEEDS; the
+        # bars each would fail are printed, not held
+        for scale, seeds in ((1e-7, (7,)), (1e-15, JITTER_SEEDS
+                                            if name != "infeasible" else ())):
+            for js in seeds:
+                qj = q * (1 + scale * np.random.default_rng(js)
+                          .standard_normal(q.shape))
+                _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
+                pj = outputs(*megakernel_ref.mega_solve_plain(
+                    *flats_j, spec, B), spec)
+                del flats_j
+                rj = dict(readings(pj, p, P, qj, A, b), **p1_readings(pj, p))
+                fails = violations(rj, bars, B) + p1_violations(rj, bars)
+                print(f"{tag}: plain(q*(1+{scale:.0e}*xi), seed {js}) vs "
+                      f"plain: {describe(rj)}; {p1_describe(rj)}; would "
+                      f"fail: {', '.join(fails) or 'none'} (printed, not "
+                      f"held)", flush=True)
         print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
               f"{bars['within1']} and within {bars['it_max']} on all, "
               f"phase-1 iters equal on {bars['p1_equal']} and within "
@@ -1050,7 +1063,7 @@ def two_phase_phase(card, failures, big, psd_big, qp_data, exp_data):
                          max_abs_err=max(r["dx"], r["dobj"]),
                          iters=k["iterations"], p1=k["p1_iterations"],
                          in_bytes=sum(t.numel() * 8 for t in flats))
-        del flats, flats_j
+        del flats
 
     # the main path: BatchSolver.solve with the first phase on
     batches = {"bench": (nn_soc, BENCH_N, big), "psd3": (psd3, 3, psd_big)}
@@ -2670,11 +2683,13 @@ def main():
             out = np.minimum(out, np.linalg.eigvalsh(M)[:, 0])
         return out
 
-    def check_family(phase, name, cones, n, data, bars, wrong):
+    def check_family(phase, name, cones, n, data, bars, wrong,
+                     seeds=JITTER_SEEDS[:1]):
         """K1c or K1d against its plain version on one batch, the plain
-        version against itself under a 1e-15 change of q, and the wrong
-        kernels (a change of the spec, such as the Jacobi sweep cap, or of
-        the settings)."""
+        version against itself under 1e-15 changes of q (one for each seed
+        of `seeds`, with the bars each would fail, printed and not held),
+        and the wrong kernels (a change of the spec, such as the Jacobi
+        sweep cap, or of the settings)."""
         P, q, A, b = data
         spec = ctt.BatchSolver(cones, n, mega_st)._mega_fn.spec
         B, flats = megakernel.prepare(P, q, A, b, spec, dev)
@@ -2685,11 +2700,6 @@ def main():
             lambda: megakernel_ref.mega_solve_plain(*flats, spec, B,
                                                     trips=trips), 1)
         k, p = outputs(kv, ki, spec), outputs(pv, pi, spec)
-        qj = q * (1 + 1e-15 * np.random.default_rng(7).standard_normal(
-            q.shape))
-        _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
-        pj = outputs(*megakernel_ref.mega_solve_plain(*flats_j, spec, B),
-                     spec)
         tag = f"[{phase}] {name} B={B}"
         if spec.nonsym:
             print(f"{tag}: searches (plain version's trips): "
@@ -2707,8 +2717,17 @@ def main():
               f"PSD slack eigenvalue of the SOLVED lanes "
               f"{eig.min(initial=np.inf):.3e}; card {card}", flush=True)
         print(f"{tag}: kernel vs plain: {describe(r)}", flush=True)
-        print(f"{tag}: plain(q*(1+1e-15*xi)) vs plain: "
-              f"{describe(readings(pj, p, P, qj, A, b))}", flush=True)
+        for js in seeds:
+            qj = q * (1 + 1e-15 * np.random.default_rng(js).standard_normal(
+                q.shape))
+            _, flats_j = megakernel.prepare(P, qj, A, b, spec, dev)
+            rj = readings(outputs(*megakernel_ref.mega_solve_plain(
+                *flats_j, spec, B), spec), p, P, qj, A, b)
+            del flats_j
+            print(f"{tag}: plain(q*(1+1e-15*xi), seed {js}) vs plain: "
+                  f"{describe(rj)}; would fail: "
+                  f"{', '.join(violations(rj, bars, B)) or 'none'} (printed,"
+                  f" not held)", flush=True)
         print(f"{tag}: bars: x {bars['x']:.1e}, iters within 1 on "
               f"{bars['within1']} and within {bars['it_max']} on all, "
               f"objective {OBJ_TOL:.0e}, true KKT "
@@ -2856,8 +2875,9 @@ def main():
                           ctt.PSDTriangleConeT(2)],
              bench_data.make_sdp_zero_batch(FAMILY_B))):
         wrong = dict(WRONG_PSD, **(WRONG_PSD3 if name == "psd3" else {}))
-        psd[name] = check_family(9, name, cones, 3, data, PSD_BARS[name],
-                                 wrong)
+        psd[name] = check_family(
+            9, name, cones, 3, data, PSD_BARS[name], wrong,
+            JITTER_SEEDS if name == "psd3" else JITTER_SEEDS[:1])
     k1d_launches = family_main_path(
         9, "psd3", psd3_cones, 3, psd_big, FAMILY_THROUGHPUT,
         PSD_BARS["psd3"]["kkt"], (FAMILY_B, max(FAMILY_THROUGHPUT)))

@@ -80,6 +80,16 @@
 // PERF.md).  K1b: in blocks of 64 with up to 255 registers, 8 warps an SM,
 // 32 lanes at G = 8, with 656 bytes of stack.
 //
+// K1d (PSD) and K1e (the float32 first phase) stay in megakernel.cu.  Their
+// group builds were tried on the H100 and taken back out (PERF.md section
+// 6): K1d ran slower than megakernel.cu at every batch size on psd_zero,
+// and on psd3 and psd2 but at 8 lanes an SM (a PSD segment's matrix work
+// ran replicated in every thread of the group, so a warp carried the
+// serial 3x3 work of 32 / G lanes where megakernel.cu's carries 32), and
+// K1e, faster than megakernel.cu with G = 8 on bench, infeasible and lp up
+// to 112 lanes an SM, failed lp's SOLVED count on the fixed batch, a bar
+// megakernel.cu itself fails under two of three 1e-15 changes of q.
+//
 // Build (route (b): a plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DMK_N=6 -DMK_M=13 -DMK_S=2 -DMK_NONSYM=0 \

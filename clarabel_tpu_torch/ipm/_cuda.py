@@ -6,9 +6,9 @@ GROUP_LANES_PER_SM lanes for each SM of the card, and `csrc/megakernel.cu`,
 one lane per thread, above that; single-phase layouts with exp or pow
 segments and no genpow or PSD segment (K1b) launch the group kernel up to
 NONSYM_GROUP_LANES_PER_SM lanes an SM and `csrc/megakernel.cu` above; every
-other layout (K1c-K1e) launches `csrc/megakernel.cu` (`variant_of`).  Both
-sources
-have the same C interface and MkParams.  The kernel has compile-time
+other layout (K1c-K1e) launches `csrc/megakernel.cu` (`variant_of`;
+`group_eligible` says why).  Both sources have the same C interface and
+MkParams.  The kernel has compile-time
 sizes, so there is one library per problem shape and source: n, m, the
 number of cone segments, three flags that compile a cone family's code in
 only where the layout has such a segment (a nonsymmetric segment: K1b; a
@@ -163,14 +163,19 @@ NONSYM_GROUP_LANES_PER_SM = 32
 
 def group_eligible(shape: Shape) -> bool:
     """Single-phase layouts without genpow or PSD segments (K1a, K1b): the
-    layouts `csrc/megakernel_group.cu` takes (K1c, K1d and K1e, the first
-    phase, stay in `csrc/megakernel.cu`)."""
+    layouts `csrc/megakernel_group.cu` takes.  K1c, K1d and K1e (the first
+    phase) stay in `csrc/megakernel.cu`: K1c's cooperative searches share
+    a warp, and the group builds of K1d and K1e lost on the H100, K1d on
+    time at every batch size on psd_zero, K1e on lp's SOLVED count bar
+    (the group source's header; PERF.md section 6)."""
     return not any(shape[4:7])
 
 
 def group_cap(shape: Shape):
     """Lanes an SM up to which an eligible shape takes the group kernel
-    (None: at every batch size)."""
+    (None: at every batch size): each the largest at which the group
+    kernel was faster than `csrc/megakernel.cu` on every batch of its
+    family (K1a: bench, lp, qp_eq; K1b: exp, pow, switch)."""
     return NONSYM_GROUP_LANES_PER_SM if shape[3] else GROUP_LANES_PER_SM
 
 
@@ -192,8 +197,9 @@ def variants_of(shape: Shape):
 
 
 def source_for(variant) -> str:
-    """`megakernel_group.cu` (one lane per group of threads, K1a) or
-    `megakernel.cu` (one lane per thread; also for a bare shape)."""
+    """`megakernel_group.cu` (one lane per group of threads: K1a and K1b up
+    to their caps) or `megakernel.cu` (one lane per thread: above the caps,
+    and K1c-K1e; also for a bare shape)."""
     return ("megakernel_group.cu" if len(variant) > 7 and variant[7]
             else "megakernel.cu")
 

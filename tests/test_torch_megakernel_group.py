@@ -6,10 +6,11 @@ Single-phase zero/nn/SOC layouts (K1a) launch the group kernel of
 single-phase exp/pow layouts (K1b) the group kernel up to
 `NONSYM_GROUP_LANES_PER_SM` lanes an SM (at every B where it is None) and
 `csrc/megakernel.cu` above; every other layout (K1c-K1e) always
-`csrc/megakernel.cu`.  The source is part of the build key: the library's
-name carries the source's name and a hash of its text, so an edit of one
-source rebuilds only its libraries.  The two sources share MkParams field
-for field where the group kernel applies.  No card is needed.
+`csrc/megakernel.cu`, at every batch size and chunk.  The source is part
+of the build key: the library's name carries the source's name and a hash
+of its text, so an edit of one source rebuilds only its libraries.  The
+two sources share MkParams field for field where the group kernel
+applies.  No card is needed.
 """
 
 import os
@@ -32,6 +33,7 @@ def _shape(cones, n, two=False, **change):
 
 
 EXP = [ctt.NonnegativeConeT(2), ctt.ExponentialConeT()]
+GENPOW = [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)]
 
 
 CASES = [
@@ -47,12 +49,16 @@ CASES = [
     ("pow", [ctt.NonnegativeConeT(2), ctt.PowerConeT(0.6)], 3, False, GROUP),
     ("exp and soc", [ctt.SecondOrderConeT(3), ctt.ExponentialConeT(),
                      ctt.PowerConeT(0.3)], 4, False, GROUP),
-    ("genpow", [ctt.NonnegativeConeT(2), ctt.GenPowerConeT((0.3, 0.7), 2)],
-     4, False, LOOP),
+    ("genpow", GENPOW, 4, False, LOOP),
+    ("genpow two-phase", GENPOW, 4, True, LOOP),
     ("psd", [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)], 3, False,
      LOOP),
     ("psd two-phase", [ctt.NonnegativeConeT(6), ctt.PSDTriangleConeT(3)], 3,
      True, LOOP),
+    ("psd2 with a zero cone", [ctt.ZeroConeT(1), ctt.NonnegativeConeT(5),
+                               ctt.PSDTriangleConeT(2)], 3, False, LOOP),
+    ("psd and exp", [ctt.PSDTriangleConeT(2), ctt.ExponentialConeT()], 3,
+     False, LOOP),
 ]
 
 
@@ -67,9 +73,10 @@ def test_variants_by_cone_family_and_batch(name, cones, n, two, source):
     """An eligible shape launches the group kernel up to its cap of lanes
     an SM (GROUP_LANES_PER_SM for K1a, NONSYM_GROUP_LANES_PER_SM for K1b,
     every B where that is None) and the one-lane-per-thread kernel above;
-    the others always the latter.  Each variant names its source; on the
-    card's 132 SMs the launches at chip_smoke.py's batch sizes take the
-    source the cap gives."""
+    the others (genpow, PSD and two-phase layouts; `group_eligible` says
+    why) always the latter.  Each variant names its source; on the card's 132
+    SMs the launches at chip_smoke.py's batch sizes and at the main path's
+    chunk of 16384 lanes take the source the cap gives."""
     shape = _shape(cones, n, two, **SWITCH.get(name, {}))
     assert _cuda.group_eligible(shape) == (source == GROUP)
     sms = 132
@@ -87,7 +94,7 @@ def test_variants_by_cone_family_and_batch(name, cones, n, two, source):
         assert _cuda.source_for(small) == source
         assert _cuda.source_for(big) == LOOP
         assert _cuda.variants_of(shape) == sorted({small, big})
-    for B in (4096, 65536, 131072):
+    for B in (4096, 16384, 65536, 131072):
         grp = source == GROUP and (cap is None or B <= cap * sms)
         assert _cuda.source_for(_cuda.variant_of(shape, B, sms)) == (
             GROUP if grp else LOOP)
