@@ -11,10 +11,13 @@ K1d (PSD cones of side at most 3), as K1c (generalized power cones) and as
 K1e (its float32 first phase, on the bench and psd3 shapes; these three
 from csrc/megakernel.cu), two wrong group kernels (K1a's butterfly sums
 without their last step; K1b's searches taking the last passing trial of
-a round), and the float32 LDL-inverse kernel K2 (csrc/ldl_inverse_rows.cu
-built for N = 19, the rows of an instance in registers, and
-csrc/ldl_inverse.cu, which serves N > 32).  Phase [1] prints each
-library's ptxas line and the local loads and stores in its SASS; every
+a round), and the float32 LDL-inverse kernel K2 (the rows design, one
+library per N with the rows of an instance in registers:
+csrc/ldl_inverse_rows.cu built for N = 19 and 8, one warp an instance, and
+csrc/ldl_inverse_rows_wide.cu built for N = 79 and 80, ceil(N/32) warps an
+instance; and csrc/ldl_inverse.cu, the simple kernel both are held to bit
+for bit, which no path launches).  Phase [1] prints each library's build
+seconds, its ptxas line and the local loads and stores in its SASS; every
 phase prints its seconds.
 Holds each against its plain PyTorch version on the card, drives the
 port's paths through `BatchSolver.solve` and prints what it measured:
@@ -25,13 +28,18 @@ port's paths through `BatchSolver.solve` and prints what it measured:
   the group source), and the main path
   (the megakernel on the bench shape: n=6, cones [NN(6), SOC(7)], 1e-8
   tolerances) at B = 4096, 65536 and 131072;
-* [5] K2 against its plain version at N = 19 (the rows kernel) and 80,
+* [5] K2 against its plain version at N = 19, 79 and 80 (the rows
+  design's two sources; 19 and 79 are the libraries [6] launches),
   B = 65536, a wrong K2 (dynamic regularization off) that its bars must
-  reject, and at N = 19 the shared-memory kernel pinned beside the rows
-  kernel, with the count of ok lanes whose d or L^-1 differ between them;
+  reject, at each N the shared-memory kernel
+  (csrc/ldl_inverse.cu) pinned beside it, whose d, L^-1 and ok it must
+  give to the bit on every lane, and the first B/2 instances alone, whose
+  bits must be those of the full batch;
 * [6] the loop solver on the card: `Settings.throughput()` (float32, K2
-  once per IPM iteration) at B = 4096 and 65536, and the ldl backend with
-  mixed precision at 4096, each with the kernel and with the plain K2;
+  once per IPM iteration) at B = 4096 and 65536 on the bench shape and at
+  B = 16384 on the bench family at n = 26 (N = 79, the wide rows build),
+  and the ldl backend with mixed precision at 4096, each with the kernel
+  and with the plain K2;
 * [7] the rescue cascade behind the megakernel on the LP batch;
 * [8] K1b: each source the exp path launches against its plain version on
   the exponential-cone batch of `bench.py` (n=3, cones [NN(2), Exp()]), a
@@ -119,6 +127,7 @@ with the kernels' numbers; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -168,7 +177,9 @@ WRONG_KERNELS = {
 # L⁻¹ within LINV_TOL of the lane's largest |L⁻¹| entry (at least 1).  The
 # batch trips the dynamic regularization on a quarter of the lanes, so a
 # K2 without it fails the d bar.
-K2_SHAPES = ((6, 13), (30, 50))     # N = 19 (the bench shape's KKT), 80
+# N = 19 (the bench shape's KKT), 79 (the n = 26 bench KKT, which [6]'s
+# wide run launches) and 80 (the widest the route takes)
+K2_SHAPES = ((6, 13), (26, 53), (30, 50))
 K2_B = 65536
 D_TOL, LINV_TOL = 1e-4, 1e-4
 
@@ -182,7 +193,11 @@ LOOP_BARS = {
     "throughput": dict(obj_rel=1e-4, within1=0.95, it_max=8, jitter=1e-7),
     "mixed": dict(obj_rel=1e-6, within1=0.99, it_max=4, jitter=1e-15),
 }
-LOOP_BATCHES = (("throughput", 4096), ("throughput", 65536), ("mixed", 4096))
+# (settings, B, n): the bench family at n = 26 has N = n + m = 79, the
+# widest KKT the K2 route takes on it
+LOOP_BATCHES = (("throughput", 4096, BENCH_N),
+                ("throughput", 65536, BENCH_N), ("mixed", 4096, BENCH_N),
+                ("throughput", 16384, 26))
 RESCUE_B = (4096, 131072)
 DEVICE = "cuda"   # the phases' device (a rehearsal on the CPU sets "cpu")
 
@@ -675,9 +690,18 @@ def k2_ops(N):
 
 
 def k2_bound_ms(N, B):
-    """The larger of bytes (K read once; L^-1, d and ok written once; the
-    signs) over HBM bandwidth and FP32 operations over the FP32 rate."""
-    nbytes = B * (2 * N * N * 4 + N * 4 + 1) + N * 4
+    """The larger of bytes over HBM bandwidth and FP32 operations over the
+    FP32 rate.  The bytes: K's lower triangle read once (the function
+    reads nothing above the diagonal), counted in the 32-byte sectors that
+    its rows touch in the contiguous (B, N, N) batch from an aligned base;
+    L^-1 (whole), d and ok written once; the signs."""
+    # the sectors repeat every 8 instances (8 * 4N^2 bytes is 32 N^2)
+    start = (np.arange(min(B, 8))[:, None] * N * N
+             + np.arange(N)[None, :] * N) * 4
+    end = start + (np.arange(N)[None, :] + 1) * 4
+    per_lane = ((end - 1) // 32 - start // 32 + 1).sum(axis=1)
+    k_sectors = int(per_lane.sum()) * (B // 8) + int(per_lane[:B % 8].sum())
+    nbytes = 32 * k_sectors + B * (N * N * 4 + N * 4 + 1) + N * 4
     bytes_ms = nbytes / HBM_RATE * 1e3
     ops_ms = B * k2_ops(N) / FP32_RATE * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
@@ -709,12 +733,26 @@ def k2_violations(r):
     return out
 
 
+def same_bits(a, b):
+    """Whether two K2 results (L^-1, d, ok) are equal bit for bit, NaNs
+    included; and the count of lanes where they are not."""
+    import torch
+
+    i32 = torch.int32
+    lanes = ((a[0].view(i32) != b[0].view(i32)).flatten(1).any(1)
+             | (a[1].view(i32) != b[1].view(i32)).any(1) | (a[2] != b[2]))
+    n = int(lanes.sum())
+    return n == 0, n
+
+
 def k2_phase(card, failures):
-    """[5] K2 against its plain version at N = 19 (the rows kernel) and 80
-    (the shared-memory kernel), and the wrong K2 that the bars must reject;
-    at N = 19 also the shared-memory kernel pinned there, and the count of
-    ok lanes whose d or L^-1 differ between the two designs.  Returns the
-    numbers of each N."""
+    """[5] K2 against its plain version at each N of K2_SHAPES (the rows
+    design: csrc/ldl_inverse_rows.cu at N = 19, csrc/ldl_inverse_rows_wide.cu
+    at N = 79 and 80), and the wrong K2 that the bars must reject; at each
+    N the shared-memory kernel (csrc/ldl_inverse.cu) pinned beside it,
+    whose bits it must give on every lane, and the first B/2 instances
+    alone, whose bits must be the full batch's.  Returns the numbers of
+    each N."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch.linalg import batched_ldl
@@ -754,19 +792,27 @@ def k2_phase(card, failures):
         print(f"{tag}: sass {src}: {c['instructions']} instructions, "
               f"{c['LDL']} local loads (LDL), {c['STL']} local stores (STL),"
               f" {c['LD']} and {c['ST']} generic (LD.E, ST.E)", flush=True)
-        if variant:
-            # the shared-memory kernel the rows kernel replaced here
-            s_ms, sh = events_ms(
-                lambda: shared(K, signs, eps, delta, True), 20)
-            both = got[2] & sh[2]
-            uneq = ((got[0] != sh[0]).flatten(1).any(1)
-                    | (got[1] != sh[1]).any(1))[both]
-            print(f"{tag}: the shared-memory design (ldl_inverse.cu, pinned)"
-                  f" {s_ms:.4f} ms; ok equal to the rows kernel's: "
-                  f"{bool(torch.equal(got[2], sh[2]))}; ok lanes whose d or "
-                  f"L^-1 differ from it: {int(uneq.sum())} of "
-                  f"{int(both.sum())}", flush=True)
-            del sh
+        # the simple kernel the rows design is held to, bit for bit
+        s_ms, sh = events_ms(lambda: shared(K, signs, eps, delta, True), 20)
+        equal, n_uneq = same_bits(got, sh)
+        print(f"{tag}: the shared-memory kernel (ldl_inverse.cu, pinned) "
+              f"{s_ms:.4f} ms, {s_ms / k_ms:.2f}x the rows design's; d, "
+              f"L^-1 and ok equal to the rows design's on every lane: "
+              f"{equal} ({n_uneq} of {K2_B} lanes differ)", flush=True)
+        if not equal:
+            failures.append(f"{tag}: {n_uneq} lanes differ from "
+                            "ldl_inverse.cu")
+        del sh
+        # does a lane's bits depend on the batch it is launched in?
+        half = batched_ldl.kernel(K[:K2_B // 2], signs, eps, delta, True)
+        equal, n_uneq = same_bits(half, tuple(t[:K2_B // 2] for t in got))
+        print(f"{tag}: the first B/2 = {K2_B // 2} instances alone: d, "
+              f"L^-1 and ok equal to the full batch's: {equal} ({n_uneq} "
+              f"lanes differ)", flush=True)
+        if not equal:
+            failures.append(f"{tag}: the first B/2 instances alone differ "
+                            "from the full batch")
+        del half
         for what, rd in (("kernel", r), ("wrong K2 (no dynamic "
                                           "regularization)", wrong)):
             bad = k2_violations(rd)
@@ -780,8 +826,8 @@ def k2_phase(card, failures):
             failures.append(f"{tag}: the kernel fails its bars")
         if not k2_violations(wrong):
             failures.append(f"{tag}: the bars pass the wrong K2")
-        out[N] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                      max_abs_err=r["abs"], source=src)
+        out[N] = dict(n=N, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                      bound_by=by, max_abs_err=r["abs"], source=src)
         del K, got, plain
         torch.cuda.empty_cache()
     return out
@@ -823,59 +869,62 @@ def loop_readings(k, p, B):
 def loop_phase(card, failures):
     """[6] Settings.throughput() and ldl with mixed precision through
     BatchSolver.solve on the card, each with the kernel and with the plain
-    K2.  Returns the K2 launch count of the kernel runs and that of its
-    rows kernel (csrc/ldl_inverse_rows.cu)."""
+    K2, on the bench family at each (settings, B, n) of LOOP_BATCHES.
+    Returns K2's launches on these main paths by source file."""
     import torch
     import clarabel_tpu_torch as ctt
     from clarabel_tpu_torch import bench_data
     from clarabel_tpu_torch.ipm import _cuda
     from clarabel_tpu_torch.linalg import batched_ldl
 
-    cones = [ctt.NonnegativeConeT(BENCH_N), ctt.SecondOrderConeT(BENCH_N + 1)]
     settings = {
         "throughput": ctt.Settings.throughput(),
         "mixed": ctt.Settings(kkt_backend="ldl", mixed_precision=True),
     }
-    big = bench_data.make_batch(max(B for _, B in LOOP_BATCHES), BENCH_N, 0)
-    warm = tuple(a[:256] for a in big)
-    for st in settings.values():
-        ctt.BatchSolver(cones, BENCH_N, st, device=DEVICE).solve(*warm)
-    launches = rows_launches = 0
-    for name, B in LOOP_BATCHES:
-        bs = ctt.BatchSolver(cones, BENCH_N, settings[name], device=DEVICE)
-        data = tuple(a[:B] for a in big)
-        batched_ldl.kernel.launches = 0     # this path's run starts here
-        batched_ldl.kernel.rows_launches = 0
-        _cuda.megakernel.launches = 0
+    widths = sorted({n for _, _, n in LOOP_BATCHES})
+    cones = {n: [ctt.NonnegativeConeT(n), ctt.SecondOrderConeT(n + 1)]
+             for n in widths}
+    big = {n: bench_data.make_batch(max(B for _, B, w in LOOP_BATCHES
+                                        if w == n), n, 0) for n in widths}
+    for name, n in dict.fromkeys((name, n) for name, _, n in LOOP_BATCHES):
+        ctt.BatchSolver(cones[n], n, settings[name], device=DEVICE).solve(
+            *(a[:256] for a in big[n]))
+    launches = collections.Counter()
+    for name, B, n in LOOP_BATCHES:
+        N = n + 2 * n + 1
+        bs = ctt.BatchSolver(cones[n], n, settings[name], device=DEVICE)
+        data = tuple(a[:B] for a in big[n])
+        kern = batched_ldl.kernel
+        kern.reset_counts()
+        _cuda.megakernel.launches = 0       # this path's run starts here
         wall, k = synced_wall(lambda: bs.solve(*data))
-        run_launches = batched_ldl.kernel.launches  # ... and ends here
-        run_rows = batched_ldl.kernel.rows_launches
-        rows_launches += run_rows
-        launches += run_launches
+        run = kern.source_launches.copy()   # ... and ends here
+        launches += run
         with plain_k2_route():
             p_wall, p = synced_wall(lambda: bs.solve(*data))
             bars = LOOP_BARS[name]
             qj = data[1] * (1 + bars["jitter"] * np.random.default_rng(
                 7).standard_normal(data[1].shape))
             pj = bs.solve(data[0], qj, *data[2:])
-        K, signs = k2_inputs(6, 13, B, seed=B)
+        K, signs = k2_inputs(n, 2 * n + 1, B, seed=B)
         K = torch.tensor(K, dtype=torch.float32, device=DEVICE)
         signs = torch.tensor(signs, dtype=torch.float32, device=DEVICE)
         st = settings["throughput"]
-        k2_ms, _ = events_ms(lambda: batched_ldl.kernel(
+        k2_ms, _ = events_ms(lambda: kern(
             K, signs, st.dynamic_regularization_eps,
             st.dynamic_regularization_delta, True), 5)
+        src = os.path.basename(kern.source_for(kern.variant(N)))
+        others = sum(run.values()) - run[src]
         r = loop_readings(k, p, B)
         rj = loop_readings(pj, p, B)
-        tag = f"[6] {name} B={B}"
+        tag = f"[6] {name} n={n} B={B}"
         solved = r["solved"]
         print(f"{tag}: {solved / wall:,.0f} solves/s wall ({wall * 1e3:.1f} "
               f"ms), mean iters {k.iterations.mean():.3f}, not SOLVED "
               f"{B - solved}, statuses "
               f"{np.bincount(k.status, minlength=11).tolist()}; K2 "
-              f"launches {run_launches} (rows kernel {run_rows}), K2 "
-              f"{k2_ms:.4f} ms per "
-              f"launch at "
+              f"launches {run[src]} (N = {N}, {src}; other sources "
+              f"{others}), K2 {k2_ms:.4f} ms per launch at "
               f"this B; megakernel launches {_cuda.megakernel.launches}; "
               f"card {card}", flush=True)
         for what, rd in (("kernel", r), (f"plain(q*(1+{bars['jitter']:.0e}"
@@ -895,13 +944,14 @@ def loop_phase(card, failures):
             bad.append("objective")
         if r["within1"] < bars["within1"] or r["it_max"] > bars["it_max"]:
             bad.append("iterations")
-        if run_launches <= 0:
-            bad.append("K2 was not launched")
+        if run[src] <= 0:
+            bad.append(f"K2's {src} for N = {N} was not launched")
         if not np.isfinite(k.x[k.status == 1]).all():
             bad.append("non-finite x")
         for v in bad:
             failures.append(f"{tag}: {v}")
-    return launches, rows_launches
+        del K, signs
+    return launches
 
 
 def rescue_phase(card, failures):
@@ -1721,11 +1771,11 @@ def long_phase(card, failures, grid):
              for t in json.loads(str(fix["verify_cones"]))]
     mixed = ctt.Settings(mixed_precision=True)
     one = ctt.Solver(vP, vq, vA, vb, cones, mixed, device=DEVICE).solve()
-    batched_ldl.kernel.launches = 0
-    batched_ldl.kernel.rows_launches = 0
+    batched_ldl.kernel.reset_counts()
     sol = ctt.Solver(vP, vq, vA, vb, cones, mixed.replace(time_limit=600.0),
                      device=DEVICE).solve()
-    k2 = (batched_ldl.kernel.launches, batched_ldl.kernel.rows_launches)
+    k2 = (batched_ldl.kernel.launches,
+          batched_ldl.kernel.source_launches["ldl_inverse_rows.cu"])
     same_bits("[15] verify drive, mixed precision, time_limit=600", sol, one)
     dx = float(np.abs(sol.x - lfix["chunked_verify_mixed_x"]).max())
     print(f"[15] verify drive, mixed precision, time-limited: K2 launches "
@@ -1921,7 +1971,7 @@ def multidevice_rank(rank, world, out_dir):
                           ctt.SecondOrderConeT(BENCH_N + 1)], BENCH_N,
                          ctt.Settings.throughput(), mesh=dp)
     bs.solve(Pb, qb, Ab, bb)
-    batched_ldl.kernel.rows_launches = 0
+    batched_ldl.kernel.reset_counts()
     collectives.timed = True
     collectives.reset()
     t0 = time.perf_counter()
@@ -1929,7 +1979,8 @@ def multidevice_rank(rank, world, out_dir):
     res["batch_wall_s"] = time.perf_counter() - t0
     res["batch_collective_s"] = collectives.seconds
     collectives.timed = False
-    res["batch_k2_rows_launches"] = batched_ldl.kernel.rows_launches
+    res["batch_k2_rows_launches"] = \
+        batched_ldl.kernel.source_launches["ldl_inverse_rows.cu"]
     res.update({f"batch_{k}": getattr(out, k)
                 for k in ("x", "status", "obj_val", "iterations")})
     res["dryrun"] = dryrun_multichip()
@@ -2023,11 +2074,11 @@ def multidevice_phase(card, failures, rls_ref, rls_ms):
         dp_mesh = DeviceMesh("cuda", torch.zeros(1, dtype=torch.int64),
                              mesh_dim_names=("dp",))
         bs = ctt.BatchSolver(cones_b, BENCH_N, thr, mesh=dp_mesh)
-        batched_ldl.kernel.launches = batched_ldl.kernel.rows_launches = 0
+        batched_ldl.kernel.reset_counts()
         t0 = time.perf_counter()
         out = bs.solve(*batch)
         wall = time.perf_counter() - t0
-        k2 = batched_ldl.kernel.rows_launches
+        k2 = batched_ldl.kernel.source_launches["ldl_inverse_rows.cu"]
         same = all(np.array_equal(getattr(out, k), getattr(ref_b, k))
                    for k in ("status", "iterations", "x", "obj_val"))
         print(f"[17](a) bench B={MULTI_B}, BatchSolver(mesh=dp 1) under "
@@ -2243,9 +2294,13 @@ def main():
                                  else (4096,))}
                       | {v for sh in shapes for v in _cuda.variants_of(sh)}
                       | set(k1b_variants))
+    # K2: [5]'s N, [6]'s (the wide loop run: N = 79), the Solver's, and
+    # the shared-memory kernel pinned beside them (the variant ())
     k2_variants = sorted({batched_ldl.kernel.variant(n + m)
                           for n, m in K2_SHAPES}
-                         | {batched_ldl.kernel.variant(SOLVER_N)})
+                         | {batched_ldl.kernel.variant(n + 2 * n + 1)
+                            for _, _, n in LOOP_BATCHES}
+                         | {batched_ldl.kernel.variant(SOLVER_N), ()})
     # precompile.warmup()'s libraries ([16]), in the same parallel build
     from clarabel_tpu_torch import precompile
 
@@ -2261,13 +2316,15 @@ def main():
           f"{k1b_variants}, K1d for {k1d_shapes}, K1c for {k1c_shape}, K1e "
           f"for {k1e_shapes} (zero/nn/SOC shapes from both sources: "
           f"{[v for v in variants if not v[3] and _cuda.group_eligible(v)]})"
-          f", K2 {k2_variants} ((N,): ldl_inverse_rows.cu for that N; (): "
+          f", K2 {k2_variants} ((N,): the rows design for that N; (): "
           f"ldl_inverse.cu), and the wrong group kernels in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)",
           flush=True)
     for lib in (_cuda.megakernel, batched_ldl.kernel):
         for variant, log in lib.build_logs.items():
             src = os.path.basename(lib.source_for(variant))
+            print(f"[1] built {src} {variant} in "
+                  f"{lib.build_seconds[variant]:.1f} s")
             for line in log.splitlines():
                 if "registers" in line or "spill" in line or "stack" in line:
                     print(f"[1] ptxas {src} {variant}: {line.strip()}")
@@ -2456,11 +2513,12 @@ def main():
     clock.start("[5]")
     k2 = k2_phase(card, failures)
     clock.start("[6]")
-    k2_launches, k2_rows_launches = loop_phase(card, failures)
-    print(f"[6] K2 launches on the loop paths: {k2_launches}, of which "
-          f"{k2_rows_launches} ldl_inverse_rows.cu", flush=True)
-    if k2_rows_launches <= 0:
-        failures.append("[6] the loop paths did not launch K2's rows kernel")
+    k2_launches = loop_phase(card, failures)
+    print(f"[6] K2 launches on the loop paths by source: "
+          f"{dict(sorted(k2_launches.items()))}", flush=True)
+    for src in ("ldl_inverse_rows.cu", "ldl_inverse_rows_wide.cu"):
+        if k2_launches[src] <= 0:
+            failures.append(f"[6] the loop paths did not launch {src}")
     clock.start("[7]")
     rescue_phase(card, failures)
 
@@ -2937,7 +2995,7 @@ def main():
     multi, multi_k2 = multidevice_phase(
         card, failures, sparse_solutions["rls2000"],
         sparse["rls2000"]["ms_per_iteration"])
-    k2_rows_launches += multi_k2
+    k2_launches["ldl_inverse_rows.cu"] += multi_k2
     print(f"[17] readings: {json.dumps(multi)}", flush=True)
     # every module of the port (and the runner) is imported by now
     import clarabel_tpu_torch.__main__  # noqa: F401
@@ -2952,7 +3010,9 @@ def main():
     clock.start(None)
     if failures:
         fail("; ".join(failures))
-    k2_main = k2[K2_SHAPES[0][0] + K2_SHAPES[0][1]]   # the rows kernel
+    # K2's rows design: its one-warp source at N = 19, its wide source at
+    # N = 79, the library [6]'s wide run launches (and N = 80 beside it)
+    k2_main, k2_wide, k2_widest = (k2[n + m] for n, m in K2_SHAPES)
     # K1a, one entry per source: launches from the main path's run; ms,
     # the plain version's ms and the bound at bench B = 4096; max_abs_err
     # over the batches of [2]-[3]
@@ -2971,22 +3031,30 @@ def main():
         "library_ms": None,
     } for name, src in (("megakernel_group", "megakernel_group.cu"),
                         ("megakernel", "megakernel.cu"))] + [{
-        # K2 at N = 19, the only N a main path launches (the shared-memory
-        # kernel, csrc/ldl_inverse.cu, serves N > 32; [5] holds it at 80)
-        "name": "ldl_inverse",
+        # K2's rows design, one entry per source: ms, the plain version's
+        # and the bound at [5]'s B and the N whose library the main paths
+        # of [6] and [17] launch (19; 79), launches from those runs; the
+        # wide entry also gives [5]'s readings at N = 80
+        "name": name,
+        "n": r["n"],
         "route": "cuda",
-        "source": f"clarabel_tpu_torch/csrc/{k2_main['source']}",
+        "source": f"clarabel_tpu_torch/csrc/{r['source']}",
         "replaces": "clarabel_tpu/linalg/pallas_ldl.py:99",
-        "launches": k2_rows_launches,
-        "max_abs_err": k2_main["max_abs_err"],
-        "ms": k2_main["ms"],
-        "plain_ms": k2_main["plain_ms"],
-        "bound_ms": k2_main["bound_ms"],
-        "bound_by": k2_main["bound_by"],
+        "launches": k2_launches[r["source"]],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
         # torch.linalg.ldl_factor pivots (Bunch-Kaufman) and has no
         # sign-aware regularization: no PyTorch call computes this function
         "library_ms": None,
-    }] + [{
+        **extra,
+    } for name, r, extra in (
+        ("ldl_inverse", k2_main, {}),
+        ("ldl_inverse_wide", k2_wide, {"at_n80": {
+            k: k2_widest[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "max_abs_err")}}))] + [{
         # K1b, one entry per source the exp path launches: ms, the plain
         # version's ms and the bound at exp B = 4096; max_abs_err over exp,
         # pow and switch

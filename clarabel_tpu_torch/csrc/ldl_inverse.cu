@@ -1,8 +1,12 @@
 // Batched LDL^T factor of quasidefinite KKT matrices with the explicit
-// inverse of the unit lower factor, in float32 (K2).
+// inverse of the unit lower factor, in float32 (K2): the simple kernel the
+// rows design (csrc/ldl_inverse_rows.cu for N <= 32,
+// csrc/ldl_inverse_rows_wide.cu up to 80) is held to, bit for bit.  No
+// path routes to it.
 //
-// Replaces: clarabel_tpu/linalg/pallas_ldl.py `_ldl_inv_kernel` (launched by
-// `batched_ldl_inverse`).  It computes what that kernel and the plain
+// Replaced: clarabel_tpu/linalg/pallas_ldl.py `_ldl_inv_kernel` (launched by
+// `batched_ldl_inverse`), until the rows design took every N.  It
+// computes what that kernel and the plain
 // PyTorch version clarabel_tpu_torch/linalg/batched_ldl.py
 // `ldl_inverse_plain` compute, column by column: for j = 0..N-1 the pivot
 // is K[j,j]; with dynamic regularization on, a pivot with s_j * pivot < eps
@@ -12,12 +16,14 @@
 // inverse of L accumulates as M[i,:] -= col_i * M[j,:].  ok is
 // all-finite(d) and all(d != 0).
 //
-// What bounds it on this card: bytes.  An instance reads its N x N float32
-// K once and writes N x N of L^-1, N of d and one byte of ok: 2.9 KB at the
-// bench shape N = 19, against 18,278 float32 operations (the trailing
-// updates and the full-row updates of L^-1 below).  At B = 65536 that is
-// 194 MB (0.058 ms at 3.35 TB/s) against 1.2e9 operations (0.018 ms at
-// 67 TFLOP/s).  At N = 80 the operations bound instead.
+// What bounds it on this card: bytes, at every N.  An instance must read
+// K's lower triangle once (the 32-byte sectors its rows touch) and write
+// N x N of L^-1, N of d and one byte of ok, against about 2N^3/3 float32
+// operations that the algorithm needs: at B = 65536, 184 MB (0.055 ms at
+// 3.35 TB/s) against 0.004 ms at 67 TFLOP/s at N = 19, and 2.622 GB
+// (0.783 ms) against 0.340 ms at N = 80.  This kernel reads the whole of
+// K, and its full-row updates are its own excess, about four times the
+// entries that can change.
 //
 // What the design does about it: one warp per instance, with K and the
 // growing L^-1 in shared memory (2 N^2 floats, plus the current column, its

@@ -3,9 +3,10 @@
 // library per N, with the rows of an instance in registers.
 //
 // Replaces: clarabel_tpu/linalg/pallas_ldl.py `_ldl_inv_kernel` (launched by
-// `batched_ldl_inverse`) for N <= 32, which covers the KKT of every main
-// path (N = 19 at the bench shape); csrc/ldl_inverse.cu serves 32 < N <= 80.
-// It computes what csrc/ldl_inverse.cu and the plain PyTorch version
+// `batched_ldl_inverse`) for N <= 32 (N = 19 at the bench shape);
+// csrc/ldl_inverse_rows_wide.cu takes 32 < N <= 80 the same way over
+// several warps.  It computes what csrc/ldl_inverse.cu (the simple kernel
+// this design is held to, bit for bit) and the plain PyTorch version
 // clarabel_tpu_torch/linalg/batched_ldl.py `ldl_inverse_plain` compute:
 // for j = 0..N-1 the pivot K[j,j], regularized by the sign-aware rule when
 // dynamic regularization is on (s_j * pivot < eps becomes s_j * delta); d_j
@@ -15,10 +16,11 @@
 // Each entry is updated by the same expression in the same order of j as
 // in csrc/ldl_inverse.cu, so both kernels give the same bits.
 //
-// What bounds it on this card: bytes.  An instance reads its N x N K once
-// and writes N x N of L^-1, N of d and one byte of ok: at N = 19 and
-// B = 65536 that is 194 MB, 0.058 ms at 3.35 TB/s, against about 2N^3/3
-// float32 operations an instance (0.004 ms at 67 TFLOP/s).
+// What bounds it on this card: bytes.  An instance must read K's lower
+// triangle once (the 32-byte sectors its rows touch) and write N x N of
+// L^-1, N of d and one byte of ok: at N = 19 and B = 65536 that is 184 MB,
+// 0.055 ms at 3.35 TB/s, against about 2N^3/3 float32 operations an
+// instance (0.004 ms at 67 TFLOP/s).  This kernel stages the whole of K.
 //
 // What held csrc/ldl_inverse.cu back there (1.11 ms at N = 19): N is a
 // run-time argument, so every element loop divides indices by run-time

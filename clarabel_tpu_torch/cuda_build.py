@@ -11,7 +11,9 @@ a hash of the source and the flags, so an edited source builds anew; a
 subclass may build its variants from more than one source (`source_for`).
 
 `build_together` starts one nvcc for every missing library of every source
-it is given, all at once, and waits for them; a failed build raises.
+it is given, all at once, and waits for them; a failed build raises.  Each
+library's log and seconds from start to end are kept (`build_logs`,
+`build_seconds`).
 Nothing here falls back to anything: a kernel that does not build is an
 error.
 """
@@ -22,6 +24,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -53,6 +57,7 @@ class CudaLibrary:
         self.macros = tuple(macros)
         self.tags = tuple(tags)
         self.build_logs: Dict[Variant, str] = {}
+        self.build_seconds: Dict[Variant, float] = {}
         self._libs: Dict[Variant, ctypes.CDLL] = {}
 
     def source_for(self, variant: Variant = ()) -> str:
@@ -86,21 +91,21 @@ class CudaLibrary:
                        for mac, val in zip(self.macros, variant)]
             cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags_for(variant),
                    *defines, "-o", tmp, self.source_for(variant)]
-            procs.append((variant, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            procs.append((variant, out, tmp, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
         return procs
 
-    def _finish(self, procs) -> List[str]:
-        failed = []
-        for variant, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            self.build_logs[variant] = log
-            if proc.returncode != 0:
-                failed.append(f"{self.stem} {variant}:\n{log}")
-            else:
-                os.replace(tmp, out)
-        return failed
+    def _finish(self, build, log: str, seconds: float) -> List[str]:
+        """Keep one ended build's log and seconds; returns its failure."""
+        variant, out, tmp, _, proc = build
+        self.build_logs[variant] = log
+        self.build_seconds[variant] = seconds
+        if proc.returncode != 0:
+            return [f"{self.stem} {variant}:\n{log}"]
+        os.replace(tmp, out)
+        return []
 
     def build(self, variants: Iterable[Variant] = ((),)) -> None:
         build_together((self, variants))
@@ -125,9 +130,19 @@ def build_together(*requests: Tuple[CudaLibrary, Iterable[Variant]]) -> None:
     each, all started together; raises if any build fails."""
     with _BUILD_LOCK:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        started = [(lib, lib._start(variants)) for lib, variants in requests]
+        started = [(lib, build) for lib, variants in requests
+                   for build in lib._start(variants)]
+
+        def wait(item):
+            build = item[1]
+            log, _ = build[4].communicate()
+            return log, time.perf_counter() - build[3]
+
+        # one waiter for each build, so that each one's end is its own
+        with ThreadPoolExecutor(max_workers=max(1, len(started))) as pool:
+            ended = list(pool.map(wait, started))
         failed = []
-        for lib, procs in started:
-            failed += lib._finish(procs)
+        for (lib, build), (log, seconds) in zip(started, ended):
+            failed += lib._finish(build, log, seconds)
     if failed:
         raise RuntimeError("nvcc failed for " + "; ".join(failed))

@@ -261,19 +261,20 @@ def _replay(step, active_of, carry: Carry, counts) -> Carry:
         return carry
     static = Carry(*(t.clone() for t in carry))
     k2 = batched_ldl.kernel
-    before = (k2.launches, k2.rows_launches, counts["factorizations"])
+    before = (k2.launches, k2.source_launches.copy(),
+              counts["factorizations"])
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for dst, src in zip(static, step(static)):
             dst.copy_(src)
         flag = active_of(static).any()
-    per_pass = (k2.launches - before[0], k2.rows_launches - before[1],
+    per_pass = (k2.launches - before[0], k2.source_launches - before[1],
                 counts["factorizations"] - before[2])
-    k2.launches, k2.rows_launches, counts["factorizations"] = before
+    k2.launches, k2.source_launches, counts["factorizations"] = before
     while True:
         graph.replay()
         k2.launches += per_pass[0]
-        k2.rows_launches += per_pass[1]
+        k2.source_launches.update(per_pass[1])
         counts["factorizations"] += per_pass[2]
         counts["replays"] += 1
         if not bool(flag):

@@ -5,18 +5,22 @@ kernel over 128-instance lane blocks, reached from `vmap` through a JAX
 primitive with a batching rule.  The port batches explicitly, so neither
 the lane padding nor the primitive is needed: `batched_ldl_inverse` takes
 the whole (B, N, N) batch.  On CUDA tensors it launches a hand-written
-kernel and counts the launch: for N ≤ ROWS_MAX_N `csrc/ldl_inverse_rows.cu`,
-built once per N with the rows of an instance in registers, and above that
-`csrc/ldl_inverse.cu`, one build for every N up to 80 with the instance in
-shared memory (both one warp per instance, with the same C interface).  On
-CPU tensors it runs `ldl_inverse_plain`, the same column elimination in
-PyTorch.  A failed build or launch raises; nothing falls back.
+kernel and counts the launch: the rows design, built once per N with the
+rows of an instance in registers, from `csrc/ldl_inverse_rows.cu` (one warp
+an instance) for N ≤ ONE_WARP_MAX_N and from `csrc/ldl_inverse_rows_wide.cu`
+(ceil(N/32) warps an instance) up to MAX_N.  `csrc/ldl_inverse.cu`, one
+build for every N with the instance in shared memory, is the simple kernel
+both are held to bit for bit; no path routes to it.  All three have the
+same C interface.  On CPU tensors it runs `ldl_inverse_plain`, the same
+column elimination in PyTorch.  A failed build or launch raises; nothing
+falls back.
 
 The solve with L⁻¹ (two batched products and a scale,
 `linalg.ldl.ldl_solve_via_inverse`) stays as torch ops, as the JAX package
 computes it outside Pallas too.
 """
 
+import collections
 import ctypes
 import os
 
@@ -24,8 +28,8 @@ import torch
 
 from ..cuda_build import CudaLibrary
 
-MAX_N = 80   # the kernel's shared-memory plan; the route rule uses N <= 80
-ROWS_MAX_N = 32   # one lane a row: csrc/ldl_inverse_rows.cu takes N <= 32
+MAX_N = 80   # the route rule (kkt/dense.py) sends N <= 80 here
+ONE_WARP_MAX_N = 32   # csrc/ldl_inverse_rows.cu: one lane a row, one warp
 
 
 def ldl_inverse_plain(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
@@ -55,26 +59,35 @@ def ldl_inverse_plain(K, signs, dyn_eps=1e-13, dyn_delta=2e-7,
 
 class LdlInverseKernel(CudaLibrary):
     """The CUDA kernels' libraries and the launch counts.  A variant is
-    (N,) for the rows kernel of `csrc/ldl_inverse_rows.cu`, built for that
-    N alone (`-DK2_N=N`, so N is in the library's name), or () for
-    `csrc/ldl_inverse.cu`, whose one build serves every N up to 80.
-    `launches` counts every launch, `rows_launches` those of the rows
-    kernel."""
+    (N,) for the rows design, built for that N alone (`-DK2_N=N`, so N is
+    in the library's name) from `csrc/ldl_inverse_rows.cu` for
+    N <= ONE_WARP_MAX_N and from `csrc/ldl_inverse_rows_wide.cu` above, or
+    () for `csrc/ldl_inverse.cu`, whose one build takes every N up to 80
+    (a subclass pins it to compare the designs).  `launches` counts every
+    launch and `source_launches` the launches of each source, by its file
+    name."""
 
     def __init__(self):
         super().__init__("ldl_inverse.cu", macros=("K2_N",), tags=("n",))
         self.launches = 0
-        self.rows_launches = 0
+        self.source_launches = collections.Counter()
+
+    def reset_counts(self) -> None:
+        """Set every launch count to 0."""
+        self.launches = 0
+        self.source_launches.clear()
 
     def source_for(self, variant=()) -> str:
-        return (os.path.join(os.path.dirname(self.source),
-                             "ldl_inverse_rows.cu") if variant
-                else self.source)
+        if not variant:
+            return self.source
+        name = ("ldl_inverse_rows.cu" if variant[0] <= ONE_WARP_MAX_N
+                else "ldl_inverse_rows_wide.cu")
+        return os.path.join(os.path.dirname(self.source), name)
 
     def variant(self, n: int):
-        """The library an (B, n, n) batch launches: the rows kernel for
-        n <= ROWS_MAX_N, the shared-memory kernel above."""
-        return (n,) if n <= ROWS_MAX_N else ()
+        """The library an (B, n, n) batch launches: the rows design built
+        for n."""
+        return (n,)
 
     def bind(self, lib: ctypes.CDLL, variant) -> None:
         vp = ctypes.c_void_p
@@ -121,7 +134,7 @@ class LdlInverseKernel(CudaLibrary):
         if rc != 0:
             raise RuntimeError(f"ldl_inverse launch failed: CUDA error {rc}")
         self.launches += 1
-        self.rows_launches += int(bool(variant))
+        self.source_launches[os.path.basename(self.source_for(variant))] += 1
         return Linv, d, ok
 
 

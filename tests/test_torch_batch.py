@@ -686,22 +686,27 @@ def test_sparse_solver_graph_replay_matches_eager_on_the_card(case,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(2, 3), (6, 13), (10, 22)])
+@pytest.mark.parametrize("n,m", [(2, 3), (6, 13), (10, 22), (10, 23),
+                                 (26, 53), (30, 50)])
 def test_ldl_rows_kernel_matches_plain_version_on_the_card(n, m):
-    """K2's rows kernel (csrc/ldl_inverse_rows.cu, one library per N) at
-    N = 5, 19 and 32, against its plain version, and on every ok lane bit
-    for bit against the shared-memory kernel (csrc/ldl_inverse.cu) that
-    it replaces there: both update each entry by the same expression in
-    the same order of j."""
+    """K2's rows design (one library per N: csrc/ldl_inverse_rows.cu at
+    N = 5, 19 and 32, csrc/ldl_inverse_rows_wide.cu at N = 33, 79 and 80),
+    against its plain version, and on every ok lane bit for bit against
+    the shared-memory kernel (csrc/ldl_inverse.cu), the simple kernel it
+    is held to: both update each entry by the same expression in the same
+    order of j."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the card with -m gpu)")
     K, signs = bench_data.make_kkts(1000, n, m, seed=n)
     K = torch.tensor(K, dtype=torch.float32, device="cuda")
     signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
-    before = batched_ldl.kernel.rows_launches
+    src = ("ldl_inverse_rows.cu" if n + m <= batched_ldl.ONE_WARP_MAX_N
+           else "ldl_inverse_rows_wide.cu")
+    before = batched_ldl.kernel.source_launches.copy()
     Linv, d, ok = batched_ldl.batched_ldl_inverse(K, signs)
     torch.cuda.synchronize()
-    assert batched_ldl.kernel.rows_launches == before + 1
+    before[src] += 1
+    assert batched_ldl.kernel.source_launches == before
     pLinv, pd, pok = batched_ldl.ldl_inverse_plain(K, signs)
     assert ok.all() and torch.equal(ok, pok)
     scale = pLinv.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1.0)
@@ -715,11 +720,15 @@ def test_ldl_rows_kernel_matches_plain_version_on_the_card(n, m):
     sLinv, sd, sok = Shared()(K, signs, 1e-13, 2e-7, True)
     assert torch.equal(ok, sok)
     assert torch.equal(Linv[ok], sLinv[ok]) and torch.equal(d[ok], sd[ok])
-    # lanes with an infinite, a NaN and a huge entry: the rows kernel runs
+    # lanes with an infinite, a NaN and a huge entry, one with an infinite
+    # entry mid-matrix and one whose update overflows: the rows design runs
     # them again with the full-row update, and every lane's bits agree
+    mid = (n + m) // 2
     K[1, -1, 0] = K[1, 0, -1] = float("inf")
     K[2, -1, 1] = K[2, 1, -1] = float("nan")
     K[3, 0, 0], K[3, -1, 0], K[3, 0, -1] = 1e-30, 1e30, 1e30
+    K[4, mid, 1] = K[4, 1, mid] = float("inf")
+    K[5, mid, 0] = K[5, 0, mid] = 3e38
     got = batched_ldl.batched_ldl_inverse(K, signs)
     want = Shared()(K, signs, 1e-13, 2e-7, True)
     for a, b in zip(got[:2], want[:2]):

@@ -1,9 +1,10 @@
 """The port's dense LDL against the JAX package: K2's plain version
 (`clarabel_tpu_torch.linalg.batched_ldl.ldl_inverse_plain`) against the
 Pallas kernel `clarabel_tpu.linalg.pallas_ldl.batched_ldl_inverse` run in
-interpret mode on the CPU, and the batched float64 `ldl_factor`,
-`invert_unit_lower`, `ldl_solve` and `ldl_solve_via_inverse` against the
-reference's, vmapped.
+interpret mode on the CPU (and at N = 33 and 79, where that takes about
+10 s, against the reference's float32 `ldl_factor` and `invert_unit_lower`,
+vmapped), and the batched float64 `ldl_factor`, `invert_unit_lower`,
+`ldl_solve` and `ldl_solve_via_inverse` against the reference's, vmapped.
 
 Bars: float32 L⁻¹ and d within 1e-4 (the bar of
 tests/test_pallas_kernel.py, which holds the Pallas kernel to the loop
@@ -103,6 +104,32 @@ def test_ok_is_false_on_a_singular_K():
                      tuple(np.asarray(a)[good] for a in ref))
 
 
+@pytest.mark.parametrize("np_,nm", [(10, 23), (26, 53)])
+def test_plain_k2_matches_the_reference_at_wide_n(np_, nm):
+    """N = 33 and 79, the range of the wide rows build
+    (csrc/ldl_inverse_rows_wide.cu), with the dynamic regularization
+    tripped on a quarter of the lanes: the plain version against the
+    reference's float32 `ldl_factor` and `invert_unit_lower`, vmapped."""
+    K, signs = make_kkts(128, np_=np_, nm=nm, seed=np_)
+    K[0::4, 0, 1:] = K[0::4, 1:, 0] = 0.0
+    K[0::4, 0, 0] = 1e-9                  # an x-block pivot below eps
+    eps, delta = 1e-7, 2e-5               # Settings.throughput()'s
+    sj = jnp.asarray(signs, jnp.float32)
+
+    def factor_inverse(k):
+        L, d, ok = ref_ldl.ldl_factor(k, sj, eps, delta, True)
+        return ref_ldl.invert_unit_lower(L), d, ok
+
+    ref = jax.jit(jax.vmap(factor_inverse))(jnp.asarray(K, jnp.float32))
+    port = _port_k2(K, signs, eps, delta, True)
+    assert port[0].shape == (128, np_ + nm, np_ + nm)
+    assert port[2].all()
+    _assert_k2_close(port, ref)
+    d = port[1].numpy()[0::4, 0]
+    np.testing.assert_array_equal(d, np.float32(delta))
+    np.testing.assert_array_equal(np.asarray(ref[1])[0::4, 0], d)
+
+
 def test_the_wrapper_refuses_cpu_and_mixed_devices():
     K = torch.zeros((2, 3, 3))
     signs = torch.ones(3)
@@ -116,24 +143,29 @@ def test_the_wrapper_refuses_cpu_and_mixed_devices():
 
 @pytest.mark.parametrize("n", [1, 5, 19, 32, 33, 80])
 def test_the_wrapper_picks_its_kernel_by_n(n):
-    """N <= 32 takes the rows kernel, built for that N alone: N enters its
-    build (-DK2_N) and its library's name; above, the shared-memory kernel,
-    one build for every N up to 80."""
+    """Every N takes the rows design, built for that N alone: N enters its
+    build (-DK2_N) and its library's name; csrc/ldl_inverse_rows.cu (one
+    warp an instance) up to 32, csrc/ldl_inverse_rows_wide.cu (several)
+    above.  The shared-memory kernel (the variant ()) is one build for
+    every N, which no path routes to."""
     kern = batched_ldl.kernel
     variant = kern.variant(n)
     path = os.path.basename(kern.lib_path(variant))
-    if n <= batched_ldl.ROWS_MAX_N:
-        assert variant == (n,)
+    assert variant == (n,)
+    assert kern.macros == ("K2_N",)
+    if n <= batched_ldl.ONE_WARP_MAX_N:
         assert os.path.basename(kern.source_for(variant)) == \
             "ldl_inverse_rows.cu"
         assert path.startswith(f"ldl_inverse_rows_n{n}_")
-        assert kern.macros == ("K2_N",)
     else:
-        assert variant == ()
-        assert os.path.basename(kern.source_for(variant)) == "ldl_inverse.cu"
-        assert path.startswith("ldl_inverse_") and "_n" not in path
-    others = {kern.lib_path(kern.variant(k)) for k in (5, 19, 32)}
-    assert len(others) == 3     # one library per N
+        assert os.path.basename(kern.source_for(variant)) == \
+            "ldl_inverse_rows_wide.cu"
+        assert path.startswith(f"ldl_inverse_rows_wide_n{n}_")
+    shared = os.path.basename(kern.lib_path(()))
+    assert os.path.basename(kern.source_for(())) == "ldl_inverse.cu"
+    assert shared.startswith("ldl_inverse_") and "_n" not in shared
+    others = {kern.lib_path(kern.variant(k)) for k in (5, 19, 32, 33, 80)}
+    assert len(others) == 5     # one library per N
 
 
 def test_the_wrapper_refuses_cpu_tensors_at_every_n():
@@ -144,7 +176,8 @@ def test_the_wrapper_refuses_cpu_tensors_at_every_n():
             batched_ldl.kernel(K, signs, 1e-13, 2e-7, True)
         with pytest.raises(ValueError, match="mixed devices"):
             batched_ldl.batched_ldl_inverse(K, signs.to("meta"))
-    assert batched_ldl.kernel.launches == batched_ldl.kernel.rows_launches == 0
+    assert batched_ldl.kernel.launches == 0
+    assert not batched_ldl.kernel.source_launches
 
 
 def test_f64_ldl_matches_the_reference():

@@ -10,11 +10,14 @@ solved once here and committed:
   settings of `SETTINGS`;
 * `socs`: n=4 with a zero cone, four SOCs of three sizes and a nonnegative
   cone (B=32).  Three distinct SOC sizes make the layout bucket them, so
-  one SOC group holds three cones padded with the sentinel index m.
+  one SOC group holds three cones padded with the sentinel index m;
+* `wide`: the bench family at n=26 ([NN(26), SOC(27)], m=53, so the KKT
+  has N = 79, the widest the K2 route takes on it; B=16), under
+  `Settings.throughput()` through the JAX package's `BatchSolver`.
 
 Run from the repository root (all cases, or the ones named):
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_loop_fixtures.py [bench] [socs]
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_loop_fixtures.py [bench] [socs] [wide]
 
 This script imports `clarabel_tpu`, so it lives outside the port package.
 """
@@ -40,7 +43,11 @@ SETTINGS = {
 CASE_SETTINGS = {
     "bench": ("ldl", "condensed", "throughput", "mixed"),
     "socs": ("ldl", "condensed"),
+    "wide": ("throughput",),
 }
+# cases the reference solves through its BatchSolver (the others through
+# its vmapped build_solve, which that runs under kkt_backend="ldl")
+BATCH_SOLVER_CASES = ("wide",)
 OUT_KEYS = ("x", "z", "s", "status", "iterations", "obj_val",
             "obj_val_dual", "r_prim", "r_dual")
 
@@ -59,11 +66,11 @@ def case_inputs(name):
     import numpy as np
 
     sys.path.insert(0, ROOT)
-    if name == "bench":
+    if name in ("bench", "wide"):
         from clarabel_tpu_torch.bench_data import make_batch
 
-        n = 6
-        P, q, A, b = make_batch(64, n, seed=0)
+        n, B = (6, 64) if name == "bench" else (26, 16)
+        P, q, A, b = make_batch(B, n, seed=0)
         cones = [("NonnegativeConeT", n), ("SecondOrderConeT", n + 1)]
         return cones, n, P, q, A, b
     if name == "socs":
@@ -112,8 +119,14 @@ def run_reference(name):
            "P": P, "q": q, "A": A, "b": b}
     for st_name in CASE_SETTINGS[name]:
         st = make_settings(ct, st_name)
-        fn = jax.jit(jax.vmap(build_solve(layout, st, n, p_nonzero=True)))
-        out = jax.device_get(fn(P, q, A, b))
+        if name in BATCH_SOLVER_CASES:
+            solver = ct.BatchSolver([getattr(ct, cls)(dim)
+                                     for cls, dim in cones], n, st)
+            out = solver.solve(P, q, A, b)._out
+        else:
+            fn = jax.jit(jax.vmap(build_solve(layout, st, n,
+                                              p_nonzero=True)))
+            out = jax.device_get(fn(P, q, A, b))
         for k in OUT_KEYS:
             res[f"ref_{st_name}_{k}"] = np.asarray(out[k])
         print(f"{name}/{st_name}: statuses "

@@ -14,10 +14,15 @@ P).
 the committed loop fixtures (`loop_bench.npz`, `loop_socs.npz`), the lanes
 whose status moves when q moves by 1e-15 (relative), for three draws.
 
-Each JAX solver compiles for half a minute or so on the CPU.  Run from the
-repository root (both parts, or the one named):
+`wide`: the same for the JAX package's BatchSolver under
+`Settings.throughput()` (float32) on the committed n = 26 fixture
+(`loop_wide.npz`), q moved by 1e-15 and by 1e-7 (relative, float32's
+rounding), for three draws.
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/reference_spread.py [x] [floor]
+Each JAX solver compiles for half a minute or so on the CPU.  Run from the
+repository root (all parts, or the ones named):
+
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/reference_spread.py [x] [floor] [wide]
 """
 
 import os
@@ -102,9 +107,38 @@ def status_floor():
                   f"{(ref == 1).sum()}", flush=True)
 
 
+def wide_floor():
+    import json
+
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import clarabel_tpu as ct
+
+    f = np.load(os.path.join(HERE, "loop_wide.npz"))
+    cones = [tuple(c) for c in json.loads(str(f["cones"]))]
+    P, q, A, b = f["P"], f["q"], f["A"], f["b"]
+    bs = ct.BatchSolver([getattr(ct, c)(d) for c, d in cones], int(f["n"]),
+                        ct.Settings.throughput(dense_ldl_diag_order=False))
+    ref = f["ref_throughput_status"]
+    for seed in (7, 8, 9):
+        for rel in (1e-15, 1e-7):
+            qj = q * (1 + rel * np.random.default_rng(seed).standard_normal(
+                q.shape))
+            st = bs.solve(P, qj, A, b).status
+            moved = np.nonzero(st != ref)[0]
+            print(f"wide throughput, q*(1+{rel:.0e}*xi) draw {seed}: "
+                  f"statuses move on lanes {moved.tolist()} "
+                  f"({ref[moved].tolist()} -> {st[moved].tolist()}); SOLVED "
+                  f"{(st == 1).sum()} against {(ref == 1).sum()}", flush=True)
+
+
 def main(argv):
-    for part in argv or ["x", "floor"]:
-        {"x": x_spread, "floor": status_floor}[part]()
+    for part in argv or ["x", "floor", "wide"]:
+        {"x": x_spread, "floor": status_floor, "wide": wide_floor}[part]()
 
 
 if __name__ == "__main__":

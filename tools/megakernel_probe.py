@@ -60,11 +60,14 @@ with their ptxas lines and SASS counts, and holds each to chip_smoke.py's
 `NONSYM_BARS` at B = 4096: where the group size of exp/pow layouts and
 `ipm/_cuda.NONSYM_GROUP_LANES_PER_SM` come from.
 
-`k2 [--parent DIR] [--turns T]` times K2 at chip_smoke.py's N = 19 and 80,
-B = 65536: the rows kernel (`csrc/ldl_inverse_rows.cu`), the shared-memory
-kernel (`csrc/ldl_inverse.cu`) pinned at both N and the parent tree's, in
-turns, each held to K2's bars, with ptxas lines, SASS counts and the count
-of ok lanes whose d or L^-1 differ from the shared-memory kernel's.
+`k2 [--parent DIR] [--turns T]` times K2 at N = 19, 33, 79 and 80
+(chip_smoke.py's two and `K2_PROBE_SHAPES`), B = 65536: the rows design
+(`csrc/ldl_inverse_rows.cu` for N <= 32, `csrc/ldl_inverse_rows_wide.cu`
+above), the shared-memory kernel (`csrc/ldl_inverse.cu`) pinned at every N
+and the parent tree's K2 as its wrapper routes it, in turns, each held to
+K2's bars, with build seconds, ptxas lines, SASS counts and the count of
+lanes whose d, L^-1 or ok differ from the shared-memory kernel's, bit for
+bit.
 
 `graphs [--sizes B,B,...] [--turns T]` times this checkout's loop solver
 with its IPM pass replayed as a CUDA graph against the pass left eager,
@@ -565,47 +568,67 @@ def nonsym_sweep(args, card, out):
     return []
 
 
+# (n, m) of the K2 probe beyond chip_smoke.py's K2_SHAPES: N = 33, the
+# narrowest wide build, and 79, the bench family's widest (n = 26)
+K2_PROBE_SHAPES = ((10, 23), (26, 53))
+
+
 def k2_probe(args, card, out):
-    """K2 at N = 19 and 80, B = 65536 (chip_smoke.py's batches): this
-    checkout's kernels (the rows kernel, csrc/ldl_inverse_rows.cu, at
-    N = 19; the shared-memory kernel, csrc/ldl_inverse.cu, pinned at N = 19
-    and at N = 80) and, with --parent, the parent tree's ldl_inverse.cu, in
-    turns (--turns times over), each held to K2's bars against the plain
-    version; prints ptxas lines, SASS counts, and the count of ok lanes
-    whose d or L^-1 differ from the shared-memory kernel's."""
+    """K2 at N = 19, 33, 79 and 80, B = 65536: this checkout's rows design
+    (csrc/ldl_inverse_rows.cu up to N = 32, csrc/ldl_inverse_rows_wide.cu
+    above), the shared-memory kernel (csrc/ldl_inverse.cu) pinned at every
+    N and, with --parent, the parent tree's K2 as its wrapper routed it
+    (its rows kernel up to N = 32, its ldl_inverse.cu above), in turns
+    (--turns times over), each held to K2's bars against the plain
+    version; prints build seconds, ptxas lines, SASS counts, and the count
+    of lanes whose d, L^-1 or ok differ from the shared-memory kernel's,
+    bit for bit."""
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from clarabel_tpu_torch.linalg import batched_ldl
 
     class Shared(batched_ldl.LdlInverseKernel):
-        """The shared-memory kernel at every N (of this tree or another)."""
-
-        def __init__(self, source=None, stem=None):
-            super().__init__()
-            if source:
-                self.source, self.stem = source, stem
+        """The shared-memory kernel at every N."""
 
         def variant(self, n):
             return ()
 
+    class Parent(batched_ldl.LdlInverseKernel):
+        """The parent tree's K2: its rows kernel up to N = 32 and its
+        shared-memory kernel above."""
+
+        def __init__(self, root):
+            super().__init__()
+            self.csrc = os.path.join(os.path.abspath(root),
+                                     "clarabel_tpu_torch", "csrc")
+            self.source = os.path.join(self.csrc, "ldl_inverse.cu")
+            self.stem = "ldl_inverse_parent"
+
+        def source_for(self, variant=()):
+            return os.path.join(self.csrc, "ldl_inverse_rows.cu"
+                                if variant else "ldl_inverse.cu")
+
+        def variant(self, n):
+            return (n,) if n <= 32 else ()
+
     kerns = {"rows": batched_ldl.LdlInverseKernel(), "shared": Shared()}
     if args.parent:
-        kerns["parent"] = Shared(os.path.join(
-            os.path.abspath(args.parent), "clarabel_tpu_torch", "csrc",
-            "ldl_inverse.cu"), "ldl_inverse_parent")
+        kerns["parent"] = Parent(args.parent)
+    shapes = sorted(cs.K2_SHAPES + K2_PROBE_SHAPES, key=sum)
     t0 = time.perf_counter()
-    # the rows wrapper takes the shared-memory library at N = 80, which
-    # "shared" builds
-    cuda_build.build_together(*[(k, [k.variant(19)] if kname == "rows"
-                                 else [()]) for kname, k in kerns.items()])
+    cuda_build.build_together(*[
+        (k, sorted({k.variant(n + m) for n, m in shapes}))
+        for k in kerns.values()])
     print(f"k2: built in {time.perf_counter() - t0:.1f} s; card {card}",
           flush=True)
     for kname, k in kerns.items():
         for v, log in k.build_logs.items():
+            print(f"build K2 {kname} {v} "
+                  f"({os.path.basename(k.source_for(v))}): "
+                  f"{k.build_seconds[v]:.1f} s", flush=True)
             for line in log.splitlines():
                 if "registers" in line or "stack" in line:
                     print(f"ptxas K2 {kname} {v}: {line.strip()}", flush=True)
-        for v in ([k.variant(19)] if kname == "rows" else [()]):
             c = cs.sass_counts(k.lib_path(v))
             print(f"sass K2 {kname} {v}: {c['instructions']} instructions, "
                   f"LDL {c['LDL']}, STL {c['STL']}, LD.E {c['LD']}, ST.E "
@@ -613,14 +636,13 @@ def k2_probe(args, card, out):
     st = ctt.Settings.throughput()
     eps, delta = (st.dynamic_regularization_eps,
                   st.dynamic_regularization_delta)
-    for n, m in cs.K2_SHAPES:
+    for n, m in shapes:
         N = n + m
         K, signs = cs.k2_inputs(n, m, cs.K2_B, seed=N)
         K = torch.tensor(K, dtype=torch.float32, device="cuda")
         signs = torch.tensor(signs, dtype=torch.float32, device="cuda")
         plain = batched_ldl.ldl_inverse_plain(K, signs, eps, delta, True)
-        here = {k: v for k, v in kerns.items()
-                if N <= batched_ldl.ROWS_MAX_N or k != "rows"}
+        here = kerns
         order = (list(here) + list(here)[::-1]) * args.turns
         times = {k: [] for k in here}
         res = {}
@@ -641,15 +663,11 @@ def k2_probe(args, card, out):
                   f"max rel |dL^-1| {r['linv']:.3e}, max rel |dd| "
                   f"{r['d']:.3e}; fails: "
                   f"{', '.join(cs.k2_violations(r)) or 'none'}", flush=True)
-        ref = res["shared"]
         for who, got in res.items():
-            both = got[2] & ref[2]
-            uneq = ((got[0] != ref[0]).flatten(1).any(1)
-                    | (got[1] != ref[1]).any(1))[both]
-            print(f"k2 N={N} {who} vs shared: ok equal "
-                  f"{bool(torch.equal(got[2], ref[2]))}, ok lanes whose d or "
-                  f"L^-1 differ: {int(uneq.sum())} of {int(both.sum())}",
-                  flush=True)
+            equal, n_uneq = cs.same_bits(got, res["shared"])
+            print(f"k2 N={N} {who} vs shared: d, L^-1 and ok equal bit for "
+                  f"bit on every lane: {equal} ({n_uneq} of {cs.K2_B} lanes "
+                  f"differ)", flush=True)
         out.append(dict(kernel="K2", N=N, times=times, median_ms=med,
                         bound_ms=bound[0]))
         del K, plain, res
@@ -869,8 +887,8 @@ def bars_k2(args, card, out):
     """K2's bars of [5] (ok equal, d and L^-1 within 1e-4 of the plain
     version) at N = 19 and 80, B = 65536: the plain version against itself
     with K moved by 1e-7 (relative; a move of 1e-15 vanishes in float32)
-    over --seeds seeds, and the rows kernel (N = 19) and the shared-memory
-    kernel, the parent's design, on the fixed and the moved batches; then
+    over --seeds seeds, and the rows design and the shared-memory kernel
+    on the fixed and the moved batches; then
     how often each bar failed."""
     sys.path.insert(0, HERE)
     import chip_smoke as cs
@@ -912,8 +930,6 @@ def bars_k2(args, card, out):
             del Kj
         bar_counts(f"K2 N={N} plain vs itself (jittered)", fails, card, out)
         for kname, kern in kerns.items():
-            if kname == "rows" and N > batched_ldl.ROWS_MAX_N:
-                continue
             r = cs.k2_readings(kern(K, signs, eps, delta, True), plain)
             v = cs.k2_violations(r)
             fails = []
@@ -1129,8 +1145,8 @@ def bars(args, card, out):
     return []
 
 
-LOOP_PATHS = ("throughput bench", "throughput bench 4096", "condensed exp",
-              "condensed psd3", "condensed genpow")
+LOOP_PATHS = ("throughput bench", "throughput bench 4096", "throughput wide",
+              "condensed exp", "condensed psd3", "condensed genpow")
 
 
 def parent_package(tree):
@@ -1157,6 +1173,11 @@ def loop_case(pkg, name, B=None):
             B = 4096 if name.endswith("4096") else 65536
         data = tuple(a[:B] for a in bd.make_batch(max(B, 65536), 6, 0))
         return pkg.BatchSolver(cones, 6, pkg.Settings.throughput(),
+                               device="cuda"), data
+    if name == "throughput wide":   # chip_smoke.py [6]'s n = 26: N = 79
+        cones = [pkg.NonnegativeConeT(26), pkg.SecondOrderConeT(27)]
+        data = bd.make_batch(B or 16384, 26, 0)
+        return pkg.BatchSolver(cones, 26, pkg.Settings.throughput(),
                                device="cuda"), data
     kind = name.split()[1]
     if kind == "exp":
