@@ -1,0 +1,11 @@
+"""Device milliseconds of the LDL-inverse kernel K2 (`kernels.is_k2`) per
+call of the traced window; None where the window launched none."""
+
+from portbench import kernels
+
+
+def read(run):
+    if run.device is None:
+        return None
+    s = run.device.kernel_seconds(kernels.is_k2)
+    return s / run.device.calls * 1e3 if s > 0 else None
